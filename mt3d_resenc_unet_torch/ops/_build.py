@@ -1,0 +1,95 @@
+"""Builds the port's CUDA sources at first use and loads them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+alone into its own shared library under ``build/torch_kernels/`` at the
+repository root (listed in ``.gitignore``); no PyTorch header is compiled,
+which keeps a build to seconds. A library's file name carries a hash of its
+source and flags, so an edited source is rebuilt and a built one is reused.
+``build_all`` starts one ``nvcc`` per source at once.
+
+Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a caller
+can show that a run went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("conv3d_k3", "upsample2x")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+# kernel name -> launches since the last clear(); wrappers add one per launch
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: the kernels need nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{tag}.so"
+
+
+def _start(name: str, nvcc: str):
+    """Start nvcc for one source into a temporary file; None if built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source not built yet, all at once; returns the
+    compiler's output (register and spill counts) per newly built source."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with _lock:
+        jobs = {name: _start(name, nvcc) for name in SOURCES}
+        return {name: _finish(name, job)
+                for name, job in jobs.items() if job is not None}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock:
+        job = _start(name, _nvcc())
+        if job is not None:
+            _finish(name, job)
+        lib = _libs.setdefault(name, ctypes.CDLL(str(_target(name))))
+    return lib
