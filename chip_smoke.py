@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100): builds the
 port's CUDA kernels, holds each against its plain PyTorch version at the
 flagship's shapes, runs the full-width flagship forward against the plain
-fp32 path, and serves a volume through ``predict_volume``.
+fp32 path, serves a volume through ``predict_volume``, and runs the
+full-width flagship training step through the kernels against the plain
+fp32 path.
 
     python3 chip_smoke.py
 
@@ -21,7 +23,22 @@ Phases (any failure exits non-zero and prints no result line):
      through the kernels against the plain path in fp32;
   4. serving: ``predict_volume`` on a seeded uint8 volume of (160, 256, 256)
      with patch 128^3, overlap 0.25 and batch 2; every launch counter is
-     zeroed before it and must be above zero after it.
+     zeroed before it and the forward kernels' must be above zero after it;
+  5. training: (a) the backward kernels vs plain at the flagship's shapes
+     (N=2): conv dx at stride 1 in the plain / corr / corr+post modes and at
+     stride 2 with corr, conv dW in the plain / pre / corr / pre+corr modes
+     and at stride 2 with corr, upsample dx and dW; printed per case: the
+     error relative to the plain output's max abs, the [sum du*x; sum du]
+     error where emitted, median ms of kernel and plain and the kernel's
+     TFLOP/s. (b) TRAIN_STEPS steps of the flagship training step (batch 2
+     of 128^3, BCEDice + MaskedCosine, clip 3, AdamW on the cosine epoch
+     schedule) through the kernels in bf16 and on the plain fp32 path from
+     the same weights and a batch made from the seed with numpy (bench.py):
+     per-step losses, the relative difference of the first step's
+     grad_norm, the cosine of the two first-step gradients per top-level
+     module, step ms, patches/s, model TFLOP/s, MFU against the card's bf16
+     dense peak, and peak memory. (c) Every launch counter is zeroed before
+     (b) and all nine kernels must have launched in it.
 Then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only: nothing of JAX or of the JAX package.
@@ -42,6 +59,14 @@ STATS_TOL = 1e-3       # relative error of the fp32 [sum; sumsq]
 # 3.6e-3 and 0.99994 on an H100 at seed 0, so both limits keep >5x headroom
 SHEET_TOL = 2e-2       # max |p_bf16 - p_fp32| of the sheet probability
 NORMALS_MIN_COS = 0.999  # mean cosine of bf16 vs fp32 normals
+# the training step, bf16 through the kernels vs fp32 plain, same weights
+# and batch: limits set with >=5x headroom over the values measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W) at seed 0, written beside each
+TRAIN_LOSS_TOL = 1e-4      # rel. diff of the first step's total loss; 4.6e-6
+TRAIN_GNORM_TOL = 5e-3     # rel. diff of the first step's grad_norm; 4.1e-4
+TRAIN_MIN_COS = 0.85       # gradient cosine per top-level module; 0.974
+TRAIN_STEPS = 4
+DST_TOL = 1e-3             # [sum du*x; sum du] of the pre-op backward
 SEED = 0
 # (stride, ci, co, extent) of the conv cases and (ci, co, extent) of the
 # upsample cases: the flagship's kernel shapes at N=2
@@ -50,18 +75,36 @@ CONV_CASES = [(1, 32, 32, 128), (1, 64, 64, 64), (1, 256, 256, 16),
 CONV_MODES = ("plain", "stats", "pre_stats", "addin_stats")
 S2_CASES = [(2, 32, 64, 128), (2, 64, 128, 64)]
 UP_CASES = [(128, 64, 32), (64, 32, 64)]
+DX_MODES = ("plain", "corr", "corr_post")
+DW_MODES = ("plain", "pre", "corr", "pre_corr")
 PATCH = (128, 128, 128)
 VOLUME = (160, 256, 256)
 
+_PC = "mt3d_resenc_unet_tpu/ops/pallas_conv.py"
+_PU = "mt3d_resenc_unet_tpu/ops/pallas_upsample.py"
 REPLACES = {
-    "conv3d_k3_s1": "mt3d_resenc_unet_tpu/ops/pallas_conv.py:381",
-    "conv3d_k3_s2": "mt3d_resenc_unet_tpu/ops/pallas_conv.py:1470",
-    "upsample2x": "mt3d_resenc_unet_tpu/ops/pallas_upsample.py:59",
+    "conv3d_k3_s1": f"{_PC}:381",
+    "conv3d_k3_s2": f"{_PC}:1470",
+    "upsample2x": f"{_PU}:59",
+    "conv3d_k3_dx_s1": f"{_PC}:381",   # _conv_kernel, corr/post mode
+    "conv3d_k3_dx_s2": f"{_PC}:1711",
+    "conv3d_k3_dw_s1": f"{_PC}:865",
+    "conv3d_k3_dw_s2": f"{_PC}:1581",
+    "upsample2x_dx": f"{_PU}:70",
+    "upsample2x_dw": f"{_PU}:81",
 }
+FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
+_CS = "mt3d_resenc_unet_torch/ops/csrc"
 SOURCES = {
-    "conv3d_k3_s1": "mt3d_resenc_unet_torch/ops/csrc/conv3d_k3.cu",
-    "conv3d_k3_s2": "mt3d_resenc_unet_torch/ops/csrc/conv3d_k3.cu",
-    "upsample2x": "mt3d_resenc_unet_torch/ops/csrc/upsample2x.cu",
+    "conv3d_k3_s1": f"{_CS}/conv3d_k3.cu",
+    "conv3d_k3_s2": f"{_CS}/conv3d_k3.cu",
+    "upsample2x": f"{_CS}/upsample2x.cu",
+    "conv3d_k3_dx_s1": f"{_CS}/conv3d_k3_dx.cu",
+    "conv3d_k3_dx_s2": f"{_CS}/conv3d_k3_dx.cu",
+    "conv3d_k3_dw_s1": f"{_CS}/conv3d_k3_dw.cu",
+    "conv3d_k3_dw_s2": f"{_CS}/conv3d_k3_dw.cu",
+    "upsample2x_dx": f"{_CS}/upsample2x_bwd.cu",
+    "upsample2x_dw": f"{_CS}/upsample2x_bwd.cu",
 }
 
 
@@ -214,11 +257,13 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi)
 
-    return run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME)
+    return run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
+               TRAIN_STEPS)
 
 
-def run(dev, conv_cases, s2_cases, up_cases, patch, volume) -> int:
-    """Phases 2-4 and the result lines; the case lists and sizes are
+def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
+        train_steps) -> int:
+    """Phases 2-5 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -267,7 +312,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume) -> int:
         if arr.shape[:3] != vol.shape or not np.isfinite(arr).all():
             failures.append(f"serving: {name} shape {arr.shape} or "
                             "non-finite values")
-    for name in REPLACES:
+    for name in FORWARD:
         if launches.get(name, 0) <= 0:
             failures.append(f"serving: kernel {name} was never launched")
     small = vol[:patch[0], :patch[1], :patch[2] + patch[2] // 4]
@@ -277,6 +322,24 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume) -> int:
                     {k: torch.from_numpy(v) for k, v in pred_plain.items()},
                     f"serving blend {small.shape} bf16 kernels vs fp32 plain",
                     failures)
+
+    del pred, pred_fast, pred_plain
+    torch.cuda.empty_cache()
+
+    # 5a. backward kernels vs plain
+    bwd, fails = backward_cases(dev, gen, conv_cases, s2_cases, up_cases)
+    failures += fails
+    records += bwd
+    for r in bwd:
+        dst = "" if r["dst_err"] is None else f" dst {r['dst_err']:.3e}"
+        print(f"  {r['kernel']:15s} {r['case']:32s} err {r['max_abs_err']:.3e}"
+              f"{dst}  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+              f"{r['tflops']:.1f} TFLOP/s")
+    torch.cuda.empty_cache()
+
+    # 5b, 5c. the flagship training step
+    launches, fails = training(dev, fast, plain, patch, train_steps)
+    failures += fails
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -295,6 +358,196 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
+    """Phase 5a. Returns (per-case records, failures)."""
+    from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3_dw,
+                                                   conv3d_k3_dw_plain,
+                                                   conv3d_k3_dx,
+                                                   conv3d_k3_dx_plain)
+    from mt3d_resenc_unet_torch.ops.upsample import (upsample2x_dw,
+                                                     upsample2x_dw_plain,
+                                                     upsample2x_dx,
+                                                     upsample2x_dx_plain)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    records, failures = [], []
+    todo = [(s, ci, co, e, "dx", m) for s, ci, co, e in conv_cases
+            for m in DX_MODES]
+    todo += [(s, ci, co, e, "dw", m) for s, ci, co, e in conv_cases
+             for m in DW_MODES]
+    todo += [(s, ci, co, e, op, "corr") for s, ci, co, e in s2_cases
+             for op in ("dx", "dw")]
+    n = 2
+    for stride, ci, co, extent, op, mode in todo:
+        eo = extent // stride
+        x = randn(n, extent, extent, extent, ci).bfloat16()
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).bfloat16()
+        gy = randn(n, eo, eo, eo, co).bfloat16()
+        kw = {}
+        if "corr" in mode:
+            kw.update(y=randn(n, eo, eo, eo, co).bfloat16(),
+                      gs=randn(n, 2, co, scale=0.1))
+        if mode in ("pre", "pre_corr", "corr_post"):
+            kw["pre"] = torch.stack(
+                [torch.rand(n, ci, generator=gen) * 1.5 + 0.5,
+                 torch.randn(n, ci, generator=gen)], 1).to(dev)
+        if op == "dx":
+            if "pre" in kw:
+                kw["x"] = x
+            fn = lambda: conv3d_k3_dx(gy, w, stride, size=x.shape[1:4], **kw)
+            ref = lambda: conv3d_k3_dx_plain(gy, w, stride,
+                                             size=x.shape[1:4], **kw)
+        else:
+            fn = lambda: conv3d_k3_dw(x, gy, stride, **kw)
+            ref = lambda: conv3d_k3_dw_plain(x, gy, stride, **kw)
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        dst_err = None
+        if isinstance(got, tuple):
+            dst_err = rel_err(got[1], want[1])
+            got, want = got[0], want[0]
+        err = rel_err(got, want)
+        ms, plain_ms = median_ms(fn), median_ms(ref)
+        flops = 2 * n * eo ** 3 * 27 * ci * co
+        name = f"conv3d_k3_{op}_s{stride}"
+        case = f"{ci}->{co} @{extent}^3 {mode}"
+        records.append(dict(kernel=name, case=case, max_abs_err=err,
+                            dst_err=dst_err, ms=ms, plain_ms=plain_ms,
+                            tflops=flops / ms / 1e9))
+        if not err <= KERNEL_TOL or (dst_err is not None
+                                     and not dst_err <= DST_TOL):
+            failures.append(f"{name} {case}: err {err} dst {dst_err}")
+        del x, w, gy, kw, got, want, fn, ref
+    for ci, co, extent in up_cases:
+        x = randn(n, extent, extent, extent, ci).bfloat16()
+        wf = randn(2, 2, 2, ci, co, scale=(8 * co) ** -0.5).bfloat16()
+        gy = randn(n, 2 * extent, 2 * extent, 2 * extent, co).bfloat16()
+        for name, fn, ref in (
+                ("upsample2x_dx", lambda: upsample2x_dx(gy, wf),
+                 lambda: upsample2x_dx_plain(gy, wf)),
+                ("upsample2x_dw", lambda: upsample2x_dw(x, gy),
+                 lambda: upsample2x_dw_plain(x, gy))):
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            ms, plain_ms = median_ms(fn), median_ms(ref)
+            case = f"{ci}->{co} @{extent}^3"
+            records.append(dict(kernel=name, case=case, max_abs_err=err,
+                                dst_err=None, ms=ms, plain_ms=plain_ms,
+                                tflops=2 * n * extent ** 3 * 8 * ci * co
+                                / ms / 1e9))
+            if not err <= KERNEL_TOL:
+                failures.append(f"{name} {case}: err {err}")
+            del got, want
+        del x, wf, gy
+    return records, failures
+
+
+def flagship_batch(dev, patch, n):
+    """bench.py's float batch (bench.py:113-119), made from the seed with
+    numpy."""
+    rng = np.random.default_rng(SEED)
+    batch = {
+        "image": rng.random((n,) + patch + (1,), np.float32),
+        "sheet": (rng.random((n,) + patch + (1,)) > 0.5).astype(np.float32),
+        "normals": rng.standard_normal((n,) + patch + (3,)).astype(
+            np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_path(model, batch, steps, label):
+    """Runs ``steps`` training steps from the model's current weights;
+    returns (per-step metrics, median step ms, peak bytes, first-step
+    gradients flattened per top-level module)."""
+    from mt3d_resenc_unet_torch.train.losses import build_task_losses
+    from mt3d_resenc_unet_torch.train.step import (build_optimizer,
+                                                   cosine_epoch_schedule,
+                                                   make_train_step)
+    loss_fns = build_task_losses({
+        "sheet": {"loss_fn": "BCEDiceLoss",
+                  "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
+        "normals": {"loss_fn": "MaskedCosineLoss"}})
+    opt = build_optimizer(model.parameters(), "AdamW",
+                          cosine_epoch_schedule(1e-3, 500, 250),
+                          weight_decay=1e-4, grad_clip_norm=3.0)
+    step = make_train_step(model, loss_fns, {"sheet": 1.0, "normals": 1.0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, grads = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step(opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads = {name: torch.cat([p.grad.flatten()
+                                      for p in mod.parameters()
+                                      if p.grad is not None])
+                     for name, mod in model.named_children()}
+        print(f"  {label} step {i}: " + " ".join(
+            f"{k} {v:.6f}" for k, v in metrics[-1].items())
+            + f"  {times[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    del opt, step
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return metrics, statistics.median(times[1:] or times), peak, grads
+
+
+def training(dev, fast, plain, patch, steps):
+    """Phases 5b and 5c. Returns (launch counts of the kernel path's
+    steps, failures)."""
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.utils.flops import (H100_PEAK_BF16_TFLOPS,
+                                                     mfu, train_step_flops)
+    n = 2
+    failures = []
+    batch = flagship_batch(dev, patch, n)
+    plain.load_state_dict(fast.state_dict())
+    _build.LAUNCHES.clear()
+    got = train_path(fast, batch, steps, "kernels bf16")
+    launches = dict(_build.LAUNCHES)
+    torch.cuda.empty_cache()
+    want = train_path(plain, batch, steps, "plain fp32")
+    print(f"training launches {launches}")
+    flops = train_step_flops(fast.plan, patch)
+    for (metrics, ms, peak, _), label in ((got, "kernels bf16"),
+                                          (want, "plain fp32")):
+        tflops, frac = mfu(n / (ms / 1e3), flops)
+        print(f"train step {label}: {ms:.1f} ms median, "
+              f"{n / (ms / 1e3):.3f} patches/s, {tflops:.2f} model TFLOP/s, "
+              f"MFU {frac:.4f} of {H100_PEAK_BF16_TFLOPS} TFLOP/s bf16, "
+              f"peak memory {peak / 2 ** 30:.2f} GiB")
+        for i, m in enumerate(metrics):
+            if not all(np.isfinite(v) for v in m.values()):
+                failures.append(f"train {label} step {i}: non-finite {m}")
+    m0, p0 = got[0][0], want[0][0]
+    loss_diff = abs(m0["total_loss"] - p0["total_loss"]) / abs(
+        p0["total_loss"])
+    gn_diff = abs(m0["grad_norm"] - p0["grad_norm"]) / p0["grad_norm"]
+    print(f"train first step: total loss rel diff {loss_diff:.3e} "
+          f"(limit {TRAIN_LOSS_TOL}), grad_norm rel diff {gn_diff:.3e} "
+          f"(limit {TRAIN_GNORM_TOL})")
+    if not (loss_diff <= TRAIN_LOSS_TOL and gn_diff <= TRAIN_GNORM_TOL):
+        failures.append(f"train: loss diff {loss_diff} grad_norm diff "
+                        f"{gn_diff}")
+    for name, g in got[3].items():
+        cos = float(torch.nn.functional.cosine_similarity(
+            g, want[3][name], dim=0))
+        print(f"train first-step gradient cosine {name}: {cos:.6f} "
+              f"(limit {TRAIN_MIN_COS})")
+        if not cos >= TRAIN_MIN_COS:
+            failures.append(f"train: gradient cosine {name} {cos}")
+    for name in REPLACES:
+        if launches.get(name, 0) <= 0:
+            failures.append(f"training: kernel {name} was never launched")
+    return launches, failures
 
 
 if __name__ == "__main__":

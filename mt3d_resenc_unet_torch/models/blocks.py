@@ -1,6 +1,8 @@
-"""Eval-mode building blocks of the ResEnc U-Net in PyTorch, channels-last.
+"""Building blocks of the ResEnc U-Net in PyTorch, channels-last.
 
-The port of ``mt3d_resenc_unet_tpu/models/blocks.py`` for inference. Every
+The port of ``mt3d_resenc_unet_tpu/models/blocks.py`` for inference and
+training (the forward is the same in both; there is no dropout, DropPath or
+remat in the port, see ``network.check_plan``). Every
 tensor is plain NDHWC: the JAX package's x-packing, banded weights and the
 branching that picks a packing for the TPU have no counterpart here. What
 is kept is its fused pipeline, so the numerics follow the same order:
@@ -16,10 +18,11 @@ is kept is its fused pipeline, so the numerics follow the same order:
 The JAX package runs this pipeline only where its Pallas kernels take the
 shape and the unfused conv -> norm -> act order elsewhere; both compute the
 same function. Here every block runs the pipeline, and :class:`Conv` sends
-the shapes of the JAX package's kernel classes to the CUDA conv
-(ops/conv3d.py) and the rest (the stem, the 128-channel stage, the deep
-stride-2 convs, the 1x1 projections) to plain PyTorch, as the JAX package
-sends them to XLA.
+the shapes of the JAX package's kernel classes to the CUDA conv through
+its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``, ``Conv3dK3PairFn``,
+whose backward runs the dx and dW kernels) and the rest (the stem, the
+128-channel stage, the deep stride-2 convs, the 1x1 projections) to plain
+PyTorch, differentiated by autograd, as the JAX package sends them to XLA.
 
 Parameter names and layouts are the flax ones (``conv1.conv.kernel`` of
 shape (kd, kh, kw, ci, co)), so a JAX parameter tree loads by flattening
@@ -38,8 +41,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.conv3d import (conv3d_k3, conv3d_k3_plain, conv_s1_supported,
-                          conv_s2_supported)
+from ..ops.conv3d import (Conv3dK3Fn, Conv3dK3PairFn, conv3d_k3_plain,
+                          conv_s1_supported, conv_s2_supported)
 from ..ops.instance_norm import (Vectors, instance_stats, norm_apply,
                                  pre_vector, stats_to_scale_shift)
 
@@ -81,9 +84,10 @@ class Conv(nn.Module):
 
     ``forward`` returns ``(y, stats)``: the raw conv output in the input's
     dtype and its fp32 (N, 2, co) [sum; sumsq]. 3x3x3 convs in the kernel
-    shape classes go to the CUDA conv when ``use_kernels``; everything else
-    runs the same math in plain PyTorch. ``pre_pool``: AvgPool(pre_pool)
-    before a 1x1 conv (the ResNet-D skip projection, JAX ``_pool_proj``)."""
+    shape classes go to the CUDA conv through its autograd Functions when
+    ``use_kernels``; everything else runs the same math in plain PyTorch.
+    ``pre_pool``: AvgPool(pre_pool) before a 1x1 conv (the ResNet-D skip
+    projection, JAX ``_pool_proj``)."""
 
     def __init__(self, ci: int, co: int, kernel: Conv3, stride: Conv3,
                  use_kernels: bool = False, pre_pool: Tuple[int, ...] = (),
@@ -100,13 +104,13 @@ class Conv(nn.Module):
         fan_in = math.prod(self.kernel.shape[:-1])
         torch_uniform_(self.kernel, fan_in, generator)
 
-    def _conv_fn(self, x: torch.Tensor, w: torch.Tensor):
-        if self.use_kernels:
-            if self.stride == (1, 1, 1) and conv_s1_supported(x.shape, w.shape):
-                return conv3d_k3
-            if self.stride == (2, 2, 2) and conv_s2_supported(x.shape, w.shape):
-                return conv3d_k3
-        return conv3d_k3_plain
+    def _kernel_class(self, x: torch.Tensor, w: torch.Tensor) -> bool:
+        if not self.use_kernels:
+            return False
+        if self.stride == (1, 1, 1):
+            return conv_s1_supported(x.shape, w.shape)
+        return self.stride == (2, 2, 2) and conv_s2_supported(x.shape,
+                                                              w.shape)
 
     def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None,
                 pre: Optional[Vectors] = None):
@@ -116,20 +120,22 @@ class Conv(nn.Module):
             yf = pointwise(xf, w)
             return yf.to(x.dtype), instance_stats(yf)
         stride = self.stride[0]
+        slope = self.negative_slope
         if x2 is None:
-            conv = self._conv_fn(x, w)
-            return conv(x, w.contiguous(), stride,
-                        pre=pre_vector(pre) if pre is not None else None,
-                        emit_stats=True, negative_slope=self.negative_slope)
+            pv = pre_vector(pre) if pre is not None else None
+            if self._kernel_class(x, w):
+                return Conv3dK3Fn.apply(x, w.contiguous(), pv, stride, slope)
+            return conv3d_k3_plain(x, w, stride, pre=pv, emit_stats=True,
+                                   negative_slope=slope)
         # split-weight concat: conv(concat(x, x2), W) ==
         # conv(x, W[:c1]) + conv(x2, W[c1:]); the second conv adds the
         # first's output and emits the statistics of the sum
         c1 = x.shape[-1]
-        w1 = w[..., :c1, :].contiguous()
-        w2 = w[..., c1:, :].contiguous()
-        y1 = self._conv_fn(x, w1)(x, w1, stride)
-        return self._conv_fn(x2, w2)(x2, w2, stride, add_to=y1,
-                                     emit_stats=True)
+        w1, w2 = w[..., :c1, :], w[..., c1:, :]
+        if self._kernel_class(x, w1) and self._kernel_class(x2, w2):
+            return Conv3dK3PairFn.apply(x, x2, w.contiguous(), stride)
+        y1 = conv3d_k3_plain(x, w1, stride)
+        return conv3d_k3_plain(x2, w2, stride, add_to=y1, emit_stats=True)
 
 
 class ConvNormAct(nn.Module):

@@ -1,34 +1,35 @@
-"""Shared-encoder / multi-decoder ResEnc U-Net in PyTorch, eval mode,
-channels-last.
+"""Shared-encoder / multi-decoder ResEnc U-Net in PyTorch, channels-last.
 
-The port of ``mt3d_resenc_unet_tpu/models/network.py`` for inference
-(reference: build_network_from_config.py:20-326, encoder.py,
-decoder.py). ``forward`` takes (N, D, H, W, C_in) and returns
-``{task: (N, D, H, W, C_task)}`` in fp32 with each task's activation applied,
-as the JAX model does with ``train=False``.
+The port of ``mt3d_resenc_unet_tpu/models/network.py`` (reference:
+build_network_from_config.py:20-326, encoder.py, decoder.py). ``forward``
+takes (N, D, H, W, C_in) and returns ``{task: (N, D, H, W, C_task)}`` in
+fp32: logits in train mode, each task's activation applied in eval mode,
+as the JAX model does with ``train=True`` / ``train=False``.
 
-Plan options this slice does not run raise ``NotImplementedError`` at
-construction (see :func:`check_plan`).
+Plan options the port does not run raise ``NotImplementedError`` at
+construction (see :func:`check_plan`). ``plan.remat`` is ignored: the
+flagship step at batch 2 fits the H100's 80 GB without recomputation.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..core.plan import NetworkPlan
 from ..ops.instance_norm import stats_to_scale_shift
-from ..ops.upsample import upsample2x, upsample2x_supported, upsample_plain
+from ..ops.upsample import Upsample2xFn, upsample2x_supported, upsample_plain
 from .blocks import (StackedConvBlocks, StackedResidualBlocks, torch_uniform_,
                      voxel_count)
 
 
 def check_plan(plan: NetworkPlan) -> None:
-    """Raise NotImplementedError for every plan option the port's eval
-    forward does not run yet."""
+    """Raise NotImplementedError for every plan option the port does not
+    run yet (``remat`` is not one: it changes memory, not the function, and
+    the port ignores it)."""
     unsupported = {
         "dim != 3": plan.dim != 3,
         "basic_encoder_block other than BasicBlockD":
@@ -60,7 +61,8 @@ class UpsampleConv(nn.Module):
     flax ``ConvTranspose`` layout (*k, ci, co), which applies the kernel
     spatially flipped: y[k*i + a] = x[i] @ W[k-1-a] (JAX network.py:79-81).
     The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) goes to
-    the CUDA upsample when ``use_kernels``."""
+    the CUDA upsample through its autograd Function when ``use_kernels``;
+    the flip stays outside it, so autograd takes its gradient."""
 
     def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False):
         super().__init__()
@@ -80,7 +82,7 @@ class UpsampleConv(nn.Module):
         ci, co = wf.shape[-2:]
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
                 and upsample2x_supported(x.shape, ci, co)):
-            return upsample2x(x, wf)
+            return Upsample2xFn.apply(x, wf)
         return upsample_plain(x, wf)
 
 
@@ -181,12 +183,14 @@ def _apply_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 class ResEncUNet(nn.Module):
-    """Multi-task network: shared Encoder, one Decoder per task, eval mode.
+    """Multi-task network: shared Encoder, one Decoder per task. Starts in
+    eval mode.
 
     ``dtype`` is the compute dtype of the activations (bf16 on the card,
     where the kernels need it); parameters stay fp32 and are cast at each
-    call, as in the JAX model. Parameters start from torch's default init
-    drawn from a ``torch.Generator`` seeded with ``seed``."""
+    call, as in the JAX model, so their gradients are fp32. Parameters start
+    from torch's default init drawn from a ``torch.Generator`` seeded with
+    ``seed``."""
 
     def __init__(self, plan: NetworkPlan, dtype: torch.dtype = torch.float32,
                  seed: int = 0):
@@ -204,12 +208,21 @@ class ResEncUNet(nn.Module):
                 module.reset_parameters(generator)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                apply_activations: Optional[bool] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``apply_activations`` defaults to ``not self.training``, as in the
+        JAX model: training losses take logits; validation asks for logits
+        in eval mode with ``False``."""
+        if apply_activations is None:
+            apply_activations = not self.training
         skips = self.encoder(x.to(self.dtype).contiguous())
-        return {task.name: _apply_activation(
-                    getattr(self, f"decoder_{task.name}")(skips),
-                    task.activation)
-                for task in self.plan.tasks}
+        out = {}
+        for task in self.plan.tasks:
+            logits = getattr(self, f"decoder_{task.name}")(skips)
+            out[task.name] = (_apply_activation(logits, task.activation)
+                              if apply_activations else logits)
+        return out
 
 
 def count_params(model: nn.Module) -> int:

@@ -8,7 +8,10 @@ source and flags, so an edited source is rebuilt and a built one is reused.
 ``build_all`` starts one ``nvcc`` per source at once.
 
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a caller
-can show that a run went through the kernels.
+can show that a run went through the kernels, and calls
+:func:`check_no_grad` first: a kernel writes through raw pointers and
+records nothing for autograd, so a tensor that needs a gradient reaches it
+only through the autograd Functions of ``conv3d.py`` and ``upsample.py``.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("conv3d_k3", "upsample2x")
+SOURCES = ("conv3d_k3", "conv3d_k3_dx", "conv3d_k3_dw", "upsample2x",
+           "upsample2x_bwd")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,6 +39,19 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and a tensor needs a gradient: the kernel's
+    output would carry no ``grad_fn`` and the gradient would be lost without
+    an error. Inside an autograd Function's forward and backward grad mode
+    is off, so the Functions pass."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a kernel records no gradient; call it through its "
+            "autograd Function (or under torch.no_grad()) when an input "
+            "requires grad")
 
 
 def _nvcc() -> str:

@@ -30,7 +30,7 @@ from mt3d_resenc_unet_tpu.core.plan import plan_from_autoconfig as jax_plan
 from mt3d_resenc_unet_tpu.models.network import ResEncUNet as JaxUNet
 from mt3d_resenc_unet_tpu.models.network import count_params as jax_count
 from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
-from mt3d_resenc_unet_torch.models import blocks, network
+from mt3d_resenc_unet_torch.ops import conv3d, upsample
 from mt3d_resenc_unet_torch.models.network import ResEncUNet, count_params
 from mt3d_resenc_unet_torch.tools.from_jax import params_from_jax
 
@@ -106,8 +106,9 @@ def test_forward_matches_jax(jax_run, port, task, channels):
 def test_kernel_dispatch_reaches_every_kernel_class(jax_run, port,
                                                     monkeypatch):
     """With use_pallas_conv the kernel shape classes go through the
-    wrappers (which on the card launch the kernels): the stride-1 and
-    stride-2 conv, the split pair's add-in, and the upsample."""
+    wrappers (which on the card launch the kernels), by way of the autograd
+    Functions: the stride-1 and stride-2 conv, the split pair's add-in, and
+    the upsample."""
     seen = []
 
     def spy(name, fn):
@@ -119,9 +120,9 @@ def test_kernel_dispatch_reaches_every_kernel_class(jax_run, port,
             return fn(x, w, *args, **kw)
         return wrapped
 
-    monkeypatch.setattr(blocks, "conv3d_k3", spy("conv", blocks.conv3d_k3))
-    monkeypatch.setattr(network, "upsample2x",
-                        spy("up", network.upsample2x))
+    monkeypatch.setattr(conv3d, "conv3d_k3", spy("conv", conv3d.conv3d_k3))
+    monkeypatch.setattr(upsample, "upsample2x",
+                        spy("up", upsample.upsample2x))
     with torch.no_grad():
         out = port[0](torch.from_numpy(jax_run["x"]))
     keys = {(n, ci, co, s) for n, ci, co, s, _ in seen}
