@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100): builds the
 port's CUDA kernels, holds each against its plain PyTorch version at the
 flagship's shapes, runs the full-width flagship forward against the plain
-fp32 path, serves a volume through ``predict_volume``, and runs the
-full-width flagship training step through the kernels against the plain
-fp32 path.
+fp32 path, serves a volume through ``predict_volume``, runs the full-width
+flagship training step through the kernels against the plain fp32 path,
+holds the fused instance-norm op against its plain version, and trains the
+flagship through the port's ``Trainer`` on a synthetic zarr dataset.
 
     python3 chip_smoke.py
 
@@ -38,8 +39,26 @@ Phases (any failure exits non-zero and prints no result line):
      grad_norm, the cosine of the two first-step gradients per top-level
      module, step ms, patches/s, model TFLOP/s, MFU against the card's bf16
      dense peak, and peak memory. (c) Every launch counter is zeroed before
-     (b) and all nine kernels must have launched in it.
-Then one JSON line of the kernels and, last, the device line.
+     (b) and all nine kernels must have launched in it;
+  6. the fused instance norm + LeakyReLU (``ops/norm_act.py``) at N=2 bf16
+     and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
+     act on and off and one affine case: forward and backward through
+     ``NormActFn`` (the op path: its launches are counted) against the op
+     with every kernel replaced by its plain version. Printed per case: the
+     y, stats and dx errors, and per kernel the median ms of kernel and
+     plain and the kernel's GB/s;
+  7. the trainer: a seeded synthetic sheet + normals dataset written as
+     uncompressed zarr v2 (image u8 (256, 384, 384), sheet u8, normals u16)
+     and ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
+     settings without squeeze-excitation, for 2 epochs of 6 steps and 2
+     validation steps, then resumed from its checkpoint to a 3rd epoch: the
+     resume must start at epoch 3 with the optimizer count at 12 and the
+     parameters and momenta bit-equal to the saved ones; every launch
+     counter is zeroed before and all nine conv and upsample kernels must
+     have launched. Printed per epoch: losses, patches/s, t_fetch, t_step,
+     the checkpoint's size and save time, and the trainer's patches/s next
+     to phase 5b's step-alone rate.
+Then one JSON line of the thirteen kernels and, last, the device line.
 
 Imports torch and the port only: nothing of JAX or of the JAX package.
 """
@@ -79,9 +98,19 @@ DX_MODES = ("plain", "corr", "corr_post")
 DW_MODES = ("plain", "pre", "corr", "pre_corr")
 PATCH = (128, 128, 128)
 VOLUME = (160, 256, 256)
+# (extent, C) of the flagship's instance norms, N=2 bf16; phase 6 runs each
+# with act on and off, and the first with an affine
+NORM_CASES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512), (4, 512)]
+# phase 7: the synthetic dataset and the trainer's cut of sheet_normals.yaml
+TRAIN_DATA = (256, 384, 384)
+TRAINER_EPOCHS = 2
+TRAINER_STEPS = 6
+TRAINER_VAL_STEPS = 2
+WORK_DIR = "build/chip_smoke"
 
 _PC = "mt3d_resenc_unet_tpu/ops/pallas_conv.py"
 _PU = "mt3d_resenc_unet_tpu/ops/pallas_upsample.py"
+_PN = "mt3d_resenc_unet_tpu/ops/pallas_norm_act.py"
 REPLACES = {
     "conv3d_k3_s1": f"{_PC}:381",
     "conv3d_k3_s2": f"{_PC}:1470",
@@ -92,7 +121,13 @@ REPLACES = {
     "conv3d_k3_dw_s2": f"{_PC}:1581",
     "upsample2x_dx": f"{_PU}:70",
     "upsample2x_dw": f"{_PU}:81",
+    "norm_act_stats": f"{_PN}:43",
+    "norm_act_norm": f"{_PN}:63",
+    "norm_act_bwd_stats": f"{_PN}:112",
+    "norm_act_bwd_dx": f"{_PN}:138",
 }
+CONV_KERNELS = tuple(REPLACES)[:9]
+NORM_KERNELS = tuple(REPLACES)[9:]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 _CS = "mt3d_resenc_unet_torch/ops/csrc"
 SOURCES = {
@@ -105,6 +140,7 @@ SOURCES = {
     "conv3d_k3_dw_s2": f"{_CS}/conv3d_k3_dw.cu",
     "upsample2x_dx": f"{_CS}/upsample2x_bwd.cu",
     "upsample2x_dw": f"{_CS}/upsample2x_bwd.cu",
+    **{name: f"{_CS}/norm_act.cu" for name in NORM_KERNELS},
 }
 
 
@@ -257,13 +293,16 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi)
 
-    return run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
-               TRAIN_STEPS)
+    t0 = time.perf_counter()
+    rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
+             TRAIN_STEPS, NORM_CASES, TRAIN_DATA)
+    print(f"phases 2-7: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return rc
 
 
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
-        train_steps) -> int:
-    """Phases 2-5 and the result lines; the case lists and sizes are
+        train_steps, norm_cases, train_data) -> int:
+    """Phases 2-7 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -338,8 +377,28 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
-    launches, fails = training(dev, fast, plain, patch, train_steps)
+    step_rate, fails = training(dev, fast, plain, patch, train_steps)
     failures += fails
+    del fast, plain
+    torch.cuda.empty_cache()
+
+    # 6. the fused instance norm + LeakyReLU op
+    norm, norm_launches, fails = norm_act_cases(dev, gen, norm_cases)
+    failures += fails
+    records += norm
+    for r in norm:
+        print(f"  {r['kernel']:18s} {r['case']:22s} err {r['max_abs_err']:.3e}"
+              f"  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+              f"{r['gbs']:.0f} GB/s")
+    torch.cuda.empty_cache()
+
+    # 7. the trainer on a synthetic zarr dataset
+    train_launches, fails = trainer_phase(patch, train_data, step_rate)
+    failures += fails
+    launches = {**{k: train_launches.get(k, 0) for k in CONV_KERNELS},
+                **{k: norm_launches.get(k, 0) for k in NORM_KERNELS}}
+    failures += [f"kernels line: {k} has no launches"
+                 for k, v in launches.items() if v <= 0]
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -349,7 +408,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         mine = [r for r in records if r["kernel"] == name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name], launches=launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
             plain_ms=sum(r["plain_ms"] for r in mine)))
@@ -501,8 +560,8 @@ def train_path(model, batch, steps, label):
 
 
 def training(dev, fast, plain, patch, steps):
-    """Phases 5b and 5c. Returns (launch counts of the kernel path's
-    steps, failures)."""
+    """Phases 5b and 5c. Returns (the kernel path's patches/s,
+    failures)."""
     from mt3d_resenc_unet_torch.ops import _build
     from mt3d_resenc_unet_torch.utils.flops import (H100_PEAK_BF16_TFLOPS,
                                                      mfu, train_step_flops)
@@ -544,9 +603,284 @@ def training(dev, fast, plain, patch, steps):
               f"(limit {TRAIN_MIN_COS})")
         if not cos >= TRAIN_MIN_COS:
             failures.append(f"train: gradient cosine {name} {cos}")
-    for name in REPLACES:
+    for name in CONV_KERNELS:
         if launches.get(name, 0) <= 0:
             failures.append(f"training: kernel {name} was never launched")
+    return n / (got[1] / 1e3), failures
+
+
+def _norm_act_plain_op(x, scale, bias, act, gy, eps, slope):
+    """``instance_norm_act_fused`` forward and backward with every kernel
+    replaced by its plain version; returns (y, stats, dx)."""
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    n, c = x.shape[0], x.shape[-1]
+    x2 = x.reshape(n, -1, c)
+    fuse = act and scale is None
+    stats = na.norm_act_stats_plain(x2, eps)
+    yn = na.norm_act_norm_plain(x2, stats, slope, fuse).reshape(x.shape)
+    yn.requires_grad_()
+    y = yn
+    if scale is not None:
+        y = y * scale.to(y.dtype) + bias.to(y.dtype)
+        y = na._leaky(y, slope) if act else y
+    (gn,) = torch.autograd.grad(y, yn, gy)
+    g2 = gn.reshape(x2.shape).contiguous()
+    gsums = na.norm_act_bwd_stats_plain(x2, stats, g2, slope, fuse)
+    dx = na.norm_act_bwd_dx_plain(x2, stats, gsums, g2, slope, fuse)
+    return y.detach(), stats, dx.reshape(x.shape)
+
+
+def _mean_inv_err(got, want):
+    """Error of (N, 2, C) [mean; inv]: the mean's against the standard
+    deviation 1/inv, inv's relative."""
+    inv = want[:, 1]
+    return float(torch.maximum(((got[:, 0] - want[:, 0]).abs() * inv).max(),
+                               ((got[:, 1] - inv).abs() / inv).max()))
+
+
+def norm_act_cases(dev, gen, cases):
+    """Phase 6. Returns (per-kernel records, the op path's launch counts,
+    failures)."""
+    import collections
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    eps, slope, n = 1e-5, 1e-2, 2
+    records, failures = [], []
+    op_launches = collections.Counter()
+    todo = [(e, c, act, False) for e, c in cases for act in (True, False)]
+    todo.insert(1, (cases[0][0], cases[0][1], True, True))
+    for extent, c, act, affine in todo:
+        shape = (n, extent, extent, extent, c)
+        x = (torch.randn(*shape, generator=gen) * 2 + 0.5).to(dev).bfloat16()
+        gy = torch.randn(*shape, generator=gen).to(dev).bfloat16()
+        scale = bias = None
+        if affine:
+            scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
+            bias = torch.randn(c, generator=gen).to(dev)
+        label = (f"{extent}^3 x {c} " + ("affine" if affine else
+                                         "act" if act else "no act"))
+        # the op path: forward and backward through NormActFn
+        before = dict(_build.LAUNCHES)
+        xg = x.clone().requires_grad_()
+        y = na.instance_norm_act_fused(xg, scale, bias, eps=eps,
+                                       negative_slope=slope, act=act)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        for k, v in _build.LAUNCHES.items():
+            op_launches[k] += v - before.get(k, 0)
+        y0, st0, dx0 = _norm_act_plain_op(x, scale, bias, act, gy, eps,
+                                          slope)
+        y_err, dx_err = rel_err(y.detach(), y0), rel_err(xg.grad, dx0)
+        # each kernel against its plain version on the same inputs
+        fuse = act and not affine
+        x2, g2 = x.reshape(n, -1, c), gy.reshape(n, -1, c)
+        with torch.no_grad():
+            st = na.norm_act_stats(x2, eps)
+            gs = na.norm_act_bwd_stats(x2, st, g2, slope, fuse)
+            pairs = {
+                "norm_act_stats": (
+                    lambda: na.norm_act_stats(x2, eps),
+                    lambda: na.norm_act_stats_plain(x2, eps), 1),
+                "norm_act_norm": (
+                    lambda: na.norm_act_norm(x2, st, slope, fuse),
+                    lambda: na.norm_act_norm_plain(x2, st, slope, fuse), 2),
+                "norm_act_bwd_stats": (
+                    lambda: na.norm_act_bwd_stats(x2, st, g2, slope, fuse),
+                    lambda: na.norm_act_bwd_stats_plain(x2, st, g2, slope,
+                                                        fuse), 2),
+                "norm_act_bwd_dx": (
+                    lambda: na.norm_act_bwd_dx(x2, st, gs, g2, slope, fuse),
+                    lambda: na.norm_act_bwd_dx_plain(x2, st, gs, g2, slope,
+                                                     fuse), 3),
+            }
+            errs = {"norm_act_stats": _mean_inv_err(st, st0)}
+            for name in ("norm_act_norm", "norm_act_bwd_stats",
+                         "norm_act_bwd_dx"):
+                got, want = pairs[name][0](), pairs[name][1]()
+                errs[name] = rel_err(got, want)
+            torch.cuda.synchronize()
+            for name, (fn, ref, tensors) in pairs.items():
+                ms, plain_ms = median_ms(fn), median_ms(ref)
+                records.append(dict(
+                    kernel=name, case=label, max_abs_err=errs[name], ms=ms,
+                    plain_ms=plain_ms,
+                    gbs=tensors * x.numel() * x.element_size() / ms / 1e6))
+        tol = {"norm_act_stats": STATS_TOL, "norm_act_bwd_stats": STATS_TOL}
+        print(f"norm-act {label}: y err {y_err:.3e} dx err {dx_err:.3e} "
+              + " ".join(f"{k.removeprefix('norm_act_')} {v:.3e}"
+                         for k, v in errs.items()))
+        if not (y_err <= KERNEL_TOL and dx_err <= KERNEL_TOL):
+            failures.append(f"norm-act op {label}: y {y_err} dx {dx_err}")
+        for name, err in errs.items():
+            if not err <= tol.get(name, KERNEL_TOL):
+                failures.append(f"{name} {label}: err {err}")
+        del x, gy, xg, y, y0, st0, dx0, st, gs, pairs
+    for name in NORM_KERNELS:
+        if op_launches.get(name, 0) <= 0:
+            failures.append(f"norm-act: kernel {name} was never launched")
+    return records, {k: op_launches[k] for k in NORM_KERNELS}, failures
+
+
+def sheet_normals_config(work, volume_paths, patch, max_epoch):
+    """``tasks/sheet_normals.yaml``'s settings as a dict (the card has no
+    pyyaml), cut to a few steps, on the synthetic dataset, without
+    squeeze-excitation (the port raises for it)."""
+    return {
+        "tr_setup": {"model_name": "sheet_normals", "autoconfigure": True,
+                     "tr_val_split": 0.9, "dilate_label": False,
+                     "load_weights_only": False,
+                     "ckpt_out_base": str(work / "ckpt"),
+                     "tensorboard_log_dir": str(work / "logs"), "seed": SEED},
+        "tr_config": {"optimizer": "SGD", "initial_lr": 1e-3,
+                      "weight_decay": 1e-4, "gradient_accumulation": 1,
+                      "num_dataloader_workers": 8, "patch_size": list(patch),
+                      "batch_size": 2, "max_steps_per_epoch": TRAINER_STEPS,
+                      "max_val_steps_per_epoch": TRAINER_VAL_STEPS,
+                      "max_epoch": max_epoch, "compute_dtype": "bfloat16"},
+        "model_config": {},
+        "dataset_config": {
+            "min_bbox_percent": 0.97, "min_labeled_ratio": 0.15,
+            "use_cache": True, "cache_folder": str(work / "patch_cache"),
+            "in_channels": 1, "volume_paths": [volume_paths],
+            "targets": {
+                "sheet": {"channels": 1, "activation": "sigmoid",
+                          "weight": 1.0, "loss_fn": "BCEDiceLoss",
+                          "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
+                "normals": {"channels": 3, "activation": "none",
+                            "weight": 1.0, "loss_fn": "MaskedCosineLoss"}}},
+        "inference_config": {},
+    }
+
+
+def host_sample_cost(cfg, n=24):
+    """The trainer's per-sample host work (read + augment) on one thread,
+    for the samples of the first epoch: what the loader threads share.
+    Where cv2 is importable it is timed with cv2 and again on the
+    ``scipy.ndimage`` branches that a machine without cv2 runs."""
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.data import augment
+    from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
+    ds = ZarrPatchDataset(ConfigManager(config_dict=cfg), seed=SEED,
+                          wire=True)
+    has_cv2 = augment._HAS_CV2
+    try:
+        for use_cv2 in sorted({has_cv2, False}, reverse=True):
+            augment._HAS_CV2 = use_cv2
+            ds.set_seed(SEED * 100003)
+            times = []
+            for idx in range(min(n, len(ds))):
+                t0 = time.perf_counter()
+                ds[idx]
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"host sample cost ({len(times)} samples, augmentation "
+                  f"on, one thread, {'cv2' if use_cv2 else 'scipy.ndimage'}"
+                  f" filters): mean {statistics.mean(times):.1f} ms, median "
+                  f"{statistics.median(times):.1f} ms, max "
+                  f"{max(times):.1f} ms")
+    finally:
+        augment._HAS_CV2 = has_cv2
+
+
+def trainer_phase(patch, train_data, step_rate):
+    """Phase 7. Returns (launch counts of the two trainer runs, failures)."""
+    import os
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.tools.synthetic_data import \
+        write_sheet_dataset
+    from mt3d_resenc_unet_torch.train.checkpoint import CheckpointManager
+    from mt3d_resenc_unet_torch.train.trainer import Trainer
+    failures = []
+    work = Path(WORK_DIR).absolute()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    paths = write_sheet_dataset(work / "data", train_data, seed=SEED)
+    print(f"trainer data {train_data}: written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    probe = {}
+
+    class ResumeProbe(Trainer):
+        """Records the state right after the resume."""
+
+        def _restore(self, path, model, opt):
+            epoch = super()._restore(path, model, opt)
+            probe.update(
+                epoch=epoch, count=opt.count,
+                params={k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()},
+                momenta=[v["momentum_buffer"].cpu().clone() for _, v in
+                         sorted(opt.opt.state_dict()["state"].items())])
+            return epoch
+
+    cwd = os.getcwd()
+    os.chdir(work)      # the final weights and the debug GIF land in the cwd
+    try:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        first = Trainer(config_dict=sheet_normals_config(
+            work, paths, patch, TRAINER_EPOCHS), verbose=False).train()
+        history = first["history"]
+        del first
+        torch.cuda.empty_cache()
+        cfg = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS + 1)
+        cfg["tr_setup"]["checkpoint_path"] = str(work / "ckpt" /
+                                                 "sheet_normals")
+        second = ResumeProbe(config_dict=cfg, verbose=False).train()
+        history += second["history"]
+        del second
+        launches = dict(_build.LAUNCHES)
+        print(f"trainer: {time.perf_counter() - t0:.1f} s for "
+              f"{TRAINER_EPOCHS} + 1 epochs; launches {launches}")
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+
+    for h in history:
+        losses = {k: v for k, v in h.items() if k.endswith("_loss")}
+        print(f"trainer epoch {h['epoch'] + 1}: " + " ".join(
+            f"{k} {v:.6f}" for k, v in losses.items())
+            + f"  {h['train/patches_per_sec']:.3f} patches/s, t_fetch "
+            f"{h['train/t_fetch_s']:.2f} s, t_step {h['train/t_step_s']:.2f} s"
+            + (f", checkpoint {h['ckpt/bytes'] / 2 ** 30:.3f} GiB saved in "
+               f"{h['ckpt/seconds']:.2f} s" if "ckpt/bytes" in h else ""))
+        if not all(np.isfinite(v) for v in losses.values()):
+            failures.append(f"trainer epoch {h['epoch'] + 1}: non-finite "
+                            f"{losses}")
+    if [h["epoch"] for h in history] != list(range(TRAINER_EPOCHS + 1)):
+        failures.append(f"trainer: epochs {[h['epoch'] for h in history]}")
+    steady = history[1:]
+    rate = sum(h["train/patches_per_sec"] for h in steady) / len(steady)
+    fetch = sum(h["train/t_fetch_s"] for h in steady)
+    step = sum(h["train/t_step_s"] for h in steady)
+    print(f"trainer epochs 2-{len(history)}: {rate:.3f} patches/s against "
+          f"{step_rate:.3f} for the step alone (phase 5b); t_fetch is "
+          f"{fetch / (fetch + step):.1%} of fetch + step")
+
+    host_sample_cost(sheet_normals_config(work, paths, patch, 1))
+
+    saved = CheckpointManager(work / "ckpt", "sheet_normals").restore(
+        TRAINER_EPOCHS - 1)
+    want_count = TRAINER_EPOCHS * TRAINER_STEPS
+    same_params = bool(probe) and sorted(probe["params"]) == sorted(
+        saved["params"]) and all(torch.equal(v, saved["params"][k])
+                                 for k, v in probe["params"].items())
+    saved_m = [v["momentum_buffer"] for _, v in
+               sorted(saved["opt_state"]["state"].items())]
+    same_momenta = bool(probe) and len(saved_m) == len(probe["momenta"]) \
+        and all(torch.equal(a, b) for a, b in zip(probe["momenta"], saved_m))
+    print(f"trainer resume: start epoch {probe.get('epoch', -1) + 1}, "
+          f"optimizer count {probe.get('count')} (want {want_count}), params "
+          f"bit-equal {same_params}, momenta bit-equal {same_momenta}")
+    if not (probe.get("epoch") == TRAINER_EPOCHS
+            and probe.get("count") == want_count and same_params
+            and same_momenta):
+        failures.append("trainer: the resume did not restore the state")
+    for name in CONV_KERNELS:
+        if launches.get(name, 0) <= 0:
+            failures.append(f"trainer: kernel {name} was never launched")
+    shutil.rmtree(work, ignore_errors=True)
     return launches, failures
 
 

@@ -2,7 +2,8 @@
 consume.
 
 A copy of ``mt3d_resenc_unet_tpu/core/plan.py`` (``NetworkPlan``,
-``TaskHead``, ``plan_from_autoconfig`` and the pool/conv planner they call):
+``TaskHead``, ``plan_from_autoconfig``, ``plan_from_manual_config`` and the
+helpers they call):
 that package's ``__init__`` imports flax, so the port cannot import it. The
 autoconfiguration reproduces the nnU-Net-v2 ResEnc-M heuristics of the
 reference (utils.py:334-445, build_network_from_config.py:39-80).
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 
 def compute_pool_and_conv_plan(
@@ -101,6 +102,68 @@ def default_blocks_per_stage(num_stages: int) -> Tuple[int, ...]:
 
 
 
+
+
+def _as_per_stage_kernels(kernel_sizes, num_stages: int, dim: int) -> Tuple[Tuple[int, ...], ...]:
+    """Normalize kernel_sizes config (int | [int] | [[int]*dim]*stages) to a
+    tuple of per-stage per-axis tuples."""
+    if isinstance(kernel_sizes, int):
+        return tuple((kernel_sizes,) * dim for _ in range(num_stages))
+    kernel_sizes = list(kernel_sizes)
+    if all(isinstance(k, int) for k in kernel_sizes):
+        if len(kernel_sizes) == dim and num_stages == dim and dim > 1:
+            # ambiguous (could be one per-axis kernel OR per-stage scalars);
+            # resolved as per-stage scalars like the reference — warn when
+            # the two readings build different networks so a config typo is
+            # not silent
+            if len(set(kernel_sizes)) > 1:
+                import warnings
+                warnings.warn(
+                    f"kernel_sizes={kernel_sizes} is ambiguous with "
+                    f"num_stages == dim == {dim}: interpreting as PER-STAGE "
+                    "scalar kernels. Use nested per-stage lists "
+                    "(e.g. [[3,3,3], ...]) to be explicit.", stacklevel=3)
+            return tuple((int(k),) * dim for k in kernel_sizes)
+        if len(kernel_sizes) == 1:
+            return tuple((int(kernel_sizes[0]),) * dim for _ in range(num_stages))
+        if len(kernel_sizes) == num_stages:
+            return tuple((int(k),) * dim for k in kernel_sizes)
+        raise ValueError(
+            f"kernel_sizes of length {len(kernel_sizes)} does not match num_stages={num_stages}"
+        )
+    out = []
+    for k in kernel_sizes:
+        if isinstance(k, int):
+            out.append((k,) * dim)
+        else:
+            kk = tuple(int(x) for x in k)
+            if len(kk) != dim:
+                raise ValueError(f"per-stage kernel {kk} does not have {dim} axes")
+            out.append(kk)
+    if len(out) == 1:
+        out = out * num_stages
+    if len(out) != num_stages:
+        raise ValueError(
+            f"kernel_sizes has {len(out)} stages, expected {num_stages}"
+        )
+    return tuple(out)
+
+
+def _as_per_stage_strides(strides, num_stages: int, dim: int) -> Tuple[Tuple[int, ...], ...]:
+    if isinstance(strides, int):
+        return tuple((strides,) * dim for _ in range(num_stages))
+    out = []
+    for s in strides:
+        if isinstance(s, int):
+            out.append((s,) * dim)
+        else:
+            ss = tuple(int(x) for x in s)
+            if len(ss) != dim:
+                raise ValueError(f"per-stage stride {ss} does not have {dim} axes")
+            out.append(ss)
+    if len(out) != num_stages:
+        raise ValueError(f"strides has {len(out)} stages, expected {num_stages}")
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,3 +326,111 @@ def plan_from_autoconfig(
         model_name=model_name,
         **overrides,
     )
+
+
+def plan_from_manual_config(
+    model_config: Mapping[str, Any],
+    patch_size: Sequence[int],
+    in_channels: int,
+    tasks: Sequence[TaskHead],
+    model_name: str = "Model",
+) -> NetworkPlan:
+    """Build a plan from an explicit per-stage spec, validating required keys
+    like the reference (build_network_from_config.py:82-162)."""
+    required = (
+        "basic_encoder_block",
+        "basic_decoder_block",
+        "bottleneck_block",
+        "features_per_stage",
+        "num_stages",
+        "n_blocks_per_stage",
+        "kernel_sizes",
+        "n_conv_per_stage_decoder",
+        "strides",
+    )
+    missing = [k for k in required if k not in model_config]
+    if missing:
+        raise ValueError(
+            "autoconfigure=False but required model_config keys are missing: "
+            + ", ".join(missing)
+        )
+    dim = len(patch_size)
+    num_stages = int(model_config["num_stages"])
+    features = model_config["features_per_stage"]
+    if isinstance(features, int):
+        features = [features * 2 ** i for i in range(num_stages)]
+    features = tuple(int(f) for f in features)
+
+    bottleneck_block = str(model_config["bottleneck_block"])
+    bottleneck_channels = model_config.get("bottleneck_channels")
+    if bottleneck_block == "BottleneckBlockD":
+        if bottleneck_channels is None:
+            bottleneck_channels = tuple(f // 4 for f in features)
+        elif isinstance(bottleneck_channels, int):
+            bottleneck_channels = (bottleneck_channels,) * num_stages
+        else:
+            bottleneck_channels = tuple(int(c) for c in bottleneck_channels)
+    else:
+        bottleneck_channels = None
+
+    squeeze_excitation = bool(model_config.get("squeeze_excitation", False))
+    stem_channels = model_config.get("stem_channels")
+    if isinstance(stem_channels, str):  # YAML "None" artifacts
+        stem_channels = None
+
+    return NetworkPlan(
+        in_channels=in_channels,
+        dim=dim,
+        num_stages=num_stages,
+        features_per_stage=features,
+        n_blocks_per_stage=tuple(int(b) for b in _listify(model_config["n_blocks_per_stage"], num_stages)),
+        n_conv_per_stage_decoder=tuple(
+            int(b) for b in _listify(model_config["n_conv_per_stage_decoder"], num_stages - 1)
+        ),
+        kernel_sizes=_as_per_stage_kernels(model_config["kernel_sizes"], num_stages, dim),
+        strides=_as_per_stage_strides(model_config["strides"], num_stages, dim),
+        tasks=tuple(tasks),
+        basic_encoder_block=_canonical_block(str(model_config["basic_encoder_block"]), "encoder"),
+        basic_decoder_block=_canonical_block(str(model_config["basic_decoder_block"]), "decoder"),
+        bottleneck_block=bottleneck_block,
+        bottleneck_channels=bottleneck_channels,
+        conv_bias=bool(model_config.get("conv_bias", False)),
+        dropout_p=float((model_config.get("dropout_op_kwargs") or {}).get("p", 0.0)),
+        do_stem=bool(model_config.get("do_stem", True)),
+        stem_channels=stem_channels,
+        squeeze_excitation=squeeze_excitation,
+        squeeze_excitation_reduction_ratio=(
+            float(model_config.get("squeeze_excitation_reduction_ratio", 1.0 / 16.0))
+            if not isinstance(model_config.get("squeeze_excitation_reduction_ratio"), str)
+            else 1.0 / 16.0
+        ),
+        stochastic_depth_p=float(model_config.get("stochastic_depth_p", 0.0)),
+        deep_supervision=bool(model_config.get("deep_supervision", False)),
+        patch_size=tuple(int(p) for p in patch_size),
+        model_name=model_name,
+    )
+
+
+def _canonical_block(name: str, role: str) -> str:
+    """Map config block names to canonical ones. The reference accepts
+    'ResidualBlock'/'ConvBlock' for decoders and 'BasicBlockD'/'ResidualBlock'
+    for encoders (encoder.py:72-79, decoder.py:68,102)."""
+    aliases = {
+        "residualblock": "ResidualBlock",
+        "basicblockd": "BasicBlockD",
+        "bottleneckblockd": "BottleneckBlockD",
+        "bottleneckd": "BottleneckBlockD",
+        "convblock": "ConvBlock",
+    }
+    canon = aliases.get(name.lower())
+    if canon is None:
+        raise ValueError(f"Unknown {role} block type: {name}")
+    if role == "encoder" and canon == "ResidualBlock":
+        canon = "BasicBlockD"
+    return canon
+
+
+def _listify(v, n: int):
+    if isinstance(v, int):
+        return [v] * n
+    return list(v)

@@ -17,19 +17,8 @@ import numpy as np
 import torch
 
 from ..data.positions import sliding_window_grid
+from ..data.zio import normalize_to_unit
 from .gaussian import gaussian_map
-
-_U8_UNIT_LUT = np.arange(256, dtype=np.float32) / 255.0
-
-
-def normalize_to_unit(data: np.ndarray, dtype: np.dtype) -> np.ndarray:
-    """Input normalization: uint8/255, uint16/65535, pass-through floats
-    (JAX data/zio.py:221; reference: dataloading/dataset.py:125-131)."""
-    if dtype == np.uint8:
-        return _U8_UNIT_LUT[data]
-    if dtype == np.uint16:
-        return data.astype(np.float32) / np.float32(65535.0)
-    return data.astype(np.float32)
 
 
 def standardize(patch: np.ndarray, eps: float = 1e-10) -> np.ndarray:

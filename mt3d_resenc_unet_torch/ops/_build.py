@@ -11,7 +11,8 @@ Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a caller
 can show that a run went through the kernels, and calls
 :func:`check_no_grad` first: a kernel writes through raw pointers and
 records nothing for autograd, so a tensor that needs a gradient reaches it
-only through the autograd Functions of ``conv3d.py`` and ``upsample.py``.
+only through the autograd Functions of ``conv3d.py``, ``upsample.py`` and
+``norm_act.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv3d_k3", "conv3d_k3_dx", "conv3d_k3_dw", "upsample2x",
-           "upsample2x_bwd")
+           "upsample2x_bwd", "norm_act")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

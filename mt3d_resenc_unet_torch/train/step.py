@@ -230,3 +230,20 @@ def make_eval_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss]):
         return metrics
 
     return eval_step
+
+
+def make_predict_step(model: torch.nn.Module):
+    """Build ``predict(image) -> {task: prediction}``: the eval-mode forward
+    with each task's activation applied, and for deep supervision the
+    full-resolution head only (JAX step.py:321-332; reference model forward
+    in eval: build_network_from_config.py:321-323)."""
+
+    @torch.no_grad()
+    def predict(image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model.eval()
+        image = decode_wire({"image": image})["image"]
+        outs = model(image)
+        return {k: (v[0] if isinstance(v, (list, tuple)) else v)
+                for k, v in outs.items()}
+
+    return predict

@@ -7,8 +7,9 @@ imports, hence ``--noconftest``):
 
 Tolerances: outputs are bf16 on both sides, rounded from fp32 sums taken
 in another order, so they may differ by one bf16 step (2^-8 of the value):
-1e-2 of the plain output's max abs. The fp32 statistics and the pre-op
-backward's [sum du*x; sum du]: 1e-3 relative. The fp32 weight gradients
+1e-2 of the plain output's max abs. The fp32 statistics (the convs' and the
+norm-act kernels') and the pre-op backward's [sum du*x; sum du]: 1e-3
+relative. The fp32 weight gradients
 share the bf16 inputs and differ by summation order (atomics): 1e-2 of the
 max abs, as the outputs. The 32^3 training backward in bf16 through the
 kernels against the plain fp32 path: loss within 1e-2 relative and the
@@ -261,3 +262,59 @@ def test_model_backward_through_kernels_matches_plain_fp32(dev):
                         if p.grad is not None])
         cos = torch.nn.functional.cosine_similarity(ga, gb, dim=0)
         assert float(cos) >= 0.95, (name, float(cos))
+
+
+@pytest.mark.parametrize("extent,c", [(12, 32), (6, 64), (3, 512)])
+@pytest.mark.parametrize("act", [True, False])
+def test_norm_act_kernels_match_plain(dev, extent, c, act):
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    g = torch.Generator().manual_seed(7)
+    x2 = (torch.randn(2, extent ** 3, c, generator=g) * 2 + 0.5).to(
+        dev).bfloat16()
+    g2 = torch.randn(2, extent ** 3, c, generator=g).to(dev).bfloat16()
+    before = {k: _build.LAUNCHES[k] for k in (
+        "norm_act_stats", "norm_act_norm", "norm_act_bwd_stats",
+        "norm_act_bwd_dx")}
+    st = na.norm_act_stats(x2)
+    y = na.norm_act_norm(x2, st, 1e-2, act)
+    gs = na.norm_act_bwd_stats(x2, st, g2, 1e-2, act)
+    dx = na.norm_act_bwd_dx(x2, st, gs, g2, 1e-2, act)
+    torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[k] == v + 1 for k, v in before.items())
+    torch.testing.assert_close(st, na.norm_act_stats_plain(x2, 1e-5),
+                               rtol=1e-3, atol=1e-5)
+    assert _rel(y, na.norm_act_norm_plain(x2, st, 1e-2, act)) <= 1e-2
+    assert _rel_vec(gs, na.norm_act_bwd_stats_plain(x2, st, g2, 1e-2,
+                                                    act)) <= 1e-3
+    assert _rel(dx, na.norm_act_bwd_dx_plain(x2, st, gs, g2, 1e-2,
+                                             act)) <= 1e-2
+
+
+def test_device_prefetch_copies_batches_to_the_card(dev):
+    import numpy as np
+    from mt3d_resenc_unet_torch.data.pipeline import device_prefetch
+    rng = np.random.default_rng(0)
+    host = [{"image": rng.standard_normal((2, 16, 16, 16), np.float32),
+             "sheet": rng.integers(0, 256, (2, 16, 16, 16), dtype=np.uint8)}
+            for _ in range(6)]
+    got = []
+    for batch in device_prefetch(iter(host), dev, bf16_keys=("image",)):
+        assert batch["image"].dtype == torch.bfloat16
+        assert batch["sheet"].dtype == torch.uint8
+        assert all(v.device.type == "cuda" for v in batch.values())
+        # consume on the current stream, as a step does
+        got.append({k: v.float().sum(0).cpu() for k, v in batch.items()})
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        want_image = torch.from_numpy(h["image"]).bfloat16().float().sum(0)
+        assert torch.equal(g["image"], want_image)
+        assert torch.equal(g["sheet"],
+                           torch.from_numpy(h["sheet"]).float().sum(0))
+
+    def failing():
+        yield host[0]
+        raise ValueError("producer failed")
+
+    with pytest.raises(ValueError, match="producer failed"):
+        for _ in device_prefetch(failing(), dev):
+            pass
