@@ -11,14 +11,20 @@ flagship through the port's ``Trainer`` on a synthetic zarr dataset.
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
-     per source, all at once) and print the card's name and power limit;
+     per source, all at once), print the registers, shared memory and
+     spills ``-Xptxas -v`` reports (per entry for the two tensor-core
+     sources) and the card's name and power limit;
   2. kernel vs plain on the card at the flagship's shapes (N=2): the conv
-     at stride 1 (C=32 @128^3, 64 @64^3, 256 @16^3, 512 @8^3, each in the
-     plain / stats / pre+stats / add-in+stats modes), at stride 2 (32->64,
-     64->128, with stats) and the upsample (128->64, 64->32). Plain versions
-     run in fp32 with TF32 off. Printed per case: the max abs error relative
-     to the plain output's max abs, the stats' relative error, and the
-     median ms of kernel and plain;
+     at stride 1 (C=32 @128^3, 64 @64^3, 256 @16^3, 512 @8^3 and @4^3, each
+     in the plain / stats / pre+stats / add-in+stats modes), at stride 2
+     (32->64, 64->128, with stats) and the upsample (128->64, 64->32). Plain
+     versions run in fp32 with TF32 off. Printed per case: the max abs
+     error relative to the plain output's max abs, the stats' relative
+     error, the median ms of kernel, plain and the one bf16 library call of
+     the same function (``library_ms``: cuDNN through F.conv3d /
+     F.conv_transpose3d on the tensors viewed as channels-last NCDHW), the
+     kernel's TFLOP/s and its bound (the larger of FLOPs at 989 TFLOP/s and
+     bytes at 3.35 TB/s);
   3. the flagship plan (128^3 patch, 6 stages, sheet + normals heads) with
      torch-default init from seed 0: eval forward at batch 2 in bf16
      through the kernels against the plain path in fp32;
@@ -30,8 +36,10 @@ Phases (any failure exits non-zero and prints no result line):
      stride 2 with corr, conv dW in the plain / pre / corr / pre+corr modes
      and at stride 2 with corr, upsample dx and dW; printed per case: the
      error relative to the plain output's max abs, the [sum du*x; sum du]
-     error where emitted, median ms of kernel and plain and the kernel's
-     TFLOP/s. (b) TRAIN_STEPS steps of the flagship training step (batch 2
+     error where emitted, median ms of kernel, plain and library
+     (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``,
+     ``aten.convolution_backward``), the kernel's TFLOP/s and its bound.
+     (b) TRAIN_STEPS steps of the flagship training step (batch 2
      of 128^3, BCEDice + MaskedCosine, clip 3, AdamW on the cosine epoch
      schedule) through the kernels in bf16 and on the plain fp32 path from
      the same weights and a batch made from the seed with numpy (bench.py):
@@ -39,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
      grad_norm, the cosine of the two first-step gradients per top-level
      module, step ms, patches/s, model TFLOP/s, MFU against the card's bf16
      dense peak, and peak memory. (c) Every launch counter is zeroed before
-     (b) and all nine kernels must have launched in it;
+     (b) and all nine kernels must have launched in it; its counts by shape
+     and mode times the cases of 2 and 5a give each kernel's ms, library
+     ms and bound per training step;
   6. the fused instance norm + LeakyReLU (``ops/norm_act.py``) at N=2 bf16
      and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
      act on and off and one affine case: forward and backward through
@@ -58,11 +68,14 @@ Phases (any failure exits non-zero and prints no result line):
      have launched. Printed per epoch: losses, patches/s, t_fetch, t_step,
      the checkpoint's size and save time, and the trainer's patches/s next
      to phase 5b's step-alone rate.
-Then one JSON line of the thirteen kernels and, last, the device line.
+Then one JSON line of the thirteen kernels (launches, error, and ms,
+plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
+last, the device line.
 
 Imports torch and the port only: nothing of JAX or of the JAX package.
 """
 
+import collections
 import json
 import statistics
 import subprocess
@@ -87,10 +100,15 @@ TRAIN_MIN_COS = 0.85       # gradient cosine per top-level module; 0.974
 TRAIN_STEPS = 4
 DST_TOL = 1e-3             # [sum du*x; sum du] of the pre-op backward
 SEED = 0
+# the card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W):
+# bf16 tensor cores, fp32 outside them, and HBM3
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 # (stride, ci, co, extent) of the conv cases and (ci, co, extent) of the
 # upsample cases: the flagship's kernel shapes at N=2
 CONV_CASES = [(1, 32, 32, 128), (1, 64, 64, 64), (1, 256, 256, 16),
-              (1, 512, 512, 8)]
+              (1, 512, 512, 8), (1, 512, 512, 4)]
 CONV_MODES = ("plain", "stats", "pre_stats", "addin_stats")
 S2_CASES = [(2, 32, 64, 128), (2, 64, 128, 64)]
 UP_CASES = [(128, 64, 32), (64, 32, 64)]
@@ -101,6 +119,9 @@ VOLUME = (160, 256, 256)
 # (extent, C) of the flagship's instance norms, N=2 bf16; phase 6 runs each
 # with act on and off, and the first with an affine
 NORM_CASES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512), (4, 512)]
+# norm-act kernel -> (fp32 operations per element, (N, 2, C) vectors moved)
+NORM_OPS = {"norm_act_stats": (3, 1), "norm_act_norm": (4, 1),
+            "norm_act_bwd_stats": (6, 2), "norm_act_bwd_dx": (8, 2)}
 # phase 7: the synthetic dataset and the trainer's cut of sheet_normals.yaml
 TRAIN_DATA = (256, 384, 384)
 TRAINER_EPOCHS = 2
@@ -131,12 +152,12 @@ NORM_KERNELS = tuple(REPLACES)[9:]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 _CS = "mt3d_resenc_unet_torch/ops/csrc"
 SOURCES = {
-    "conv3d_k3_s1": f"{_CS}/conv3d_k3.cu",
+    "conv3d_k3_s1": f"{_CS}/conv3d_k3_s1.cu",
     "conv3d_k3_s2": f"{_CS}/conv3d_k3.cu",
     "upsample2x": f"{_CS}/upsample2x.cu",
     "conv3d_k3_dx_s1": f"{_CS}/conv3d_k3_dx.cu",
     "conv3d_k3_dx_s2": f"{_CS}/conv3d_k3_dx.cu",
-    "conv3d_k3_dw_s1": f"{_CS}/conv3d_k3_dw.cu",
+    "conv3d_k3_dw_s1": f"{_CS}/conv3d_k3_dw_s1.cu",
     "conv3d_k3_dw_s2": f"{_CS}/conv3d_k3_dw.cu",
     "upsample2x_dx": f"{_CS}/upsample2x_bwd.cu",
     "upsample2x_dw": f"{_CS}/upsample2x_bwd.cu",
@@ -174,8 +195,64 @@ def stats_err(got, want):
     return float(torch.maximum(e_sum.max(), e_sq.max()))
 
 
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """The least time the card could take for ``flops`` operations (at
+    ``peak``) and ``nbytes`` of device memory traffic (each input read once,
+    each output written once): (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_flops(n, ci, co, extent, stride):
+    return 2 * 27 * ci * co * n * (extent // stride) ** 3
+
+
+def _ncdhw(t):
+    """NDHWC -> NCDHW view: channels-last-3d memory, as cuDNN takes it."""
+    return t.permute(0, 4, 1, 2, 3)
+
+
+def _lib_conv_w(w):
+    """(k, k, k, Ci, Co) -> cuDNN's (Co, Ci, k, k, k), channels-last-3d."""
+    return w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def _lib_up_w(wf):
+    """Flipped (2, 2, 2, Ci, Co) -> conv_transpose3d's (Ci, Co, 2, 2, 2)."""
+    return wf.permute(3, 4, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def tensor_core_usage(logs):
+    """Registers, shared memory and spills of each tensor-core kernel entry
+    (nvcc -Xptxas -v), and the dynamic shared memory its launch asks for."""
+    import math
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    halo = math.prod(b + 2 for b in c3.S1_BRICK)
+    s1 = 2 * (halo * c3.S1_KC * 2 + 27 * c3.S1_KC * c3.S1_CT * 2)
+    dw_x = math.prod(b + 2 for b in c3.DW_BRICK) * c3.DW_CT * 2
+    dw_g = math.prod(c3.DW_BRICK) * c3.DW_CT * 2
+    print(f"  dynamic shared memory per block: conv3d_k3_s1 {s1} B, with "
+          f"pre {s1 + halo * c3.S1_KC * 2} B; conv3d_k3_dw_s1 "
+          f"{2 * (dw_x + dw_g)} B, with corr {2 * (dw_x + 2 * dw_g)} B")
+    for source in ("conv3d_k3_s1", "conv3d_k3_dw_s1"):
+        entry = None
+        for line in logs[source].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("spill" in line or "registers" in line):
+                usage = line.split(":", 1)[-1].strip()
+                print(f"  {source} {entry[:60]}: {usage}")
+
+
 def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
-    """Phase 2. Returns (per-case records, failures)."""
+    """Phase 2. Returns (per-case records, failures). Each record holds the
+    kernel's and the plain version's median ms, the bf16 library call's
+    (``library_ms``: cuDNN through F.conv3d / F.conv_transpose3d on the
+    same tensors viewed as channels-last NCDHW, weights laid out for it
+    before timing) and the bound."""
+    import torch.nn.functional as F
     from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_plain
     from mt3d_resenc_unet_torch.ops.upsample import upsample2x, upsample_plain
 
@@ -187,6 +264,7 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
             for m in CONV_MODES]
     todo += [(s, ci, co, e, "stats") for s, ci, co, e in s2_cases]
     n = 2
+    lib_ms = {}
     for stride, ci, co, extent, mode in todo:
         x = randn(n, extent, extent, extent, ci).bfloat16()
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).bfloat16()
@@ -207,10 +285,31 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
         s_err = stats_err(got[1], want[1]) if got[1] is not None else None
         ms = median_ms(lambda: conv3d_k3(x, w, stride, **kw))
         plain_ms = median_ms(lambda: conv3d_k3_plain(x, w, stride, **kw))
+        key = (stride, ci, co, extent)
+        if key not in lib_ms:    # one library call per shape: the conv alone
+            xl, wl = _ncdhw(x), _lib_conv_w(w)
+            lib = F.conv3d(xl, wl, stride=stride, padding=1)
+            # the first case of a shape is its plain or stats mode, whose
+            # output is the conv alone
+            print(f"  library conv3d {ci}->{co} @{extent}^3 s{stride}: err "
+                  f"{rel_err(lib.permute(0, 2, 3, 4, 1), want[0]):.3e} "
+                  "vs plain")
+            lib_ms[key] = median_ms(
+                lambda: F.conv3d(xl, wl, stride=stride, padding=1))
+            del xl, wl, lib
+        nbytes = 2 * (x.numel() + w.numel() + n * eo ** 3 * co * (
+            2 if "addin" in mode else 1)) + (8 * n * ci if "pre" in mode
+                                             else 0) + (8 * n * co if mode
+                                                        != "plain" else 0)
+        b_ms, b_by = bound(conv_flops(n, ci, co, extent, stride), nbytes)
         name = f"conv3d_k3_s{stride}"
-        records.append(dict(kernel=name, case=f"{ci}->{co} @{extent}^3 "
-                            f"{mode}", max_abs_err=err, stats_err=s_err,
-                            ms=ms, plain_ms=plain_ms))
+        records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
+                            case=f"{ci}->{co} @{extent}^3 {mode}",
+                            max_abs_err=err, stats_err=s_err, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms[key],
+                            bound_ms=b_ms, bound_by=b_by,
+                            tflops=conv_flops(n, ci, co, extent, stride)
+                            / ms / 1e9))
         if not err <= KERNEL_TOL or (s_err is not None
                                      and not s_err <= STATS_TOL):
             failures.append(f"{name} {ci}->{co} @{extent}^3 {mode}: "
@@ -222,13 +321,24 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
         got, want = upsample2x(x, wf), upsample_plain(x, wf)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        records.append(dict(kernel="upsample2x", case=f"{ci}->{co} "
-                            f"@{extent}^3", max_abs_err=err, stats_err=None,
-                            ms=median_ms(lambda: upsample2x(x, wf)),
-                            plain_ms=median_ms(lambda: upsample_plain(x, wf))))
+        xl, wu = _ncdhw(x), _lib_up_w(wf)
+        lib = F.conv_transpose3d(xl, wu, stride=2)
+        print(f"  library conv_transpose3d {ci}->{co} @{extent}^3: err "
+              f"{rel_err(lib.permute(0, 2, 3, 4, 1), want):.3e} vs plain")
+        flops = 2 * 8 * ci * co * n * extent ** 3
+        b_ms, b_by = bound(flops, 2 * (x.numel() + wf.numel() + got.numel()))
+        ms = median_ms(lambda: upsample2x(x, wf))
+        records.append(dict(kernel="upsample2x", shape=(ci, co, extent),
+                            mode="plain", case=f"{ci}->{co} @{extent}^3",
+                            max_abs_err=err, stats_err=None, ms=ms,
+                            plain_ms=median_ms(lambda: upsample_plain(x, wf)),
+                            library_ms=median_ms(
+                                lambda: F.conv_transpose3d(xl, wu, stride=2)),
+                            bound_ms=b_ms, bound_by=b_by,
+                            tflops=flops / ms / 1e9))
         if not err <= KERNEL_TOL:
             failures.append(f"upsample2x {ci}->{co} @{extent}^3: err {err}")
-        del x, wf, got, want
+        del x, wf, got, want, xl, wu, lib
     return records, failures
 
 
@@ -280,13 +390,17 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
+    built = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
+    # the compiler's report, kept beside each library (also for one built
+    # by an earlier run)
+    logs = {name: _build.build_log(name) for name in _build.SOURCES}
     for name, log in logs.items():
         usage = sorted({line.split(":", 1)[-1].strip()
                         for line in log.splitlines()
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
+    tensor_core_usage(logs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -313,7 +427,9 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     for r in records:
         print(f"  {r['kernel']:13s} {r['case']:28s} err {r['max_abs_err']:.3e}"
               f" stats {r['stats_err'] if r['stats_err'] is None else '%.3e' % r['stats_err']}"
-              f"  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
+              f"  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  library "
+              f"{r['library_ms']:.3f} ms  {r['tflops']:.1f} TFLOP/s  bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
 
     # 3. full-width flagship forward, kernels in bf16 vs plain in fp32
@@ -337,7 +453,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     vol = np.random.default_rng(SEED).integers(0, 256, volume,
                                                dtype=np.uint8)
     n_patches = len(sliding_window_grid(vol.shape, patch, 0.25))
-    _build.LAUNCHES.clear()
+    _build.clear_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred = predict_volume(fast, vol, patch, 0.25, 2, dev)
@@ -373,12 +489,16 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         dst = "" if r["dst_err"] is None else f" dst {r['dst_err']:.3e}"
         print(f"  {r['kernel']:15s} {r['case']:32s} err {r['max_abs_err']:.3e}"
               f"{dst}  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-              f"{r['tflops']:.1f} TFLOP/s")
+              f"library {r['library_ms']:.3f} ms  {r['tflops']:.1f} TFLOP/s"
+              f"  bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%})")
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
-    step_rate, fails = training(dev, fast, plain, patch, train_steps)
+    step_rate, step_shapes, fails = training(dev, fast, plain, patch,
+                                             train_steps)
     failures += fails
+    step_table(records, step_shapes, train_steps)
     del fast, plain
     torch.cuda.empty_cache()
 
@@ -406,12 +526,19 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     kernels = []
     for name in REPLACES:
         mine = [r for r in records if r["kernel"] == name]
+        by = collections.Counter()
+        for r in mine:
+            by[r["bound_by"]] += r["bound_ms"]
+        lib = [r["library_ms"] for r in mine if r["library_ms"] is not None]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
-            plain_ms=sum(r["plain_ms"] for r in mine)))
+            plain_ms=sum(r["plain_ms"] for r in mine),
+            bound_ms=sum(r["bound_ms"] for r in mine),
+            bound_by=by.most_common(1)[0][0],
+            library_ms=sum(lib) if len(lib) == len(mine) else None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -420,7 +547,10 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
 
 def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
-    """Phase 5a. Returns (per-case records, failures)."""
+    """Phase 5a. Returns (per-case records, failures). ``library_ms`` is
+    the bf16 cuDNN call of the same function: ``torch.nn.grad.conv3d_input``
+    / ``conv3d_weight`` for the conv, ``aten.convolution_backward`` of the
+    transposed conv for the upsample, timed once per shape."""
     from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3_dw,
                                                    conv3d_k3_dw_plain,
                                                    conv3d_k3_dx,
@@ -441,6 +571,7 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
     todo += [(s, ci, co, e, op, "corr") for s, ci, co, e in s2_cases
              for op in ("dx", "dw")]
     n = 2
+    lib_ms = {}
     for stride, ci, co, extent, op, mode in todo:
         eo = extent // stride
         x = randn(n, extent, extent, extent, ci).bfloat16()
@@ -460,9 +591,13 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             fn = lambda: conv3d_k3_dx(gy, w, stride, size=x.shape[1:4], **kw)
             ref = lambda: conv3d_k3_dx_plain(gy, w, stride,
                                              size=x.shape[1:4], **kw)
+            lib = lambda: torch.nn.grad.conv3d_input(
+                xl.shape, wl, gl, stride=stride, padding=1)
         else:
             fn = lambda: conv3d_k3_dw(x, gy, stride, **kw)
             ref = lambda: conv3d_k3_dw_plain(x, gy, stride, **kw)
+            lib = lambda: torch.nn.grad.conv3d_weight(
+                xl, wl.shape, gl, stride=stride, padding=1)
         got, want = fn(), ref()
         torch.cuda.synchronize()
         dst_err = None
@@ -471,11 +606,33 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             got, want = got[0], want[0]
         err = rel_err(got, want)
         ms, plain_ms = median_ms(fn), median_ms(ref)
-        flops = 2 * n * eo ** 3 * 27 * ci * co
+        key = (op, stride, ci, co, extent)
+        if key not in lib_ms:    # the first case of a shape is its plain mode
+            xl, wl, gl = _ncdhw(x), _lib_conv_w(w), _ncdhw(gy)
+            out = lib()
+            if op == "dx":
+                out = out.permute(0, 2, 3, 4, 1)
+            else:
+                out = out.permute(2, 3, 4, 1, 0)
+            print(f"  library {op} {ci}->{co} @{extent}^3 s{stride}: err "
+                  f"{rel_err(out, want):.3e} vs plain ({mode})")
+            lib_ms[key] = median_ms(lib)
+            del xl, wl, gl, out
+        flops = conv_flops(n, ci, co, extent, stride)
+        io = x.numel() if op == "dw" or "post" in mode else 0
+        nbytes = 2 * (io + gy.numel()) + (
+            2 * gy.numel() + 8 * n * co if "corr" in mode else 0) + (
+            8 * n * ci if "pre" in kw else 0) + (
+            2 * (x.numel() + w.numel()) + (8 * n * ci if "post" in mode
+                                           else 0)
+            if op == "dx" else 4 * w.numel())
+        b_ms, b_by = bound(flops, nbytes)
         name = f"conv3d_k3_{op}_s{stride}"
         case = f"{ci}->{co} @{extent}^3 {mode}"
-        records.append(dict(kernel=name, case=case, max_abs_err=err,
-                            dst_err=dst_err, ms=ms, plain_ms=plain_ms,
+        records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
+                            case=case, max_abs_err=err, dst_err=dst_err,
+                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms[key],
+                            bound_ms=b_ms, bound_by=b_by,
                             tflops=flops / ms / 1e9))
         if not err <= KERNEL_TOL or (dst_err is not None
                                      and not dst_err <= DST_TOL):
@@ -485,24 +642,38 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
         x = randn(n, extent, extent, extent, ci).bfloat16()
         wf = randn(2, 2, 2, ci, co, scale=(8 * co) ** -0.5).bfloat16()
         gy = randn(n, 2 * extent, 2 * extent, 2 * extent, co).bfloat16()
-        for name, fn, ref in (
+        xl, wu, gl = _ncdhw(x), _lib_up_w(wf), _ncdhw(gy)
+
+        def conv_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                gl, xl, wu, None, [2] * 3, [0] * 3, [1] * 3, True, [0] * 3, 1,
+                mask)
+
+        flops = 2 * 8 * ci * co * n * extent ** 3
+        for name, fn, ref, lib, out_bytes in (
                 ("upsample2x_dx", lambda: upsample2x_dx(gy, wf),
-                 lambda: upsample2x_dx_plain(gy, wf)),
+                 lambda: upsample2x_dx_plain(gy, wf),
+                 lambda: conv_bwd([True, False, False]), 2 * x.numel()),
                 ("upsample2x_dw", lambda: upsample2x_dw(x, gy),
-                 lambda: upsample2x_dw_plain(x, gy))):
+                 lambda: upsample2x_dw_plain(x, gy),
+                 lambda: conv_bwd([False, True, False]), 4 * wf.numel())):
             got, want = fn(), ref()
             torch.cuda.synchronize()
             err = rel_err(got, want)
             ms, plain_ms = median_ms(fn), median_ms(ref)
             case = f"{ci}->{co} @{extent}^3"
-            records.append(dict(kernel=name, case=case, max_abs_err=err,
+            nbytes = 2 * gy.numel() + out_bytes + (
+                2 * wf.numel() if name == "upsample2x_dx" else 2 * x.numel())
+            b_ms, b_by = bound(flops, nbytes)
+            records.append(dict(kernel=name, shape=(ci, co, extent),
+                                mode="plain", case=case, max_abs_err=err,
                                 dst_err=None, ms=ms, plain_ms=plain_ms,
-                                tflops=2 * n * extent ** 3 * 8 * ci * co
-                                / ms / 1e9))
+                                library_ms=median_ms(lib), bound_ms=b_ms,
+                                bound_by=b_by, tflops=flops / ms / 1e9))
             if not err <= KERNEL_TOL:
                 failures.append(f"{name} {case}: err {err}")
             del got, want
-        del x, wf, gy
+        del x, wf, gy, xl, wu, gl
     return records, failures
 
 
@@ -569,9 +740,10 @@ def training(dev, fast, plain, patch, steps):
     failures = []
     batch = flagship_batch(dev, patch, n)
     plain.load_state_dict(fast.state_dict())
-    _build.LAUNCHES.clear()
+    _build.clear_counts()
     got = train_path(fast, batch, steps, "kernels bf16")
     launches = dict(_build.LAUNCHES)
+    shapes = dict(_build.LAUNCH_SHAPES)
     torch.cuda.empty_cache()
     want = train_path(plain, batch, steps, "plain fp32")
     print(f"training launches {launches}")
@@ -606,7 +778,53 @@ def training(dev, fast, plain, patch, steps):
     for name in CONV_KERNELS:
         if launches.get(name, 0) <= 0:
             failures.append(f"training: kernel {name} was never launched")
-    return n / (got[1] / 1e3), failures
+    return n / (got[1] / 1e3), shapes, failures
+
+
+def step_table(records, shapes, steps):
+    """The kernel table's per-step columns: each conv and upsample
+    kernel's launches per training step (phase 5c's counts by shape and
+    mode) times its phase-2 or 5a case of the same shape and mode: the
+    kernel's ms, the library call's, the bound and the kernel / library
+    factor per step. A launch whose mode has no case takes the shape's
+    first case (marked)."""
+    cases = {}
+    for r in records:
+        if "shape" in r:
+            cases.setdefault((r["kernel"], r["shape"], r["mode"]), r)
+            cases.setdefault((r["kernel"], r["shape"], None), r)
+    print("per training step (phase 5c launches x phase 2 / 5a cases):")
+    for name in CONV_KERNELS:
+        tot, by, stand_in = collections.Counter(), collections.Counter(), []
+        for (kname, shape, mode), count in sorted(shapes.items()):
+            if kname != name:
+                continue
+            per = count / steps
+            tot["launches"] += per
+            ci, co, d, h, w = shape
+            r = cases.get((name, (ci, co, d), mode))
+            if r is None:
+                r = cases.get((name, (ci, co, d), None))
+                stand_in.append(f"{ci}->{co} @{d}x{h}x{w} {mode}")
+            if r is None or not d == h == w:
+                tot["uncovered"] += per
+                continue
+            for k in ("ms", "library_ms", "bound_ms"):
+                tot[k] += per * r[k]
+            by[r["bound_by"]] += per * r["bound_ms"]
+        mix = ", ".join(f"{shape[0]}->{shape[1]} @{shape[2]}^3 {mode} "
+                        f"{count / steps:g}" for (kname, shape, mode), count
+                        in sorted(shapes.items()) if kname == name)
+        if mix:
+            print(f"  {name} launches per step by shape and mode: {mix}")
+        factor = tot["ms"] / tot["library_ms"] if tot["library_ms"] else 0.0
+        print(f"  {name:16s} {tot['launches']:5.1f} launches  kernel "
+              f"{tot['ms']:8.3f} ms  library {tot['library_ms']:8.3f} ms  "
+              f"bound {tot['bound_ms']:7.3f} ms ("
+              f"{by.most_common(1)[0][0] if by else '-'})  kernel/library "
+              f"{factor:.2f}x" + (f"  uncovered {tot['uncovered']:.1f}"
+                                  if tot["uncovered"] else "")
+              + (f"  stand-in cases for {stand_in}" if stand_in else ""))
 
 
 def _norm_act_plain_op(x, scale, bias, act, gy, eps, slope):
@@ -701,9 +919,18 @@ def norm_act_cases(dev, gen, cases):
             torch.cuda.synchronize()
             for name, (fn, ref, tensors) in pairs.items():
                 ms, plain_ms = median_ms(fn), median_ms(ref)
+                # fp32 operations per element on the CUDA cores and the
+                # (N, 2, C) fp32 vectors read or written beside the tensors
+                ops, vecs = NORM_OPS[name]
+                b_ms, b_by = bound(ops * x.numel(), tensors * x.numel()
+                                   * x.element_size() + vecs * 8 * n * c,
+                                   PEAK_FP32)
                 records.append(dict(
                     kernel=name, case=label, max_abs_err=errs[name], ms=ms,
-                    plain_ms=plain_ms,
+                    plain_ms=plain_ms, library_ms=median_ms(
+                        lambda: torch.var_mean(x2, dim=1))
+                    if name == "norm_act_stats" else None,
+                    bound_ms=b_ms, bound_by=b_by,
                     gbs=tensors * x.numel() * x.element_size() / ms / 1e6))
         tol = {"norm_act_stats": STATS_TOL, "norm_act_bwd_stats": STATS_TOL}
         print(f"norm-act {label}: y err {y_err:.3e} dx err {dx_err:.3e} "
@@ -817,7 +1044,7 @@ def trainer_phase(patch, train_data, step_rate):
     cwd = os.getcwd()
     os.chdir(work)      # the final weights and the debug GIF land in the cwd
     try:
-        _build.LAUNCHES.clear()
+        _build.clear_counts()
         t0 = time.perf_counter()
         first = Trainer(config_dict=sheet_normals_config(
             work, paths, patch, TRAINER_EPOCHS), verbose=False).train()

@@ -6,8 +6,10 @@ schema (``tr_setup``, ``tr_config``, ``model_config``, ``dataset_config``,
 the same defaults, so one config file drives both packages. Differences:
 
 * ``yaml`` is imported only to read a file: a config dict needs no pyyaml;
-* ``use_pallas_conv: null`` (auto) follows ``default_device()``: the
-  hand-written CUDA kernels on the card, their plain versions on the CPU;
+* ``use_pallas_conv: null`` (auto) follows the device ``build_plan`` is
+  given (``resolve_device``: the card unless the caller names the CPU):
+  the hand-written CUDA kernels on the card, their plain versions on the
+  CPU;
 * ``augment_on_device: true`` raises ``NotImplementedError``: the device
   augmentation is not ported yet (ROADMAP.md queue 1 #7);
 * the TPU-only keys (``mesh_shape``, ``dp_axis``, ``donate_state``,
@@ -28,11 +30,20 @@ from .plan import NetworkPlan, TaskHead, plan_from_autoconfig, plan_from_manual_
 _SECTIONS = ("tr_setup", "tr_config", "model_config", "dataset_config", "inference_config")
 
 
-def default_device() -> torch.device:
-    """The device the port runs on: the first CUDA card, else the CPU. The
-    auto value of ``use_pallas_conv`` follows it, so the kernels are on
-    exactly where the trainer puts its tensors on the card."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point of the port runs on. ``None`` or
+    ``"cuda"`` is the first CUDA card, and raises ``RuntimeError`` where
+    there is none: the port never falls back to the CPU on its own.
+    ``"cpu"`` (or a ``torch.device``) is taken as the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' (--device cpu) to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
+    return dev
 
 
 class ConfigManager:
@@ -268,15 +279,16 @@ class ConfigManager:
             for name, info in self.tasks.items()
         )
 
-    def build_plan(self) -> NetworkPlan:
+    def build_plan(self, device=None) -> NetworkPlan:
         """Derive the static NetworkPlan from this config
-        (reference: builders/build_network_from_config.py:39-162)."""
+        (reference: builders/build_network_from_config.py:39-162) for the
+        model on ``device`` (``resolve_device``)."""
         heads = self.task_heads()
         use_pallas = self.use_pallas_conv
         if use_pallas is None:
-            # auto: the CUDA kernels where there is a card, their plain
-            # versions on the CPU
-            use_pallas = default_device().type == "cuda"
+            # auto: the CUDA kernels on the card, their plain versions on
+            # the CPU
+            use_pallas = resolve_device(device).type == "cuda"
         if self.autoconfigure:
             overrides = {}
             for key in ("squeeze_excitation", "conv_bias",

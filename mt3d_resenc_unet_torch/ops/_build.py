@@ -30,13 +30,31 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("conv3d_k3", "conv3d_k3_dx", "conv3d_k3_dw", "upsample2x",
-           "upsample2x_bwd", "norm_act")
+SOURCES = ("conv3d_k3", "conv3d_k3_s1", "conv3d_k3_dx", "conv3d_k3_dw",
+           "conv3d_k3_dw_s1", "upsample2x", "upsample2x_bwd", "norm_act")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last clear(); wrappers add one per launch
 LAUNCHES: Dict[str, int] = collections.Counter()
+# (kernel name, shape, mode) -> launches since the last clear(), beside
+# LAUNCHES, so a run can say which shapes and fusion modes a step launched
+LAUNCH_SHAPES: Dict[tuple, int] = collections.Counter()
+
+
+def count(name: str, shape, **modes: bool) -> None:
+    """Count one launch of kernel ``name`` at ``shape``; its mode is the
+    names of the fusion ``modes`` that are on, joined by "_", or
+    "plain"."""
+    mode = "_".join(m for m, on in modes.items() if on) or "plain"
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, tuple(shape), mode)] += 1
+
+
+def clear_counts() -> None:
+    LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
+
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -99,6 +117,12 @@ def build_all() -> Dict[str, str]:
         jobs = {name: _start(name, nvcc) for name in SOURCES}
         return {name: _finish(name, job)
                 for name, job in jobs.items() if job is not None}
+
+
+def build_log(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` output kept beside ``name``'s library."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

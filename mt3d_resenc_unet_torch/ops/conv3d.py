@@ -6,14 +6,22 @@ the same function beside it (the wrapper runs the plain version for CPU
 tensors; the tests and ``chip_smoke.py`` hold the kernel against it). A
 CUDA tensor always goes to the kernel, or the wrapper raises.
 
-  ``conv3d_k3``     csrc/conv3d_k3.cu: the forward, replacing
-                    ``mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel``
-                    (stride 1) and ``::_s2_fwd_kernel`` (stride 2);
+  ``conv3d_k3``     the forward: at stride 1 csrc/conv3d_k3_s1.cu (an
+                    implicit GEMM on the tensor cores), replacing
+                    ``mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel``;
+                    at stride 2 csrc/conv3d_k3.cu, replacing
+                    ``::_s2_fwd_kernel``;
   ``conv3d_k3_dx``  csrc/conv3d_k3_dx.cu: the input gradient, replacing
                     ``_conv_kernel`` in its corr/post mode
                     (``_conv3d_dx_fused_f``) and ``_s2_dx_kernel``;
-  ``conv3d_k3_dw``  csrc/conv3d_k3_dw.cu: the weight gradient, replacing
-                    ``_dw_kernel`` and ``_s2_dw_kernel``.
+  ``conv3d_k3_dw``  the weight gradient: at stride 1 csrc/conv3d_k3_dw_s1.cu
+                    (27 GEMMs over voxels on the tensor cores), replacing
+                    ``_dw_kernel``; at stride 2 csrc/conv3d_k3_dw.cu,
+                    replacing ``_s2_dw_kernel``.
+
+The two tensor-core kernels take their tiling from the planners
+:func:`_s1_plan` and :func:`_dw_s1_plan` here; the kernels decode their
+block indices as the planners' docstrings say.
 
 The kernels write through raw pointers and record nothing for autograd, so
 training reaches them through :class:`Conv3dK3Fn` and
@@ -39,7 +47,8 @@ pre-op's input so dx is taken with respect to the raw input.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,6 +129,8 @@ def _fn(source: str = _KERNEL):
             "conv3d_k3": [p, p, p, p, p, p] + [i] * 7 + [f, p],
             "conv3d_k3_dx": [p] * 8 + [i] * 7 + [f, p],
             "conv3d_k3_dw": [p] * 6 + [i] * 7 + [f, p],
+            "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, p],
+            "conv3d_k3_dw_s1": [p] * 6 + [i] * 7 + [f, p],
         }[source]
         fn.restype = i
         _lib_fns[source] = fn
@@ -159,8 +170,7 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     bf16 = torch.bfloat16
     _check(x, "x", bf16, (n, d, h, wd, ci), dev)
     _check(w, "w", bf16, (3, 3, 3, ci, co), dev)
-    if x.data_ptr() % 16:
-        raise ValueError("conv3d_k3: x must be 16-byte aligned")
+    _aligned("conv3d_k3", x=x, w=w, add_to=add_to)
     do, ho, wo = ((s - 1) // stride + 1 for s in (d, h, wd))
     if pre is not None:
         _check(pre, "pre", torch.float32, (n, 2, ci), dev)
@@ -170,15 +180,24 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     stats = (torch.zeros((n, 2, co), dtype=torch.float32, device=dev)
              if emit_stats else None)
     with torch.cuda.device(dev):
-        rc = _fn()(x.data_ptr(), w.data_ptr(),
-                   pre.data_ptr() if pre is not None else None,
-                   add_to.data_ptr() if add_to is not None else None,
-                   y.data_ptr(), stats.data_ptr() if emit_stats else None,
-                   n, d, h, wd, ci, co, stride, negative_slope,
-                   torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if stride == 1:
+            plan = _s1_plan(n, (d, h, wd), ci, co, _sm_count(dev))
+            part = (torch.zeros((n, d, h, wd, co), dtype=torch.float32,
+                                device=dev) if plan["splits"] > 1 else None)
+            rc = _fn("conv3d_k3_s1")(
+                x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
+                y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
+                plan["splits"], plan["grid"], negative_slope, stream)
+        else:
+            rc = _fn()(x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
+                       y.data_ptr(), _ptr(stats), n, d, h, wd, ci, co, stride,
+                       negative_slope, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[f"{_KERNEL}_s{stride}"] += 1
+    _build.count(f"{_KERNEL}_s{stride}", (ci, co, d, h, wd),
+                 pre=pre is not None, addin=add_to is not None,
+                 stats=emit_stats)
     return (y, stats) if emit_stats else y
 
 
@@ -302,6 +321,63 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+# tiles of the stride-1 tensor-core kernels (csrc/conv3d_k3_s1.cu and
+# csrc/conv3d_k3_dw_s1.cu): a forward unit is a brick of S1_BRICK output
+# voxels x 32 output channels x a range of 16-channel Ci chunks; a dW block
+# is all 27 taps of a 32 x 32 (ci, co) tile over a range of DW_BRICK voxel
+# bricks
+S1_BRICK, S1_CT, S1_KC = (4, 8, 8), 32, 16
+DW_BRICK, DW_CT = (2, 8, 8), 32
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _bricks(size, brick) -> Tuple[int, ...]:
+    return tuple(-(-s // b) for s, b in zip(size, brick))
+
+
+def _s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the stride-1 forward kernel: ``units`` = splits x
+    output channel tiles x samples x bricks, walked by ``grid`` persistent
+    blocks (about two per SM). Where the units of an unsplit K (bricks x
+    tiles) are fewer than two per SM, K is split: each of ``splits`` units
+    of a brick and tile takes an equal range of ``chunks`` of the Ci / 16
+    chunks (``splits`` a divisor of it), with all 27 taps. The kernel
+    decodes unit u = ((split * tiles + tile) * n + sample) * bricks +
+    brick, brick = (bd * nbh + bh) * nbw + bw, and block b takes units
+    [b * units / grid, (b + 1) * units / grid)."""
+    base = math.prod(_bricks(size, S1_BRICK)) * n * (co // S1_CT)
+    nc = ci // S1_KC
+    splits = 1
+    if base < 2 * sms:
+        splits = next((s for s in range(1, nc + 1)
+                       if nc % s == 0 and base * s >= 2 * sms), nc)
+    units = base * splits
+    return dict(splits=splits, units=units, grid=min(units, 2 * sms),
+                chunks=nc // splits)
+
+
+def _dw_s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the stride-1 dW kernel: ``tiles`` (ci, co) tiles of
+    32 x 32, each over ``splits`` ranges of the voxel bricks, so that
+    tiles x splits blocks (one per SM at a time) fill the SMs once where
+    the tiles alone do not. The kernel decodes block = split * tiles +
+    tile, tile = (ci / 32) * (co / 32 tiles) + co / 32; split s takes
+    bricks [s * bricks / splits, (s + 1) * bricks / splits), brick =
+    ((sample * nbd + bd) * nbh + bh) * nbw + bw."""
+    tiles = (ci // DW_CT) * (co // DW_CT)
+    bricks = n * math.prod(_bricks(size, DW_BRICK))
+    splits = max(1, min(bricks, sms // tiles))
+    return dict(tiles=tiles, splits=splits, blocks=tiles * splits,
+                bricks=bricks)
+
+
 def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
                  y: Optional[torch.Tensor] = None,
                  gs: Optional[torch.Tensor] = None,
@@ -340,7 +416,8 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
                      negative_slope, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[f"{fn}_s{stride}"] += 1
+    _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), corr=y is not None,
+                 post=pre is not None)
     return (dx, dst) if pre is not None else dx
 
 
@@ -364,12 +441,21 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     dev = gy.device
     dw = torch.zeros((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y),
-                     _ptr(gs), dw.data_ptr(), n, d, h, wd, ci, co, stride,
-                     negative_slope, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if stride == 1:
+            plan = _dw_s1_plan(n, (d, h, wd), ci, co, _sm_count(dev))
+            rc = _fn("conv3d_k3_dw_s1")(
+                x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
+                dw.data_ptr(), n, d, h, wd, ci, co, plan["splits"],
+                negative_slope, stream)
+        else:
+            rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y),
+                         _ptr(gs), dw.data_ptr(), n, d, h, wd, ci, co, stride,
+                         negative_slope, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[f"{fn}_s{stride}"] += 1
+    _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), pre=pre is not None,
+                 corr=y is not None)
     return dw
 
 

@@ -1,6 +1,8 @@
-// 3x3x3 pad-1 convolution on NDHWC bf16 with fp32 accumulation, stride 1
-// or 2, for Hopper (sm_90a). Plain C interface, bound with ctypes
-// (ops/conv3d.py).
+// 3x3x3 pad-1 convolution on NDHWC bf16 with fp32 accumulation, for Hopper
+// (sm_90a). Plain C interface, bound with ctypes (ops/conv3d.py). Only its
+// stride-2 instantiation is launched: stride 1 runs on the tensor cores in
+// conv3d_k3_s1.cu. The template keeps the stride as a parameter, as the
+// notes below describe.
 //
 // Replaces the TPU's Pallas kernels
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel (stride 1, via
@@ -282,7 +284,7 @@ void launch_stride(int key, dim3 grid, cudaStream_t st, const void* x,
 
 }  // namespace
 
-// Launches y = conv(x, w) on `stream`. pre / add_to / stats may be null
+// Launches y = conv(x, w) at stride 2 on `stream`. pre / add_to / stats may be null
 // when their mode is off; stats must be zeroed by the caller. Returns the
 // cudaGetLastError() code of the launch (0 on success).
 extern "C" int conv3d_k3_ndhwc_launch(const void* x, const void* w,
@@ -290,7 +292,7 @@ extern "C" int conv3d_k3_ndhwc_launch(const void* x, const void* w,
                                       void* y, void* stats, int N, int D,
                                       int H, int W, int Ci, int Co, int stride,
                                       float slope, void* stream) {
-  if ((stride != 1 && stride != 2) || Ci % CK != 0 || Co % COB != 0 ||
+  if (stride != 2 || Ci % CK != 0 || Co % COB != 0 ||
       N < 1 || N > 65535)
     return (int)cudaErrorInvalidValue;
   const int Do = (D - 1) / stride + 1;
@@ -300,11 +302,7 @@ extern "C" int conv3d_k3_ndhwc_launch(const void* x, const void* w,
   const dim3 grid((Mo + TV - 1) / TV, N, Co / COB);
   const int key = (pre ? 4 : 0) | (stats ? 2 : 0) | (add_to ? 1 : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    launch_stride<1>(key, grid, st, x, w, pre, add_to, y, stats, D, H, W, Ci,
-                     Do, Ho, Wo, Co, slope);
-  else
-    launch_stride<2>(key, grid, st, x, w, pre, add_to, y, stats, D, H, W, Ci,
-                     Do, Ho, Wo, Co, slope);
+  launch_stride<2>(key, grid, st, x, w, pre, add_to, y, stats, D, H, W, Ci,
+                   Do, Ho, Wo, Co, slope);
   return (int)cudaGetLastError();
 }

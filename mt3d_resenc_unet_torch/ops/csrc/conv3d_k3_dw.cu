@@ -1,6 +1,8 @@
 // Weight gradient (dW) of the 3x3x3 pad-1 convolution on NDHWC bf16 with
-// fp32 accumulation, stride 1 or 2, for Hopper (sm_90a). Plain C interface,
-// bound with ctypes (ops/conv3d.py conv3d_k3_dw).
+// fp32 accumulation, for Hopper (sm_90a). Plain C interface, bound with
+// ctypes (ops/conv3d.py conv3d_k3_dw). Only its stride-2 instantiation is
+// launched: stride 1 runs on the tensor cores in conv3d_k3_dw_s1.cu. The
+// template keeps the stride as a parameter, as the notes below describe.
 //
 // Replaces the TPU's Pallas kernels
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_dw_kernel (via
@@ -217,7 +219,7 @@ void launch_stride(int key, dim3 grid, cudaStream_t st, const void* x,
 
 }  // namespace
 
-// Launches dw += conv_backward_weight(x, gy) on `stream` into a (27, Ci, Co)
+// Launches dw += conv_backward_weight(x, gy) at stride 2 on `stream` into a (27, Ci, Co)
 // fp32 buffer the caller has zeroed. pre may be null; y and gs (the
 // correction) come together or are both null. Returns the
 // cudaGetLastError() code of the launch (0 on success).
@@ -227,7 +229,7 @@ extern "C" int conv3d_k3_dw_ndhwc_launch(const void* x, const void* gy,
                                          int D, int H, int W, int Ci, int Co,
                                          int stride, float slope,
                                          void* stream) {
-  if ((stride != 1 && stride != 2) || Ci % CB != 0 || Co % CB != 0 ||
+  if (stride != 2 || Ci % CB != 0 || Co % CB != 0 ||
       N < 1 || (!y) != (!gs))
     return (int)cudaErrorInvalidValue;
   const int Do = (D - 1) / stride + 1;
@@ -242,11 +244,7 @@ extern "C" int conv3d_k3_dw_ndhwc_launch(const void* x, const void* gy,
   const dim3 grid((unsigned)((M + span - 1) / span), tiles);
   const int key = (pre ? 2 : 0) | (y ? 1 : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    launch_stride<1>(key, grid, st, x, gy, pre, y, gs, dw, D, H, W, Ci, Do, Ho,
-                     Wo, Co, M, span, slope);
-  else
-    launch_stride<2>(key, grid, st, x, gy, pre, y, gs, dw, D, H, W, Ci, Do, Ho,
-                     Wo, Co, M, span, slope);
+  launch_stride<2>(key, grid, st, x, gy, pre, y, gs, dw, D, H, W, Ci, Do, Ho,
+                   Wo, Co, M, span, slope);
   return (int)cudaGetLastError();
 }

@@ -107,7 +107,7 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
                    co, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[_KERNEL] += 1
+    _build.count(_KERNEL, (ci, co, d, h, w))
     return y
 
 
@@ -175,7 +175,7 @@ def upsample2x_dx(gy: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
                      ci, co, torch.cuda.current_stream(gy.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[fn] += 1
+    _build.count(fn, (ci, co, d, h, w))
     return dx
 
 
@@ -197,7 +197,7 @@ def upsample2x_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
                      ci, co, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.LAUNCHES[fn] += 1
+    _build.count(fn, (ci, co, d, h, w))
     return dw
 
 

@@ -6,7 +6,8 @@ Builds the flagship plan (128^3 patch, 6 stages, sheet + normals heads,
 torch-default weights from seed 0) in bf16 through the kernels, runs two
 warm-up steps of the training step (batch 2, BCEDice + MaskedCosine, clip 3,
 AdamW), then traces ``--steps`` steps with ``torch.profiler`` and prints the
-device time per step in groups (the port's kernels by name, cuDNN/GEMM of
+device time per step in groups (the port's kernels by row of PERF.md's
+kernel table, stride 1 and 2 apart; cuDNN/GEMM of
 the plain classes, elementwise, reductions, the optimizer), the 25 kernels
 that take the most device time, and the device's busy share of the wall
 time. TF32 is off for cuDNN and matmuls, as ``chip_smoke.py`` times the
@@ -25,12 +26,18 @@ import time
 import numpy as np
 import torch
 
+# the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
-    ("conv3d_k3 forward", r"conv3d_k3_ndhwc"),
-    ("conv3d_k3 dx", r"conv3d_k3_dx_ndhwc"),
-    ("conv3d_k3 dW", r"conv3d_k3_dw_ndhwc"),
-    ("upsample2x forward", r"upsample2x_ndhwc"),
-    ("upsample2x dx / dW", r"upsample2x_d[xw]_ndhwc"),
+    ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_|conv3d_k3_ndhwc<1"),
+    ("row 2 conv3d_k3_dx_s1", r"conv3d_k3_dx_s1|conv3d_k3_dx_ndhwc<1"),
+    ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1|conv3d_k3_dw_ndhwc<1"),
+    ("row 4 conv3d_k3_s2", r"conv3d_k3_ndhwc<2"),
+    ("row 5 conv3d_k3_dw_s2", r"conv3d_k3_dw_ndhwc<2"),
+    ("row 6 conv3d_k3_dx_s2", r"conv3d_k3_dx_ndhwc<2"),
+    ("row 7 upsample2x", r"upsample2x_ndhwc"),
+    ("row 8 upsample2x_dx", r"upsample2x_dx_ndhwc"),
+    ("row 9 upsample2x_dw", r"upsample2x_dw_ndhwc"),
+    ("rows 10-11 norm_act", r"norm_act_"),
     ("optimizer (AdamW, clip)", r"multi_tensor|foreach|fused_adam"),
     ("cuDNN / GEMM (plain classes, 1x1, seg)",
      r"conv|gemm|cudnn|cutlass|xmma|sm90|sm80|wgrad|dgrad|implicit"),

@@ -1,10 +1,12 @@
 """Training CLI of the port (the flags of the JAX package's train.py):
 
     python -m mt3d_resenc_unet_torch.train --config_path tasks/X.yaml \
-        [--debug_dataloader] [--verbose]
+        [--debug_dataloader] [--verbose] [--device {cuda,cpu}]
 
-Reading a YAML file needs pyyaml; where it is missing, build
-``Trainer(config_dict=...)`` from Python instead.
+It trains on the card (``--device cuda``, the default) and raises where
+there is none; ``--device cpu`` runs it on the CPU. Reading a YAML file
+needs pyyaml; where it is missing, build ``Trainer(config_dict=...)`` from
+Python instead.
 """
 
 import argparse
@@ -19,11 +21,14 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--debug_dataloader", action="store_true",
                         help="Dump 25 dataset samples as TIFFs and exit.")
     parser.add_argument("--verbose", action="store_true")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="Where to train (default: the CUDA card).")
     args = parser.parse_args(argv)
 
     from .trainer import Trainer
     trainer = Trainer(args.config_path, verbose=args.verbose,
-                      debug_dataloader=args.debug_dataloader)
+                      debug_dataloader=args.debug_dataloader,
+                      device=args.device)
     return trainer.train()
 
 

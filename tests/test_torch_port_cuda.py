@@ -60,6 +60,7 @@ def _rel(got, want):
                                   "addin_stats"])
 @pytest.mark.parametrize("stride,ci,co,extent", [
     (1, 32, 32, 12), (1, 64, 64, 10), (1, 256, 256, 4), (1, 512, 512, 3),
+    (1, 512, 512, 4), (1, 32, 32, 9), (1, 64, 96, 5),
     (2, 32, 64, 12), (2, 64, 128, 10), (2, 64, 64, 7)])
 def test_conv_kernel_matches_plain(dev, stride, ci, co, extent, mode):
     g = torch.Generator().manual_seed(0)
@@ -133,9 +134,11 @@ def test_model_kernel_path_matches_plain_fp32(dev):
     assert float(cos) >= 0.999
 
 
+# (1, 32, 32, 9) is 9 x 10 x 11: no extent a multiple of the stride-1
+# kernels' bricks (4 x 8 x 8 and 2 x 8 x 8)
 _BWD_SHAPES = [(1, 32, 32, 12), (1, 64, 64, 10), (1, 256, 256, 4),
-               (1, 512, 512, 3), (2, 32, 64, 12), (2, 64, 128, 10),
-               (2, 64, 64, 7)]
+               (1, 512, 512, 3), (1, 512, 512, 4), (1, 32, 32, 9),
+               (2, 32, 64, 12), (2, 64, 128, 10), (2, 64, 64, 7)]
 
 
 def _bwd_case(dev, stride, ci, co, extent, seed):

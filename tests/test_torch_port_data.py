@@ -48,7 +48,7 @@ TASKS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "..",
 @pytest.mark.parametrize("path", TASKS, ids=os.path.basename)
 def test_config_builds_the_jax_plan(path):
     want = JConfig(path).build_plan()
-    got = ConfigManager(path).build_plan()
+    got = ConfigManager(path).build_plan("cpu")
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
@@ -60,11 +60,19 @@ def _cfg_dict(**tr_config):
 
 
 def test_use_pallas_conv_auto_follows_cuda(monkeypatch):
+    """Auto follows the device given, not whether a card is present."""
     cfg = _cfg_dict(use_pallas_conv=None)
-    assert not ConfigManager(config_dict=cfg).build_plan().use_pallas_conv
+    mgr = ConfigManager(config_dict=cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert ConfigManager(config_dict=cfg).build_plan().use_pallas_conv
+    assert not mgr.build_plan("cpu").use_pallas_conv
+    assert mgr.build_plan("cuda").use_pallas_conv
+    assert mgr.build_plan().use_pallas_conv          # the card by default
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not mgr.build_plan(torch.device("cpu")).use_pallas_conv
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.build_plan()
     cfg["tr_config"]["use_pallas_conv"] = False
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert not ConfigManager(config_dict=cfg).build_plan().use_pallas_conv
 
 

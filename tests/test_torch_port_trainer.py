@@ -111,7 +111,7 @@ def test_epoch_losses_match_the_jax_trainer(tmp_path, volumes, monkeypatch):
             return model
 
     cfg["tr_setup"]["ckpt_out_base"] = str(tmp_path / "port_ckpts")
-    got = FromJax(config_dict=cfg, verbose=False).train()
+    got = FromJax(config_dict=cfg, verbose=False, device="cpu").train()
     assert [h["epoch"] for h in got["history"]] == [0, 1]
     for w, g in zip(want, got["history"]):
         keys = [k for k in w if k.endswith("_loss")]
@@ -142,7 +142,7 @@ def test_resume_and_auto_resume_continue_the_count(tmp_path, volumes,
                                                   monkeypatch):
     monkeypatch.chdir(tmp_path)
     first = Trainer(config_dict=_config(tmp_path, volumes, max_epoch=2),
-                    verbose=False).train()
+                    verbose=False, device="cpu").train()
     assert [h["epoch"] for h in first["history"]] == [0, 1]
     assert first["optimizer"].count == 6
     root = tmp_path / "ckpts" / "tiny"
@@ -150,11 +150,11 @@ def test_resume_and_auto_resume_continue_the_count(tmp_path, volumes,
     assert saved["epoch"] == 1 and saved["step"] == 6
     # an explicit checkpoint_path, then auto_resume from the newest epoch
     cfg = _config(tmp_path, volumes, max_epoch=3, checkpoint_path=str(root))
-    out = Trainer(config_dict=cfg, verbose=False).train()
+    out = Trainer(config_dict=cfg, verbose=False, device="cpu").train()
     assert [h["epoch"] for h in out["history"]] == [2]
     assert out["optimizer"].count == 9
     cfg = _config(tmp_path, volumes, max_epoch=4, auto_resume=True)
-    out = Trainer(config_dict=cfg, verbose=False).train()
+    out = Trainer(config_dict=cfg, verbose=False, device="cpu").train()
     assert [h["epoch"] for h in out["history"]] == [3]
     assert out["optimizer"].count == 12
     assert ck.CheckpointManager(tmp_path / "ckpts", "tiny").latest_epoch() == 3
@@ -165,7 +165,7 @@ def test_restore_puts_back_params_optimizer_count_and_epoch(tmp_path,
                                                             monkeypatch):
     monkeypatch.chdir(tmp_path)
     Trainer(config_dict=_config(tmp_path, volumes, max_epoch=1),
-            verbose=False).train()
+            verbose=False, device="cpu").train()
     root = tmp_path / "ckpts" / "tiny"
     saved = ck.CheckpointManager(tmp_path / "ckpts", "tiny").restore()
     seen = {}
@@ -180,7 +180,7 @@ def test_restore_puts_back_params_optimizer_count_and_epoch(tmp_path,
             return epoch
 
     cfg = _config(tmp_path, volumes, max_epoch=2, checkpoint_path=str(root))
-    Probe(config_dict=cfg, verbose=False).train()
+    Probe(config_dict=cfg, verbose=False, device="cpu").train()
     assert seen["epoch"] == 1 and seen["count"] == 3
     assert sorted(seen["params"]) == sorted(saved["params"])
     for k, v in saved["params"].items():
@@ -196,7 +196,7 @@ def test_restore_puts_back_params_optimizer_count_and_epoch(tmp_path,
     dump = ck.load_params(final)
     cfg = _config(tmp_path / "ft", volumes, max_epoch=1,
                   checkpoint_path=str(final), load_weights_only=True)
-    Probe(config_dict=cfg, verbose=False).train()
+    Probe(config_dict=cfg, verbose=False, device="cpu").train()
     assert seen["epoch"] == 0 and seen["count"] == 0
     assert seen["opt"]["state"] == {}
     for k, v in dump.items():
@@ -231,7 +231,7 @@ def test_cli_trains_one_epoch(tmp_path, volumes, monkeypatch):
     cfg["tr_config"]["max_steps_per_epoch"] = 7
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    out = main(["--config_path", str(path)])
+    out = main(["--config_path", str(path), "--device", "cpu"])
     assert [h["epoch"] for h in out["history"]] == [0]
     assert np.isfinite(out["history"][0]["train/sheet_loss"])
     assert (tmp_path / "ckpts" / "tiny" / "0" / ck.STATE_FILE).is_file()
@@ -239,5 +239,23 @@ def test_cli_trains_one_epoch(tmp_path, volumes, monkeypatch):
     assert (tmp_path / "prof" / "train_steps.json").is_file()
     assert BaseTrainer is Trainer
 
-    assert main(["--config_path", str(path), "--debug_dataloader"]) == {}
+    assert main(["--config_path", str(path), "--debug_dataloader",
+                 "--device", "cpu"]) == {}
     assert len(list((tmp_path / "debug_dir").glob("sample000_*.tif"))) == 3
+
+
+def test_trainer_without_a_card_raises_unless_asked_for_the_cpu(
+        tmp_path, volumes, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _config(tmp_path, volumes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(config_dict=cfg, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(config_dict=cfg, verbose=False, device="cuda")
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config_path", str(path)])
+    trainer = Trainer(config_dict=cfg, verbose=False, device="cpu")
+    assert trainer.device == torch.device("cpu")
+    assert not trainer._build_plan().use_pallas_conv
