@@ -46,6 +46,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def set_precision() -> None:
+    """The port's one conv and matmul precision, set by every entry point
+    that runs on the card (``Trainer``, ``chip_smoke.py``,
+    ``tools/profile_step.py``), so that what is timed is what a user runs:
+    fp32 convs and matmuls in full fp32 (TF32 off: the fp32 reference
+    model, the plain versions of the kernels), and bf16 matmuls that add
+    cuBLAS's split-K partials in fp32, as the JAX package's fp32
+    accumulation does (the stem GEMM's K is every voxel)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 class ConfigManager:
     """Single object handed to model/dataset/trainer/inference builders."""
 

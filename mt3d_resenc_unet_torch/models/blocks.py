@@ -22,7 +22,9 @@ the shapes of the JAX package's kernel classes to the CUDA conv through
 its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``, ``Conv3dK3PairFn``,
 whose backward runs the dx and dW kernels) and the rest (the stem, the
 128-channel stage, the deep stride-2 convs, the 1x1 projections) to plain
-PyTorch, differentiated by autograd, as the JAX package sends them to XLA.
+PyTorch, differentiated by autograd, as the JAX package sends them to XLA:
+in bf16 with fp32 accumulation for a bf16 model (ops/lowp.py), in fp32 for
+an fp32 one.
 
 Parameter names and layouts are the flax ones (``conv1.conv.kernel`` of
 shape (kd, kh, kw, ci, co)), so a JAX parameter tree loads by flattening
@@ -41,6 +43,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import lowp
 from ..ops.conv3d import (Conv3dK3Fn, Conv3dK3PairFn, conv3d_k3_plain,
                           conv_s1_supported, conv_s2_supported)
 from ..ops.instance_norm import (Vectors, instance_stats, norm_apply,
@@ -85,7 +88,10 @@ class Conv(nn.Module):
     ``forward`` returns ``(y, stats)``: the raw conv output in the input's
     dtype and its fp32 (N, 2, co) [sum; sumsq]. 3x3x3 convs in the kernel
     shape classes go to the CUDA conv through its autograd Functions when
-    ``use_kernels``; everything else runs the same math in plain PyTorch.
+    ``use_kernels``; everything else runs the same math in plain PyTorch:
+    in fp32 for an fp32 input, and for a bf16 one with bf16 operands and
+    fp32 accumulation, as the JAX package runs these shapes in XLA
+    (ops/lowp.py).
     ``pre_pool``: AvgPool(pre_pool) before a 1x1 conv (the ResNet-D skip
     projection, JAX ``_pool_proj``)."""
 
@@ -115,18 +121,23 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None,
                 pre: Optional[Vectors] = None):
         w = self.kernel.to(x.dtype)
+        fp32 = x.dtype == torch.float32
         if self.kernel_size == (1, 1, 1):
+            if not fp32:
+                y = lowp.pool_proj(x, w, self.pre_pool)
+                return y, instance_stats(y)
             xf = avg_pool(x, self.pre_pool) if self.pre_pool else x.float()
             yf = pointwise(xf, w)
             return yf.to(x.dtype), instance_stats(yf)
         stride = self.stride[0]
         slope = self.negative_slope
+        conv = conv3d_k3_plain if fp32 else lowp.conv3d_k3
         if x2 is None:
             pv = pre_vector(pre) if pre is not None else None
             if self._kernel_class(x, w):
                 return Conv3dK3Fn.apply(x, w.contiguous(), pv, stride, slope)
-            return conv3d_k3_plain(x, w, stride, pre=pv, emit_stats=True,
-                                   negative_slope=slope)
+            return conv(x, w, stride, pre=pv, emit_stats=True,
+                        negative_slope=slope)
         # split-weight concat: conv(concat(x, x2), W) ==
         # conv(x, W[:c1]) + conv(x2, W[c1:]); the second conv adds the
         # first's output and emits the statistics of the sum
@@ -134,8 +145,8 @@ class Conv(nn.Module):
         w1, w2 = w[..., :c1, :], w[..., c1:, :]
         if self._kernel_class(x, w1) and self._kernel_class(x2, w2):
             return Conv3dK3PairFn.apply(x, x2, w.contiguous(), stride)
-        y1 = conv3d_k3_plain(x, w1, stride)
-        return conv3d_k3_plain(x2, w2, stride, add_to=y1, emit_stats=True)
+        y1 = conv(x, w1, stride)
+        return conv(x2, w2, stride, add_to=y1, emit_stats=True)
 
 
 class ConvNormAct(nn.Module):

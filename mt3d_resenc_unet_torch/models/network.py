@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..core.plan import NetworkPlan
+from ..ops import lowp
 from ..ops.instance_norm import stats_to_scale_shift
 from ..ops.upsample import Upsample2xFn, upsample2x_supported, upsample_plain
 from .blocks import (StackedConvBlocks, StackedResidualBlocks, torch_uniform_,
@@ -62,7 +63,9 @@ class UpsampleConv(nn.Module):
     spatially flipped: y[k*i + a] = x[i] @ W[k-1-a] (JAX network.py:79-81).
     The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) goes to
     the CUDA upsample through its autograd Function when ``use_kernels``;
-    the flip stays outside it, so autograd takes its gradient."""
+    the flip stays outside it, so autograd takes its gradient. Other shapes
+    run the GEMM in plain PyTorch: in fp32 for an fp32 input, in the
+    input's dtype with fp32 accumulation for a bf16 one (ops/lowp.py)."""
 
     def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False):
         super().__init__()
@@ -83,12 +86,16 @@ class UpsampleConv(nn.Module):
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
                 and upsample2x_supported(x.shape, ci, co)):
             return Upsample2xFn.apply(x, wf)
+        if x.dtype != torch.float32:
+            return lowp.upsample(x, wf)
         return upsample_plain(x, wf)
 
 
 class SegLayer(nn.Module):
-    """1x1x1 segmentation head with bias, as a channel matmul in fp32
-    (reference: decoder.py:97-100). Layout: kernel (1, 1, 1, ci, co)."""
+    """1x1x1 segmentation head with bias, as a channel matmul: in fp32 for
+    an fp32 input, in the input's dtype (then fp32) for a bf16 one, as the
+    JAX ``SegLayer`` (reference: decoder.py:97-100). Layout: kernel
+    (1, 1, 1, ci, co)."""
 
     def __init__(self, ci: int, co: int):
         super().__init__()
@@ -101,6 +108,8 @@ class SegLayer(nn.Module):
         torch_uniform_(self.bias, ci, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return lowp.seg(x, self.kernel, self.bias)
         ci, co = self.kernel.shape[-2:]
         y = x.float().reshape(-1, ci) @ self.kernel.float().reshape(ci, co)
         return (y + self.bias.float()).reshape(*x.shape[:-1], co)

@@ -6,22 +6,24 @@ the same function beside it (the wrapper runs the plain version for CPU
 tensors; the tests and ``chip_smoke.py`` hold the kernel against it). A
 CUDA tensor always goes to the kernel, or the wrapper raises.
 
-  ``conv3d_k3``     the forward: at stride 1 csrc/conv3d_k3_s1.cu (an
-                    implicit GEMM on the tensor cores), replacing
-                    ``mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel``;
-                    at stride 2 csrc/conv3d_k3.cu, replacing
-                    ``::_s2_fwd_kernel``;
-  ``conv3d_k3_dx``  csrc/conv3d_k3_dx.cu: the input gradient, replacing
-                    ``_conv_kernel`` in its corr/post mode
+  ``conv3d_k3``     the forward: at stride 1 csrc/conv3d_k3_s1.cu,
+                    replacing ``mt3d_resenc_unet_tpu/ops/pallas_conv.py::
+                    _conv_kernel``; at stride 2 csrc/conv3d_k3_s2.cu,
+                    replacing ``::_s2_fwd_kernel``;
+  ``conv3d_k3_dx``  csrc/conv3d_k3_dx.cu (direct): the input gradient,
+                    replacing ``_conv_kernel`` in its corr/post mode
                     (``_conv3d_dx_fused_f``) and ``_s2_dx_kernel``;
-  ``conv3d_k3_dw``  the weight gradient: at stride 1 csrc/conv3d_k3_dw_s1.cu
-                    (27 GEMMs over voxels on the tensor cores), replacing
-                    ``_dw_kernel``; at stride 2 csrc/conv3d_k3_dw.cu,
-                    replacing ``_s2_dw_kernel``.
+  ``conv3d_k3_dw``  the weight gradient: at stride 1 csrc/conv3d_k3_dw_s1.cu,
+                    replacing ``_dw_kernel``; at stride 2
+                    csrc/conv3d_k3_dw_s2.cu, replacing ``_s2_dw_kernel``.
 
-The two tensor-core kernels take their tiling from the planners
-:func:`_s1_plan` and :func:`_dw_s1_plan` here; the kernels decode their
-block indices as the planners' docstrings say.
+The four forward and dW kernels are implicit GEMMs on the tensor cores and
+take their tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
+:func:`_dw_s1_plan` and :func:`_dw_s2_plan` here; the kernels decode their
+block indices as the planners' docstrings say, and the stride-2 ones stage
+their input by parity as :func:`s2_row` lays it out. The stride-2 kernels
+sum across blocks in a fixed order (no atomics): two runs on the same
+inputs give bit-equal outputs, statistics and dW.
 
 The kernels write through raw pointers and record nothing for autograd, so
 training reaches them through :class:`Conv3dK3Fn` and
@@ -119,18 +121,18 @@ def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return out, stats
 
 
-def _fn(source: str = _KERNEL):
+def _fn(source: str):
     """The C launcher of ``csrc/<source>.cu``, its argument types set."""
     fn = _lib_fns.get(source)
     if fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(_build.load(source), f"{source}_ndhwc_launch")
         fn.argtypes = {
-            "conv3d_k3": [p, p, p, p, p, p] + [i] * 7 + [f, p],
             "conv3d_k3_dx": [p] * 8 + [i] * 7 + [f, p],
-            "conv3d_k3_dw": [p] * 6 + [i] * 7 + [f, p],
             "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, p],
+            "conv3d_k3_s2": [p] * 7 + [i] * 7 + [f, p],
             "conv3d_k3_dw_s1": [p] * 6 + [i] * 7 + [f, p],
+            "conv3d_k3_dw_s2": [p] * 7 + [i] * 7 + [f, p],
         }[source]
         fn.restype = i
         _lib_fns[source] = fn
@@ -190,9 +192,14 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                 y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
                 plan["splits"], plan["grid"], negative_slope, stream)
         else:
-            rc = _fn()(x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
-                       y.data_ptr(), _ptr(stats), n, d, h, wd, ci, co, stride,
-                       negative_slope, stream)
+            plan = _s2_plan(n, (d, h, wd), ci, co, _sm_count(dev),
+                            pre is not None)
+            part = (torch.empty(plan["slots"], dtype=torch.float32,
+                                device=dev) if emit_stats else None)
+            rc = _fn("conv3d_k3_s2")(
+                x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
+                y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
+                plan["grid"], negative_slope, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3: kernel launch failed, CUDA error {rc}")
     _build.count(f"{_KERNEL}_s{stride}", (ci, co, d, h, wd),
@@ -321,13 +328,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
-# tiles of the stride-1 tensor-core kernels (csrc/conv3d_k3_s1.cu and
-# csrc/conv3d_k3_dw_s1.cu): a forward unit is a brick of S1_BRICK output
-# voxels x 32 output channels x a range of 16-channel Ci chunks; a dW block
-# is all 27 taps of a 32 x 32 (ci, co) tile over a range of DW_BRICK voxel
+# tiles of the tensor-core kernels (csrc/conv3d_k3_s{1,2}.cu and
+# csrc/conv3d_k3_dw_s{1,2}.cu): a forward unit is a brick of S1_BRICK
+# output voxels (S2_BRICK at stride 2, S2_PRE_BRICK with a pre-op) x 32
+# output channels x a range of 16-channel Ci chunks; a dW block is all 27
+# taps of a 32 x 32 (ci, co) tile over a range of DW_BRICK (output) voxel
 # bricks
 S1_BRICK, S1_CT, S1_KC = (4, 8, 8), 32, 16
+S2_BRICK, S2_PRE_BRICK = (4, 8, 8), (2, 8, 8)
 DW_BRICK, DW_CT = (2, 8, 8), 32
+S2_WARPS, S2_SLOT = 8, 64      # stats scratch: fp32 per unit and warp
 _SMS: Dict[int, int] = {}
 
 
@@ -361,6 +371,55 @@ def _s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     units = base * splits
     return dict(splits=splits, units=units, grid=min(units, 2 * sms),
                 chunks=nc // splits)
+
+
+def _s2_out(size) -> Tuple[int, ...]:
+    return tuple((s - 1) // 2 + 1 for s in size)
+
+
+def _s2_plan(n: int, size, ci: int, co: int, sms: int,
+             pre: bool = False) -> dict:
+    """The launch of the stride-2 forward kernel: ``units`` = output
+    channel tiles x samples x bricks of ``brick`` output voxels (S2_BRICK,
+    or S2_PRE_BRICK with a pre-op, whose second footprint needs the room),
+    walked by ``grid`` persistent blocks, one per SM (a block's ring takes
+    most of an SM's shared memory). The kernel decodes unit u = (tile * n
+    + sample) * bricks + brick, brick = (bd * nbh + bh) * nbw + bw, and
+    block b takes units [b * units / grid, (b + 1) * units / grid). With
+    statistics, warp k of unit u writes its [sum; sumsq] to the ``slots``
+    fp32 scratch at (u * S2_WARPS + k) * S2_SLOT."""
+    brick = S2_PRE_BRICK if pre else S2_BRICK
+    units = math.prod(_bricks(_s2_out(size), brick)) * n * (co // S1_CT)
+    return dict(brick=brick, units=units, grid=min(units, sms),
+                slots=units * S2_WARPS * S2_SLOT)
+
+
+def s2_row(bd: int, parity, m) -> int:
+    """The staged row of the stride-2 kernels' input footprint position
+    (2 m_d + p_d, 2 m_h + p_h, 2 m_w + p_w), relative to 2 * (brick origin)
+    - 1, for output bricks of bd x 8 x 8 (csrc/conv3d_k3_s2.cu ``frow``):
+    8 sub-bricks, one per ``parity`` (p_d, p_h, p_w), in that order, each
+    (d, h, w) row-major with b + 1 rows along an axis of b outputs at
+    parity 0 and b at parity 1. Tap k reads parity (k == 1) at m = o - o0
+    + (k == 2), so a tap's 8 consecutive output w are 8 consecutive
+    rows."""
+    bh, bw = S2_BRICK[1:]
+    fh, fw = 2 * bh + 1, 2 * bw + 1
+    pd, ph, pw = parity
+    md, mh, mw = m
+    eh, ew = bh + 1 - ph, bw + 1 - pw
+    off = pd * (bd + 1) * fh * fw + (bd + 1 - pd) * (
+        ph * (bh + 1) * fw + eh * pw * (bw + 1))
+    return off + (md * eh + mh) * ew + mw
+
+
+def _dw_s2_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the stride-2 dW kernel: :func:`_dw_s1_plan` over the
+    output voxels (bricks of DW_BRICK output voxels, each staging its
+    (2 * 2 + 1) x 17 x 17 input footprint). Every block stores its partial
+    sums to its slice of a (splits, 27, Ci, Co) fp32 scratch, added in
+    split order after."""
+    return _dw_s1_plan(n, _s2_out(size), ci, co, sms)
 
 
 def _dw_s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
@@ -449,9 +508,13 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
                 dw.data_ptr(), n, d, h, wd, ci, co, plan["splits"],
                 negative_slope, stream)
         else:
-            rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y),
-                         _ptr(gs), dw.data_ptr(), n, d, h, wd, ci, co, stride,
-                         negative_slope, stream)
+            plan = _dw_s2_plan(n, (d, h, wd), ci, co, _sm_count(dev))
+            part = torch.empty((plan["splits"], 27, ci, co),
+                               dtype=torch.float32, device=dev)
+            rc = _fn("conv3d_k3_dw_s2")(
+                x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
+                dw.data_ptr(), part.data_ptr(), n, d, h, wd, ci, co,
+                plan["splits"], negative_slope, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), pre=pre is not None,

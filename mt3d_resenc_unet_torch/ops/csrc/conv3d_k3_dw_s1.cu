@@ -1,7 +1,8 @@
 // Weight gradient (dW) of the stride-1 3x3x3 pad-1 convolution on NDHWC
 // bf16, on the tensor cores, for Hopper (sm_90a). Plain C interface, bound
-// with ctypes (ops/conv3d.py conv3d_k3_dw at stride 1). The stride-2 dW
-// stays in conv3d_k3_dw.cu.
+// with ctypes (ops/conv3d.py conv3d_k3_dw at stride 1). The stride-2 dW,
+// conv3d_k3_dw_s2.cu, shares this design with its input staged by parity
+// and a deterministic sum across blocks.
 //
 // Replaces the TPU's Pallas kernel
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_dw_kernel (via

@@ -1,6 +1,7 @@
 // Stride-1 3x3x3 pad-1 convolution on NDHWC bf16, on the tensor cores, for
 // Hopper (sm_90a). Plain C interface, bound with ctypes (ops/conv3d.py
-// conv3d_k3 at stride 1). The stride-2 forward stays in conv3d_k3.cu.
+// conv3d_k3 at stride 1). The stride-2 forward, conv3d_k3_s2.cu, shares this
+// design with its input staged by parity.
 //
 // Replaces the TPU's Pallas kernel
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel (stride 1, via

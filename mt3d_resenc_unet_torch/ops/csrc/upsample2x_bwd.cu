@@ -20,9 +20,8 @@
 //       channels; each thread a 4 voxel x 4 channel register tile. The
 //       reduction runs over the 8 parities x Co in staged chunks of 32
 //       cotangent channels, with the weights read transposed in place.
-//   dW: a split-K GEMM per parity, as csrc/conv3d_k3_dw.cu does per tap: a
-//       block owns one (parity, 32 ci, 32 co) tile and a span of whole
-//       128-voxel chunks; four groups of 64 threads take 32 voxels of each
+//   dW: a split-K GEMM per parity: a block owns one (parity, 32 ci, 32 co)
+//       tile and a span of whole 128-voxel chunks; four groups of 64 threads take 32 voxels of each
 //       chunk; the block adds its partial tile to a zeroed fp32
 //       (8, Ci, Co) buffer with atomicAdd (about 2048 blocks in all, so the
 //       atomics are few beside the FMAs; their order varies from run to

@@ -1,0 +1,172 @@
+"""The model's plain classes in the working precision (bf16), as the JAX
+package runs them.
+
+The shapes outside the kernel classes (the Ci=1 stem, the 128-channel
+stage and its decoder pair, the deep stride-2 convs, the pool+projection
+skips, the deep-stage upsamples and the seg layers) are XLA in the JAX
+package, not Pallas. There ``Conv.__call__`` / ``_dispatch``
+(models/blocks.py:130-135, 192-207), ``_pool_proj`` (:214-255), the stem
+GEMM (ops/gemm_conv.py:221-276), ``UpsampleConv`` and ``SegLayer`` cast
+their operands to the compute dtype and ask for its output
+(``preferred_element_type=self.dtype``): bf16 operands, fp32 accumulation,
+a bf16 result; and its unfused conv -> norm -> act order hands the next
+conv a bf16 activation. The functions here do the same for an input in a
+16-bit dtype:
+
+* on the card, one cuDNN conv or cuBLAS matmul in the input's dtype (both
+  accumulate in fp32; ``core.config.set_precision`` keeps cuBLAS's split-K
+  reductions in fp32 as well);
+* on the CPU, the fp32 conv or matmul of the same rounded operands, then
+  rounded to the input's dtype: the same products, summed in another order.
+
+A pre-op's normalized input is rounded to the input's dtype before the
+conv; statistics are fp32 sums of the rounded output. Everything is plain
+PyTorch differentiated by autograd, except the stem's weight gradient
+(:class:`StemConvFn`). An fp32 input never comes here: ``conv3d.
+conv3d_k3_plain`` and ``upsample.upsample_plain`` stay the fp32 path (the
+fp32 reference model, and the kernels' yardsticks).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .instance_norm import instance_stats
+from .upsample import upsample_gemm
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with both operands in a's dtype, fp32 accumulation, the
+    result in a's dtype."""
+    b = b.to(a.dtype)
+    if a.device.type == "cuda":
+        return a @ b
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """3x3x3 pad-1 conv of NDHWC x with w (3, 3, 3, Ci, Co) in x's dtype;
+    on the card cuDNN on the channels-last views."""
+    xl = x.permute(0, 4, 1, 2, 3)
+    wl = w.to(x.dtype).permute(4, 3, 0, 1, 2)
+    if x.device.type == "cuda":
+        y = F.conv3d(xl, wl.contiguous(memory_format=torch.channels_last_3d),
+                     stride=stride, padding=1)
+    else:
+        y = F.conv3d(xl.float(), wl.float(), stride=stride,
+                     padding=1).to(x.dtype)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def stem_class(x: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
+    """The JAX stem GEMM's class (gemm_conv.py ``stem_supported``): one
+    input channel, 3x3x3, stride 1, for an input that needs no gradient
+    (the image; :class:`StemConvFn` has no dx)."""
+    return (x.shape[-1] == 1 and tuple(w.shape[:4]) == (3, 3, 3, 1)
+            and stride == 1 and not x.requires_grad)
+
+
+def _stem_patches(x: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W, 1) -> (32, N*D*H*W): the 27 taps' shifted views of the
+    zero-padded volume, then 5 rows of zeros (K = 32 keeps the GEMMs on
+    the tensor cores' tiles)."""
+    n, d, h, w, _ = x.shape
+    xp = F.pad(x[..., 0], (1, 1, 1, 1, 1, 1))
+    taps = [xp[:, a:a + d, b:b + h, c:c + w]
+            for a in range(3) for b in range(3) for c in range(3)]
+    taps += [torch.zeros_like(taps[0])] * 5
+    return torch.stack(taps).reshape(32, -1)
+
+
+class StemConvFn(torch.autograd.Function):
+    """The Ci=1 stem conv ``y = conv(x, w)`` as the JAX package computes it
+    (``conv3d_stem_cf`` / ``_stem_cf_bwd``, gemm_conv.py:221-276): one GEMM
+    over the tap-patch matrix P (27 taps x voxels), y = P^T W forward and
+    dW = P gy backward with fp32 accumulation (:263), rounded to W's dtype.
+    With Ci = 1 a conv library's implicit GEMM has a K of 27; here the
+    weight gradient is one (32 x M) x (M x Co) product. x needs no
+    gradient (the image): the Function returns none for it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x)
+        co = w.shape[-1]
+        w32 = F.pad(w.reshape(27, co), (0, 0, 0, 5))
+        y = matmul(_stem_patches(x).t(), w32)
+        return y.reshape(*x.shape[:4], co)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x,) = ctx.saved_tensors
+        co = gy.shape[-1]
+        dw = matmul(_stem_patches(x), gy.reshape(-1, co).to(x.dtype))
+        return None, dw[:27].reshape(3, 3, 3, 1, co)
+
+
+def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              pre: Optional[torch.Tensor] = None,
+              add_to: Optional[torch.Tensor] = None,
+              emit_stats: bool = False, negative_slope: float = 1e-2):
+    """The function of ``conv3d.conv3d_k3_plain`` in x's dtype: the pre-op
+    ``leaky(x * pre[:, 0] - pre[:, 1])`` in fp32, rounded to x's dtype;
+    the conv (:class:`StemConvFn` in the stem's class); ``add_to`` added in
+    x's dtype (JAX adds the two halves' outputs so); ``emit_stats``: fp32
+    [sum; sumsq] of the result. Returns ``y`` or ``(y, stats)``."""
+    if pre is not None:
+        u = (x.float() * pre[:, 0, None, None, None, :]
+             - pre[:, 1, None, None, None, :])
+        x = torch.where(u >= 0, u, u * negative_slope).to(x.dtype)
+    w = w.to(x.dtype)
+    if stem_class(x, w, stride):
+        y = StemConvFn.apply(x, w)
+    else:
+        y = _conv(x, w, stride)
+    if add_to is not None:
+        y = y + add_to
+    return (y, instance_stats(y)) if emit_stats else y
+
+
+def pool_proj(x: torch.Tensor, k: torch.Tensor,
+              p: Sequence[int] = ()) -> torch.Tensor:
+    """AvgPool(p) (window == stride, VALID) then the 1x1 projection k
+    (1, 1, 1, Ci, Co), as JAX ``_pool_proj``: for p = (2, 2, 2) at Ci <= 64
+    the D and H pair sums in x's dtype and one matmul whose K takes the W
+    pair; otherwise one matmul over the whole window (JAX's fallback conv
+    with k / prod(p) over the window). No ``p``: the plain 1x1 conv."""
+    n, d, h, wd, ci = x.shape
+    co = k.shape[-1]
+    w2 = k.to(x.dtype).reshape(ci, co) / math.prod(p)
+    if not p:
+        a = x
+    elif (tuple(p) == (2, 2, 2) and ci <= 64 and 128 % ci == 0
+          and wd % (128 // ci) == 0 and d % 2 == 0 and h % 2 == 0):
+        t = x[:, 0::2] + x[:, 1::2]
+        t = t[:, :, 0::2] + t[:, :, 1::2]
+        a = t.reshape(n, d // 2, h // 2, wd // 2, 2 * ci)
+        w2 = torch.cat([w2, w2])
+    else:
+        pd, ph, pw = p
+        do, ho, wo = d // pd, h // ph, wd // pw
+        a = x[:, :do * pd, :ho * ph, :wo * pw].reshape(
+            n, do, pd, ho, ph, wo, pw, ci).permute(0, 1, 3, 5, 2, 4, 6, 7)
+        a = a.reshape(n, do, ho, wo, pd * ph * pw * ci)
+        w2 = w2.repeat(pd * ph * pw, 1)
+    return matmul(a.reshape(-1, a.shape[-1]), w2).reshape(*a.shape[:-1], co)
+
+
+def upsample(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
+    """``upsample.upsample_plain`` in x's dtype (JAX ``UpsampleConv``'s
+    generic GEMM)."""
+    return upsample_gemm(x, wf.to(x.dtype), matmul).contiguous()
+
+
+def seg(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The 1x1 seg head as JAX ``SegLayer``: the matmul and the bias add in
+    x's dtype, then fp32 (the logits)."""
+    ci, co = k.shape[-2:]
+    y = matmul(x.reshape(-1, ci), k.reshape(ci, co)) + bias.to(x.dtype)
+    return y.float().reshape(*x.shape[:-1], co)

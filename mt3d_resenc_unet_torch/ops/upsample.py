@@ -43,20 +43,27 @@ def upsample2x_supported(x_shape, ci: int, co: int) -> bool:
             and ci % 32 == 0 and co % 32 == 0)
 
 
-def upsample_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: fp32 GEMM plus interleave, output in
-    ``x.dtype``."""
+def upsample_gemm(x: torch.Tensor, wf: torch.Tensor, matmul) -> torch.Tensor:
+    """The transposed conv as ``matmul(x rows, wf as (Ci, prod(k) * Co))``
+    written depth-to-space; ``matmul`` sets the precision."""
     k = tuple(wf.shape[:-2])
     ci, co = wf.shape[-2:]
     n, *spatial, _ = x.shape
     nd = len(k)
-    w2 = wf.float().permute(nd, *range(nd), nd + 1).reshape(ci, -1)
-    y = (x.float().reshape(-1, ci) @ w2).reshape(n, *spatial, *k, co)
+    w2 = wf.permute(nd, *range(nd), nd + 1).reshape(ci, -1)
+    y = matmul(x.reshape(-1, ci), w2).reshape(n, *spatial, *k, co)
     perm = [0]
     for i in range(nd):
         perm += [1 + i, 1 + nd + i]
     perm.append(1 + 2 * nd)
-    y = y.permute(perm).reshape(n, *(s * kk for s, kk in zip(spatial, k)), co)
+    return y.permute(perm).reshape(
+        n, *(s * kk for s, kk in zip(spatial, k)), co)
+
+
+def upsample_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: fp32 GEMM plus interleave, output in
+    ``x.dtype``."""
+    y = upsample_gemm(x, wf, lambda a, b: a.float() @ b.float())
     return y.to(x.dtype).contiguous()
 
 

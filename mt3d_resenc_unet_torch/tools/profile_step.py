@@ -10,9 +10,10 @@ device time per step in groups (the port's kernels by row of PERF.md's
 kernel table, stride 1 and 2 apart; cuDNN/GEMM of
 the plain classes, elementwise, reductions, the optimizer), the 25 kernels
 that take the most device time, and the device's busy share of the wall
-time. TF32 is off for cuDNN and matmuls, as ``chip_smoke.py`` times the
-step, so the plain-torch classes run in full fp32. Needs a CUDA device;
-exits non-zero without one.
+time. The precision is ``core.config.set_precision``'s, as the trainer and
+``chip_smoke.py`` set it; the plain-torch classes run in bf16 with fp32
+accumulation (ops/lowp.py), so the cuDNN / GEMM group should show no fp32
+convolution or GEMM. Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ import torch
 
 # the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
-    ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_|conv3d_k3_ndhwc<1"),
+    ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_"),
     ("row 2 conv3d_k3_dx_s1", r"conv3d_k3_dx_s1|conv3d_k3_dx_ndhwc<1"),
-    ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1|conv3d_k3_dw_ndhwc<1"),
-    ("row 4 conv3d_k3_s2", r"conv3d_k3_ndhwc<2"),
-    ("row 5 conv3d_k3_dw_s2", r"conv3d_k3_dw_ndhwc<2"),
+    ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1_"),
+    ("row 4 conv3d_k3_s2", r"conv3d_k3_s2_"),
+    ("row 5 conv3d_k3_dw_s2", r"conv3d_k3_dw_s2_"),
     ("row 6 conv3d_k3_dx_s2", r"conv3d_k3_dx_ndhwc<2"),
     ("row 7 upsample2x", r"upsample2x_ndhwc"),
     ("row 8 upsample2x_dx", r"upsample2x_dx_ndhwc"),
@@ -61,6 +62,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
+    from ..core.config import set_precision
     from ..core.plan import TaskHead, plan_from_autoconfig
     from ..models.network import ResEncUNet
     from ..ops import _build
@@ -68,8 +70,7 @@ def main(argv=None) -> int:
     from ..train.step import (build_optimizer, cosine_epoch_schedule,
                               make_train_step)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_precision()
     dev = torch.device("cuda", 0)
     _build.build_all()
     patch, n = (128, 128, 128), 2
@@ -124,6 +125,14 @@ def main(argv=None) -> int:
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
         print(f"  {_device_us(e) / 1e3 / args.steps:8.2f} ms "
               f"{e.count // args.steps:5d}x  {e.key[:110]}")
+    # every library kernel, by name, so their operand types can be read
+    lib = GROUPS[-3]
+    print(f"every kernel of '{lib[0]}':")
+    for e in sorted(kernels, key=_device_us, reverse=True):
+        if next((g for g, pat in GROUPS if re.search(pat, e.key, re.I)),
+                None) == lib[0]:
+            print(f"  {_device_us(e) / 1e3 / args.steps:8.2f} ms "
+                  f"{e.count // args.steps:5d}x  {e.key[:160]}")
     return 0
 
 

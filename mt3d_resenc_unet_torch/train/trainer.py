@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.config import ConfigManager, resolve_device
+from ..core.config import ConfigManager, resolve_device, set_precision
 from ..core.plan import NetworkPlan
 from ..data.dataset import ZarrPatchDataset
 from ..data.pipeline import batch_iterator, device_prefetch, train_val_split
@@ -79,6 +79,7 @@ class Trainer:
                  config_dict: Optional[Dict[str, Any]] = None,
                  device=None):
         self.device = resolve_device(device)
+        set_precision()
         self.mgr = ConfigManager(config_file, config_dict, verbose=verbose)
         self.debug_dataloader = debug_dataloader
         self._t0 = time.time()
