@@ -12,7 +12,7 @@ flagship through the port's ``Trainer`` on a synthetic zarr dataset.
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
      per source, all at once), print the registers, shared memory and
-     spills ``-Xptxas -v`` reports (per entry for the four tensor-core
+     spills ``-Xptxas -v`` reports (per entry for the five tensor-core
      sources) and the card's name and power limit; set the port's one
      precision (``core.config.set_precision``: TF32 off, fp32 split-K
      reductions in bf16 matmuls), as the trainer does;
@@ -51,10 +51,13 @@ Phases (any failure exits non-zero and prints no result line):
      dense peak, and peak memory. (c) Every launch counter is zeroed before
      (b) and all nine kernels must have launched in it; its counts by shape
      and mode times the cases of 2 and 5a give each kernel's ms, library
-     ms and bound per training step. (d) Rows 4 and 5 (the stride-2
-     forward with stats and dW with the correction) run twice on the same
-     inputs at both flagship stride-2 shapes: y, stats and dW must be
-     bit-equal (they sum in a fixed order, without atomics);
+     ms and bound per training step. Before (b), two first steps through
+     the kernels from the same weights and batch are compared: whether
+     their losses and grad_norm are bit-equal is printed, not held. (d)
+     All nine conv and upsample kernels run twice on the same inputs at the
+     flagship's shapes in the step's modes: every output, statistic and
+     [sum du*x; sum du] must be bit-equal (they sum in a fixed order,
+     without atomics);
   6. the fused instance norm + LeakyReLU (``ops/norm_act.py``) at N=2 bf16
      and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
      act on and off and one affine case: forward and backward through
@@ -175,18 +178,28 @@ SOURCES = {
 
 
 def median_ms(fn, reps=7, warmup=2):
+    """Median ms of one call of ``fn`` on the card: each of ``reps``
+    samples times a run of calls back to back between two CUDA events
+    (enough for about 2 ms, at most 50) and divides by their number, so a
+    short kernel is not charged the host's time to enqueue it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    inner = max(1, min(50, int(2.0 / max(once, 1e-3))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -254,8 +267,20 @@ def tensor_core_usage(logs):
           f"{2 * (dw_x + dw_g)} B, with corr {2 * (dw_x + 2 * dw_g)} B; "
           f"conv3d_k3_s2 {s2} B, with pre {s2_pre} B; conv3d_k3_dw_s2 "
           f"{2 * (dw2_x + dw_g)} B, with corr {2 * (dw2_x + 2 * dw_g)} B")
+    # the upsample backward at the flagship's two shapes: dx's resident
+    # weights, 4-stage ring of one (a, b) x 32 co and output tile; dW's
+    # 3-stage ring of 64 voxels of x and the tile's parities of gy
+    from mt3d_resenc_unet_torch.ops import upsample as up
+    for ci, co, extent in UP_CASES:
+        p = up._up_bwd_plan(2, (extent,) * 3, ci, co, 132)
+        xd, wd = p["dx"], p["dw"]
+        print(f"  upsample {ci}->{co}: upsample2x_dx {xd['smem']} B (tile "
+              f"{xd['tm']} x {xd['tci']}, {xd['stages']} stages of "
+              f"{xd['kc']} co), upsample2x_dw {wd['smem']} B (tile "
+              f"{wd['pb']} x {wd['tci']} x {wd['tco']}, {wd['splits']} "
+              "splits)")
     for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dw_s1",
-                   "conv3d_k3_dw_s2"):
+                   "conv3d_k3_dw_s2", "upsample2x_bwd"):
         entry = None
         for line in logs[source].splitlines():
             if "Compiling entry function" in line:
@@ -511,7 +536,8 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
               f"library {r['library_ms']:.3f} ms  {r['tflops']:.1f} TFLOP/s"
               f"  bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%})")
-    failures += deterministic_cases(dev, gen, s2_cases)
+    failures += deterministic_cases(dev, gen, conv_cases, s2_cases,
+                                    up_cases)
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
@@ -697,34 +723,88 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
     return records, failures
 
 
-def deterministic_cases(dev, gen, s2_cases):
-    """Phase 5d: rows 4 and 5 (the stride-2 forward with stats, dW with the
-    correction, the step's modes) twice each on the same inputs at the
-    flagship's stride-2 shapes; y, stats and dW must be bit-equal. Returns
-    the failures."""
-    from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_dw
+def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
+    """Phase 5d: all nine conv and upsample kernels twice each on the same
+    inputs at the flagship's shapes, in the training step's modes (forward
+    with stats, pre-op + stats and add-in + stats; dx with the correction,
+    and with the pre-op backward at stride 1; dW with the correction, and
+    with the pre-op at stride 1; the upsample forward, dx and dW). Every
+    output, statistic and [sum du*x; sum du] must be bit-equal: the kernels
+    sum in a fixed order, without atomics. Returns the failures."""
+    from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3, conv3d_k3_dw,
+                                                   conv3d_k3_dx)
+    from mt3d_resenc_unet_torch.ops.upsample import (upsample2x,
+                                                     upsample2x_dw,
+                                                     upsample2x_dx)
     failures, n = [], 2
-    for stride, ci, co, extent in s2_cases:
-        eo = extent // stride
-        x = torch.randn(n, extent, extent, extent, ci,
-                        generator=gen).to(dev).bfloat16()
-        w = (torch.randn(3, 3, 3, ci, co, generator=gen)
-             * (27 * ci) ** -0.5).to(dev).bfloat16()
-        gy, y = (torch.randn(n, eo, eo, eo, co, generator=gen).to(
-            dev).bfloat16() for _ in range(2))
-        gs = (torch.randn(n, 2, co, generator=gen) * 0.1).to(dev)
-        fwd = [conv3d_k3(x, w, stride, emit_stats=True) for _ in range(2)]
-        dws = [conv3d_k3_dw(x, gy, stride, y=y, gs=gs) for _ in range(2)]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def check(name, case, fn):
+        runs = [fn() for _ in range(2)]
         torch.cuda.synchronize()
-        same = {"y": torch.equal(fwd[0][0], fwd[1][0]),
-                "stats": torch.equal(fwd[0][1], fwd[1][1]),
-                "dW": torch.equal(dws[0], dws[1])}
-        print(f"  deterministic {ci}->{co} @{extent}^3 s{stride}: bit-equal "
-              + ", ".join(f"{k} {v}" for k, v in same.items()))
-        failures += [f"conv3d_k3 s{stride} {ci}->{co} @{extent}^3: two "
-                     f"runs differ in {k}" for k, v in same.items() if not v]
-        del x, w, gy, y, gs, fwd, dws
+        runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"  deterministic {name:16s} {case}: bit-equal {same}")
+        if not same:
+            failures.append(f"{name} {case}: two runs differ")
+
+    for stride, ci, co, extent in list(conv_cases) + list(s2_cases):
+        eo = extent // stride
+        x = randn(n, extent, extent, extent, ci).bfloat16()
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).bfloat16()
+        gy, y = (randn(n, eo, eo, eo, co).bfloat16() for _ in range(2))
+        gs = randn(n, 2, co, scale=0.1)
+        pre = torch.stack([torch.rand(n, ci, generator=gen) * 1.5 + 0.5,
+                           torch.randn(n, ci, generator=gen)], 1).to(dev)
+        shape = f"{ci}->{co} @{extent}^3"
+        for mode, kw in (("stats", {}), ("pre_stats", {"pre": pre}),
+                         ("addin_stats", {"add_to": y})):
+            check(f"conv3d_k3_s{stride}", f"{shape} {mode}",
+                  lambda: conv3d_k3(x, w, stride, emit_stats=True, **kw))
+        dx_modes = [("corr", {})]
+        dw_modes = [("corr", {})]
+        if stride == 1:
+            dx_modes.append(("corr_post", {"x": x, "pre": pre}))
+            dw_modes.append(("pre_corr", {"pre": pre}))
+        for mode, kw in dx_modes:
+            check(f"conv3d_k3_dx_s{stride}", f"{shape} {mode}",
+                  lambda: conv3d_k3_dx(gy, w, stride, y, gs,
+                                       size=x.shape[1:4], **kw))
+        for mode, kw in dw_modes:
+            check(f"conv3d_k3_dw_s{stride}", f"{shape} {mode}",
+                  lambda: conv3d_k3_dw(x, gy, stride, y=y, gs=gs, **kw))
+        del x, w, gy, y, gs, pre
+    for ci, co, extent in up_cases:
+        x = randn(n, extent, extent, extent, ci).bfloat16()
+        wf = randn(2, 2, 2, ci, co, scale=(8 * co) ** -0.5).bfloat16()
+        gy = randn(n, 2 * extent, 2 * extent, 2 * extent, co).bfloat16()
+        shape = f"{ci}->{co} @{extent}^3"
+        check("upsample2x", shape, lambda: upsample2x(x, wf))
+        check("upsample2x_dx", shape, lambda: upsample2x_dx(gy, wf))
+        check("upsample2x_dw", shape, lambda: upsample2x_dw(x, gy))
+        del x, wf, gy
     return failures
+
+
+def step_repeatability(model, batch):
+    """Two first training steps through the kernels from the same weights
+    and batch: prints whether their metrics (losses, grad_norm) are
+    bit-equal, without failing; the weights are restored after."""
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = []
+    for i in range(2):
+        model.load_state_dict(state)
+        runs.append(train_path(model, batch, 1, f"repeat {i}")[0][0])
+    model.load_state_dict(state)
+    del state
+    same = runs[0] == runs[1]
+    diff = {k: runs[1][k] - v for k, v in runs[0].items() if runs[1][k] != v}
+    print(f"train step repeatability: two first steps from the same weights "
+          f"and batch bit-equal {same}" + (f" (differences {diff})"
+                                           if not same else ""))
+    return same
 
 
 def flagship_batch(dev, patch, n):
@@ -789,6 +869,8 @@ def training(dev, fast, plain, patch, steps):
     n = 2
     failures = []
     batch = flagship_batch(dev, patch, n)
+    step_repeatability(fast, batch)
+    torch.cuda.empty_cache()
     plain.load_state_dict(fast.state_dict())
     _build.clear_counts()
     got = train_path(fast, batch, steps, "kernels bf16")

@@ -21,9 +21,10 @@ The four forward and dW kernels are implicit GEMMs on the tensor cores and
 take their tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
 :func:`_dw_s1_plan` and :func:`_dw_s2_plan` here; the kernels decode their
 block indices as the planners' docstrings say, and the stride-2 ones stage
-their input by parity as :func:`s2_row` lays it out. The stride-2 kernels
-sum across blocks in a fixed order (no atomics): two runs on the same
-inputs give bit-equal outputs, statistics and dW.
+their input by parity as :func:`s2_row` lays it out. Every kernel sums
+across blocks and warps in a fixed order (no atomics), through scratch the
+wrapper allocates: two runs on the same inputs give bit-equal outputs,
+statistics, dW and [sum du*x; sum du].
 
 The kernels write through raw pointers and record nothing for autograd, so
 training reaches them through :class:`Conv3dK3Fn` and
@@ -128,10 +129,10 @@ def _fn(source: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(_build.load(source), f"{source}_ndhwc_launch")
         fn.argtypes = {
-            "conv3d_k3_dx": [p] * 8 + [i] * 7 + [f, p],
+            "conv3d_k3_dx": [p] * 9 + [i] * 7 + [f, p],
             "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, p],
             "conv3d_k3_s2": [p] * 7 + [i] * 7 + [f, p],
-            "conv3d_k3_dw_s1": [p] * 6 + [i] * 7 + [f, p],
+            "conv3d_k3_dw_s1": [p] * 7 + [i] * 7 + [f, p],
             "conv3d_k3_dw_s2": [p] * 7 + [i] * 7 + [f, p],
         }[source]
         fn.restype = i
@@ -179,14 +180,15 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     if add_to is not None:
         _check(add_to, "add_to", bf16, (n, do, ho, wo, co), dev)
     y = torch.empty((n, do, ho, wo, co), dtype=bf16, device=dev)
-    stats = (torch.zeros((n, 2, co), dtype=torch.float32, device=dev)
+    stats = (torch.empty((n, 2, co), dtype=torch.float32, device=dev)
              if emit_stats else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if stride == 1:
-            plan = _s1_plan(n, (d, h, wd), ci, co, _sm_count(dev))
-            part = (torch.zeros((n, d, h, wd, co), dtype=torch.float32,
-                                device=dev) if plan["splits"] > 1 else None)
+            plan = _s1_plan(n, (d, h, wd), ci, co, _sm_count(dev),
+                            emit_stats)
+            part = (torch.empty(plan["scratch"], dtype=torch.float32,
+                                device=dev) if plan["scratch"] else None)
             rc = _fn("conv3d_k3_s1")(
                 x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
                 y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
@@ -338,6 +340,7 @@ S1_BRICK, S1_CT, S1_KC = (4, 8, 8), 32, 16
 S2_BRICK, S2_PRE_BRICK = (4, 8, 8), (2, 8, 8)
 DW_BRICK, DW_CT = (2, 8, 8), 32
 S2_WARPS, S2_SLOT = 8, 64      # stats scratch: fp32 per unit and warp
+S1_FIN_VOX = 64                # voxels per block of the split finish
 _SMS: Dict[int, int] = {}
 
 
@@ -352,7 +355,8 @@ def _bricks(size, brick) -> Tuple[int, ...]:
     return tuple(-(-s // b) for s, b in zip(size, brick))
 
 
-def _s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+def _s1_plan(n: int, size, ci: int, co: int, sms: int,
+             stats: bool = False) -> dict:
     """The launch of the stride-1 forward kernel: ``units`` = splits x
     output channel tiles x samples x bricks, walked by ``grid`` persistent
     blocks (about two per SM). Where the units of an unsplit K (bricks x
@@ -361,7 +365,15 @@ def _s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     chunks (``splits`` a divisor of it), with all 27 taps. The kernel
     decodes unit u = ((split * tiles + tile) * n + sample) * bricks +
     brick, brick = (bd * nbh + bh) * nbw + bw, and block b takes units
-    [b * units / grid, (b + 1) * units / grid)."""
+    [b * units / grid, (b + 1) * units / grid).
+
+    ``scratch``: the fp32 floats of the kernel's scratch (0: none). Unsplit
+    with ``stats``, the ``slots`` of [sum; sumsq]: one per group (tile,
+    sample), written at the group's last unit, and one per block, written
+    at its last unit where that is inside a group (:func:`s1_stat_slots`),
+    S2_WARPS x S2_SLOT floats each. Split, one slice of n x voxels x co per
+    split, then with ``stats`` the finish blocks' [sum; sumsq] slots, n x
+    ceil(voxels / S1_FIN_VOX) x 2 x co."""
     base = math.prod(_bricks(size, S1_BRICK)) * n * (co // S1_CT)
     nc = ci // S1_KC
     splits = 1
@@ -369,8 +381,37 @@ def _s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
         splits = next((s for s in range(1, nc + 1)
                        if nc % s == 0 and base * s >= 2 * sms), nc)
     units = base * splits
-    return dict(splits=splits, units=units, grid=min(units, 2 * sms),
-                chunks=nc // splits)
+    grid = min(units, 2 * sms)
+    vox = math.prod(size)
+    if splits > 1:
+        scratch = splits * n * vox * co + (
+            n * -(-vox // S1_FIN_VOX) * 2 * co if stats else 0)
+    else:
+        scratch = ((co // S1_CT) * n + grid) * S2_WARPS * S2_SLOT if stats \
+            else 0
+    return dict(splits=splits, units=units, grid=grid, chunks=nc // splits,
+                scratch=scratch)
+
+
+def s1_stat_slots(units: int, grid: int, bricks: int) -> list:
+    """The statistics slots the unsplit stride-1 forward writes, as (slot,
+    group, first unit, last unit) in the order its stats kernel adds them
+    per group: block b's flush at its last unit u inside group g = u //
+    bricks goes to slot groups + b and covers its units of g; the flush at
+    a group's last unit to slot g, covering the group's units from the
+    start of the block that holds it."""
+    groups = units // bricks
+    starts = [b * units // grid for b in range(grid)]
+    out = []
+    for g in range(groups):
+        for b in range(grid):
+            last = (b + 1) * units // grid - 1
+            if last // bricks == g and (last + 1) % bricks:
+                out.append((groups + b, g, max(starts[b], g * bricks), last))
+        end = (g + 1) * bricks - 1
+        b = max(i for i in range(grid) if starts[i] <= end)
+        out.append((g, g, max(starts[b], g * bricks), end))
+    return out
 
 
 def _s2_out(size) -> Tuple[int, ...]:
@@ -429,12 +470,28 @@ def _dw_s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     the tiles alone do not. The kernel decodes block = split * tiles +
     tile, tile = (ci / 32) * (co / 32 tiles) + co / 32; split s takes
     bricks [s * bricks / splits, (s + 1) * bricks / splits), brick =
-    ((sample * nbd + bd) * nbh + bh) * nbw + bw."""
+    ((sample * nbd + bd) * nbh + bh) * nbw + bw. Every block stores its
+    partial sums to its slice of a (splits, 27, Ci, Co) fp32 scratch,
+    added in split order after."""
     tiles = (ci // DW_CT) * (co // DW_CT)
     bricks = n * math.prod(_bricks(size, DW_BRICK))
     splits = max(1, min(bricks, sms // tiles))
     return dict(tiles=tiles, splits=splits, blocks=tiles * splits,
                 bricks=bricks)
+
+
+DX_TV, DX_CIB = 128, 32       # the direct dx kernel's block: voxels x ci
+
+
+def _dx_slots(n: int, size, ci: int, stride: int) -> tuple:
+    """The shape of the direct dx kernel's scratch in POST mode
+    (csrc/conv3d_k3_dx.cu): one 64-float slot [sum du*x; sum du] per block,
+    (n, ci / 32, classes, blocks, 64), classes = 8 parity classes at stride
+    2 (1 at stride 1) and blocks = the 128-voxel blocks of the largest
+    class, each (sample, ci tile) group summed in this order after."""
+    classes = 8 if stride == 2 else 1
+    largest = math.prod(-(-s // stride) for s in size)
+    return (n, ci // DX_CIB, classes, -(-largest // DX_TV), 2 * DX_CIB)
 
 
 def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -466,12 +523,16 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
     dev = gy.device
     _check(w, "w", torch.bfloat16, (3, 3, 3, ci, co), dev, fn)
     dx = torch.empty((n, d, h, wd, ci), dtype=torch.bfloat16, device=dev)
-    dst = (torch.zeros((n, 2, ci), dtype=torch.float32, device=dev)
-           if pre is not None else None)
+    dst = part = None
+    if pre is not None:
+        dst = torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
+        part = torch.empty(_dx_slots(n, (d, h, wd), ci, stride),
+                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _fn(fn)(gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
                      _ptr(x if pre is not None else None), _ptr(pre),
-                     dx.data_ptr(), _ptr(dst), n, d, h, wd, ci, co, stride,
+                     dx.data_ptr(), _ptr(dst), _ptr(part), n, d, h, wd, ci,
+                     co, stride,
                      negative_slope, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
@@ -498,23 +559,17 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     d, h, wd, ci = x.shape[1:]
     n, co = _bwd_args(fn, gy, stride, y, gs, x, pre, d, h, wd, ci)
     dev = gy.device
-    dw = torch.zeros((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
+    plan = (_dw_s1_plan if stride == 1 else _dw_s2_plan)(
+        n, (d, h, wd), ci, co, _sm_count(dev))
+    part = torch.empty((plan["splits"], 27, ci, co), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if stride == 1:
-            plan = _dw_s1_plan(n, (d, h, wd), ci, co, _sm_count(dev))
-            rc = _fn("conv3d_k3_dw_s1")(
-                x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
-                dw.data_ptr(), n, d, h, wd, ci, co, plan["splits"],
-                negative_slope, stream)
-        else:
-            plan = _dw_s2_plan(n, (d, h, wd), ci, co, _sm_count(dev))
-            part = torch.empty((plan["splits"], 27, ci, co),
-                               dtype=torch.float32, device=dev)
-            rc = _fn("conv3d_k3_dw_s2")(
-                x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
-                dw.data_ptr(), part.data_ptr(), n, d, h, wd, ci, co,
-                plan["splits"], negative_slope, stream)
+        rc = _fn(f"conv3d_k3_dw_s{stride}")(
+            x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
+            dw.data_ptr(), part.data_ptr(), n, d, h, wd, ci, co,
+            plan["splits"], negative_slope,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), pre=pre is not None,

@@ -41,13 +41,13 @@
 //     brick at the tap's shifted rows and G (k = voxel, n = co) from the g
 //     brick. The g fragments of a 16-voxel step serve all three taps of a
 //     warp.
-//   Reduction across bricks. The planner (ops/conv3d.py _dw_s1_plan) cuts
-//     the bricks into `splits` contiguous ranges so that tiles x splits
-//     blocks fill the SMs once; each block adds its finished 27 x 32 x 32
-//     sums into the zeroed fp32 (27, Ci, Co) dW with one atomicAdd per value:
-//     splits x 27 x Ci x Co adds (132 x 27,648 = 3.65 M at 128^3 x 32 -> 32
-//     on 132 SMs, where the direct kernel made 2.1 M). Their order changes
-//     from run to run, so the low bits of dW do too.
+//   Deterministic reduction across bricks. The planner (ops/conv3d.py
+//     _dw_s1_plan) cuts the bricks into `splits` contiguous ranges so that
+//     tiles x splits blocks fill the SMs once; each block stores its
+//     finished 27 x 32 x 32 sums to its own slice of an fp32 (splits, 27,
+//     Ci, Co) scratch (132 slices, 14.6 MB at 128^3 x 32 -> 32 on 132 SMs),
+//     and conv3d_k3_dw_s1_sum adds the slices in split order. No atomics:
+//     two runs on the same inputs give bit-equal dW.
 //
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned x, gy, y.
@@ -68,6 +68,7 @@ constexpr int WARPS = 9;
 constexpr int THREADS = 32 * WARPS;
 constexpr int X_BYTES = HALO * ROW;                   // 25600
 constexpr int G_BYTES = BV * ROW;                     // 8192
+constexpr int SUM_THREADS = 256;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -228,7 +229,7 @@ conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ gy,
                     const float* __restrict__ pre,
                     const __nv_bfloat16* __restrict__ y,
-                    const float* __restrict__ gsv, float* __restrict__ dw,
+                    const float* __restrict__ gsv, float* __restrict__ part,
                     Geom g, int splits, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int STAGE = X_BYTES + (CORR ? 2 : 1) * G_BYTES;
@@ -309,26 +310,39 @@ conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
   }
 
   // acc[kw][mt][nt][e]: ci = 16*mt + lane/4 + 8*(e >> 1),
-  // co = 8*nt + 2*(lane % 4) + (e & 1)
+  // co = 8*nt + 2*(lane % 4) + (e & 1); this block's slice of the scratch
   const int gr = lane >> 2, tc = 2 * (lane & 3);
+  float* mine = part + (size_t)split * 27 * g.Ci * g.Co;
 #pragma unroll
   for (int kw = 0; kw < 3; ++kw) {
-    float* out = dw + (size_t)((kd * 3 + kh) * 3 + kw) * g.Ci * g.Co;
+    float* out = mine + (size_t)((kd * 3 + kh) * 3 + kw) * g.Ci * g.Co;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          atomicAdd(out + (size_t)(ci0 + 16 * mt + gr + 8 * (e >> 1)) * g.Co +
-                        co0 + 8 * nt + tc + (e & 1),
-                    acc[kw][mt][nt][e]);
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              out + (size_t)(ci0 + 16 * mt + gr + 8 * h) * g.Co + co0 +
+              8 * nt + tc) =
+              make_float2(acc[kw][mt][nt][2 * h], acc[kw][mt][nt][2 * h + 1]);
   }
+}
+
+// dw[i] = sum over s in order of part[s][i], i over the 27 * Ci * Co values
+__global__ void __launch_bounds__(SUM_THREADS)
+conv3d_k3_dw_s1_sum(const float* __restrict__ part, float* __restrict__ dw,
+                    long long size, int splits) {
+  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (i >= size) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[k * size + i];
+  dw[i] = s;
 }
 
 template <bool P, bool C>
 cudaError_t launch(int grid, cudaStream_t st, const void* x, const void* gy,
-                   const void* pre, const void* y, const void* gs, void* dw,
+                   const void* pre, const void* y, const void* gs, void* part,
                    const Geom& g, int splits, float slope) {
   const int smem = 2 * (X_BYTES + (C ? 2 : 1) * G_BYTES);
   cudaError_t e = cudaFuncSetAttribute(
@@ -339,26 +353,27 @@ cudaError_t launch(int grid, cudaStream_t st, const void* x, const void* gy,
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(gy), static_cast<const float*>(pre),
       static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(gs),
-      static_cast<float*>(dw), g, splits, slope);
+      static_cast<float*>(part), g, splits, slope);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches dw += conv_backward_weight(x, gy) at stride 1 on `stream` into a
-// (27, Ci, Co) fp32 buffer the caller has zeroed, with the voxel bricks cut
-// into `splits` ranges (ops/conv3d.py _dw_s1_plan): (Ci/32) * (Co/32) *
-// splits blocks. pre may be null; y and gs (the correction) come together
-// or are both null. Returns the CUDA error code of the launch (0 on
-// success).
+// Launches dw = conv_backward_weight(x, gy) at stride 1 on `stream` into a
+// (27, Ci, Co) fp32 buffer (written, not added to), with the voxel bricks
+// cut into `splits` ranges (ops/conv3d.py _dw_s1_plan): (Ci/32) * (Co/32) *
+// splits blocks, each storing its partial sums to its slice of part, an
+// fp32 scratch of splits x 27 x Ci x Co. pre may be null; y and gs (the
+// correction) come together or are both null. Returns the CUDA error code
+// of the launches (0 on success).
 extern "C" int conv3d_k3_dw_s1_ndhwc_launch(const void* x, const void* gy,
                                             const void* pre, const void* y,
-                                            const void* gs, void* dw, int N,
-                                            int D, int H, int W, int Ci,
-                                            int Co, int splits, float slope,
-                                            void* stream) {
+                                            const void* gs, void* dw,
+                                            void* part, int N, int D, int H,
+                                            int W, int Ci, int Co, int splits,
+                                            float slope, void* stream) {
   if (Ci % CT != 0 || Co % CT != 0 || N < 1 || D < 1 || H < 1 || W < 1 ||
-      splits < 1 || (!y) != (!gs))
+      splits < 1 || (!y) != (!gs) || !part)
     return (int)cudaErrorInvalidValue;
   Geom g;
   g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
@@ -366,20 +381,25 @@ extern "C" int conv3d_k3_dw_s1_ndhwc_launch(const void* x, const void* gy,
   g.nbw = (W + BW - 1) / BW;
   g.NB = ((D + BD - 1) / BD) * g.nbh * g.nbw;
   const long long blocks = (long long)(Ci / CT) * (Co / CT) * splits;
+  const long long size = 27LL * Ci * Co;
   if (splits > N * g.NB || blocks > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   const int grid = (int)blocks;
   if (pre)
-    e = y ? launch<true, true>(grid, st, x, gy, pre, y, gs, dw, g, splits,
+    e = y ? launch<true, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
                                slope)
-          : launch<true, false>(grid, st, x, gy, pre, y, gs, dw, g, splits,
+          : launch<true, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
                                 slope);
   else
-    e = y ? launch<false, true>(grid, st, x, gy, pre, y, gs, dw, g, splits,
+    e = y ? launch<false, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
                                 slope)
-          : launch<false, false>(grid, st, x, gy, pre, y, gs, dw, g, splits,
+          : launch<false, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
                                  slope);
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  conv3d_k3_dw_s1_sum<<<(unsigned)((size + SUM_THREADS - 1) / SUM_THREADS),
+                        SUM_THREADS, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw), size, splits);
+  return (int)cudaGetLastError();
 }

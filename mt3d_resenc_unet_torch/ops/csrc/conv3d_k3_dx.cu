@@ -20,9 +20,12 @@
 //         cotangent is never written to device memory.
 //   POST  the backward of the pre-op leaky(x*scale - shift): with the raw
 //         input x and pre = [scale; shift], u = x*scale - shift,
-//         du = dx_n * (u >= 0 ? 1 : slope); the kernel writes du*scale and
-//         adds [sum du*x; sum du] per (sample, channel) into a zeroed
-//         (N, 2, Ci) buffer (block reduction, then atomicAdd).
+//         du = dx_n * (u >= 0 ? 1 : slope); the kernel writes du*scale, and
+//         each block stores its [sum du*x; sum du] over its voxels (warps
+//         added in order) to its own 64-float slot of an fp32 scratch;
+//         conv3d_k3_dx_dst_sum adds the slots of each (sample, channel) in
+//         a fixed order into (N, 2, Ci). No atomics: two runs give bit-equal
+//         dx and [sum du*x; sum du].
 //
 // Design: the forward kernel's direct conv with the roles of input and
 // output swapped. A block of 256 threads owns 128 dx voxels of one sample
@@ -55,6 +58,8 @@ constexpr int VPT = 4;        // voxels per thread
 constexpr int CPT = 4;        // dx channels per thread
 constexpr int THREADS = 256;  // (TV / VPT) x (CIB / CPT) = 32 x 8
 constexpr int WARPS = THREADS / 32;
+constexpr int SLOT = 2 * CIB;  // POST: floats of a block's [sum; sum] slot
+constexpr int SUM_THREADS = 1024;
 
 __device__ __forceinline__ void unpack8(const uint4& q, float* v) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&q);
@@ -105,7 +110,7 @@ conv3d_k3_dx_ndhwc(const __nv_bfloat16* __restrict__ gy,
                    const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ pre,
                    __nv_bfloat16* __restrict__ dx,
-                   float* __restrict__ dst,
+                   float* __restrict__ part,
                    int D, int H, int W, int Ci,
                    int Do, int Ho, int Wo, int Co, float slope) {
   __shared__ __align__(16) float gsm[CK][TV];
@@ -123,7 +128,16 @@ conv3d_k3_dx_ndhwc(const __nv_bfloat16* __restrict__ gy,
   const int Wq = (W - pw + STRIDE - 1) / STRIDE;
   const int Mq = Dq * Hq * Wq;
   const int m0 = blockIdx.x * TV;
-  if (m0 >= Mq) return;  // uniform over the block
+  // POST: this block's slot, (((n * nci + ci tile) * classes + parity) *
+  // gridDim.x + blockIdx.x) * SLOT
+  float* slot = POST ? part + ((((size_t)n * nci + blockIdx.z % nci) *
+                                    (gridDim.z / nci) + par) * gridDim.x +
+                                   blockIdx.x) * SLOT
+                     : nullptr;
+  if (m0 >= Mq) {  // uniform over the block
+    if (POST && tid < SLOT) slot[tid] = 0.f;
+    return;
+  }
 
   // staging role: one dx voxel, 16 of the chunk's 32 cotangent channels
   const int sv = tid >> 1;
@@ -277,39 +291,62 @@ conv3d_k3_dx_ndhwc(const __nv_bfloat16* __restrict__ gy,
       }
     }
     __syncthreads();
-    if (tid < 2 * CIB) {
+    if (tid < SLOT) {
       const int which = tid / CIB;
       const int c = tid % CIB;
       float t = 0.f;
 #pragma unroll
       for (int k = 0; k < WARPS; ++k) t += red[which][k][c];
-      atomicAdd(dst + ((size_t)n * 2 + which) * Ci + ci0 + c, t);
+      slot[tid] = t;
     }
+  }
+}
+
+// dst[n, which, tile * 32 + c] = the sum over the rows r (parity class,
+// block) of group (n, tile) of part[(group * rows + r) * 64 + which * 32 +
+// c]: one block per group, each thread summing every 16th row of one
+// column in order, then the 16 partial sums in order
+__global__ void __launch_bounds__(SUM_THREADS)
+conv3d_k3_dx_dst_sum(const float* __restrict__ part, float* __restrict__ dst,
+                     int nci, long long rows, int Ci) {
+  constexpr int GROUPS = SUM_THREADS / SLOT;
+  __shared__ float red[GROUPS][SLOT];
+  const int n = blockIdx.x / nci, tile = blockIdx.x % nci;
+  const int col = threadIdx.x % SLOT, grp = threadIdx.x / SLOT;
+  const float* p = part + (size_t)blockIdx.x * rows * SLOT + col;
+  float s = 0.f;
+  for (long long r = grp; r < rows; r += GROUPS) s += p[r * SLOT];
+  red[grp][col] = s;
+  __syncthreads();
+  if (threadIdx.x < SLOT) {
+    float t = 0.f;
+    for (int k = 0; k < GROUPS; ++k) t += red[k][col];
+    dst[((size_t)n * 2 + col / CIB) * Ci + tile * CIB + col % CIB] = t;
   }
 }
 
 template <int S, bool C, bool P>
 void launch(dim3 grid, cudaStream_t stream, const void* gy, const void* w,
             const void* y, const void* gs, const void* x, const void* pre,
-            void* dx, void* dst, int D, int H, int W, int Ci, int Do, int Ho,
+            void* dx, void* part, int D, int H, int W, int Ci, int Do, int Ho,
             int Wo, int Co, float slope) {
   conv3d_k3_dx_ndhwc<S, C, P><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(gy),
       static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(gs),
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(pre),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dst), D, H, W, Ci,
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part), D, H, W, Ci,
       Do, Ho, Wo, Co, slope);
 }
 
 template <int S>
 void launch_stride(int key, dim3 grid, cudaStream_t st, const void* gy,
                    const void* w, const void* y, const void* gs, const void* x,
-                   const void* pre, void* dx, void* dst, int D, int H, int W,
+                   const void* pre, void* dx, void* part, int D, int H, int W,
                    int Ci, int Do, int Ho, int Wo, int Co, float slope) {
 #define MT3D_CASE(K, C, P)                                                   \
   case K:                                                                    \
-    launch<S, C, P>(grid, st, gy, w, y, gs, x, pre, dx, dst, D, H, W, Ci, Do, \
+    launch<S, C, P>(grid, st, gy, w, y, gs, x, pre, dx, part, D, H, W, Ci, Do, \
                     Ho, Wo, Co, slope);                                      \
     break;
   switch (key) {
@@ -324,19 +361,23 @@ void launch_stride(int key, dim3 grid, cudaStream_t st, const void* gy,
 }  // namespace
 
 // Launches dx = conv_backward_input(gy, w) on `stream`. y and gs (the
-// correction) come together or are both null; x, pre and dst (the pre-op
-// backward) likewise, and dst must be zeroed by the caller. Returns the
-// cudaGetLastError() code of the launch (0 on success).
+// correction) come together or are both null; x, pre, dst (N, 2, Ci; written,
+// not added to) and part (the pre-op backward) likewise. part is an fp32
+// scratch of N x (Ci / 32) x classes (8 at stride 2, else 1) x blocks x 64
+// floats, blocks = ceil(voxels of the largest parity class / 128)
+// (ops/conv3d.py _dx_slots). Returns the cudaGetLastError() code of the
+// launches (0 on success).
 extern "C" int conv3d_k3_dx_ndhwc_launch(const void* gy, const void* w,
                                          const void* y, const void* gs,
                                          const void* x, const void* pre,
-                                         void* dx, void* dst, int N, int D,
+                                         void* dx, void* dst, void* part,
+                                         int N, int D,
                                          int H, int W, int Ci, int Co,
                                          int stride, float slope,
                                          void* stream) {
   if ((stride != 1 && stride != 2) || Ci % CIB != 0 || Co % CK != 0 ||
       N < 1 || N > 65535 || (!y) != (!gs) || (!pre) != (!x) ||
-      (!pre) != (!dst))
+      (!pre) != (!dst) || (!pre) != (!part))
     return (int)cudaErrorInvalidValue;
   const int Do = (D - 1) / stride + 1;
   const int Ho = (H - 1) / stride + 1;
@@ -349,10 +390,15 @@ extern "C" int conv3d_k3_dx_ndhwc_launch(const void* gy, const void* w,
   const int key = (pre ? 2 : 0) | (y ? 1 : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride == 1)
-    launch_stride<1>(key, grid, st, gy, w, y, gs, x, pre, dx, dst, D, H, W,
+    launch_stride<1>(key, grid, st, gy, w, y, gs, x, pre, dx, part, D, H, W,
                      Ci, Do, Ho, Wo, Co, slope);
   else
-    launch_stride<2>(key, grid, st, gy, w, y, gs, x, pre, dx, dst, D, H, W,
+    launch_stride<2>(key, grid, st, gy, w, y, gs, x, pre, dx, part, D, H, W,
                      Ci, Do, Ho, Wo, Co, slope);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !pre) return (int)e;
+  conv3d_k3_dx_dst_sum<<<N * (Ci / CIB), SUM_THREADS, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dst), Ci / CIB,
+      (long long)classes * grid.x, Ci);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@
 //   ADDIN a second conv's bf16 output added to the fp32 sum (the decoder's
 //         split-weight skip concat, conv3d_packed_dual_stats);
 //   STATS fp32 [sum; sumsq] of the output (after ADDIN, before rounding)
-//         per (sample, channel), added to a zeroed (N, 2, Co) buffer.
+//         per (sample, channel), summed in a fixed order (below).
 //
 // What bounds it on the H100: the tensor cores. An output value takes
 // 2*27*Ci FLOPs and a few bytes (at 128^3 x 32 -> 32, N=2: 232 GFLOP against
@@ -57,16 +57,28 @@
 //     ring flows across unit boundaries, so one unit's epilogue overlaps the
 //     next unit's loads.
 //   Epilogue. Direct mode adds ADDIN, writes bf16 y and keeps [sum; sumsq]
-//     in registers until the sample or channel tile changes, then reduces
-//     over the warp and adds once per channel.
+//     in registers until the group (sample, channel tile) changes or the
+//     block's range ends, then reduces over the warp's lanes and stores
+//     them to a slot of an fp32 scratch: the flush at a group's last unit
+//     to slot `group`, a block's flush at its last unit inside a group to
+//     slot groups + block, 8 warps x 64 floats a slot ((groups + grid) x 2 KB
+//     in all, 0.54 MB at 128^3 x 32 -> 32, N=2). conv3d_k3_s1_stats adds, per
+//     group, the slots of the blocks that ended inside it (a contiguous
+//     range) in a fixed order, then the group's own slot.
 //   Small shapes. Where the units of an unsplit K (bricks x channel tiles)
 //     are fewer than two per SM (16^3 x 256, 8^3 and 4^3 x 512: 256, 64 and
 //     32 units on 132 SMs), the planner (ops/conv3d.py _s1_plan) splits K
 //     across blocks: each of `splits` units of a brick and tile takes an
 //     equal range of the Ci chunks with all 27 taps, so every staged brick
-//     still feeds 27 taps. Split partials are added into a zeroed fp32 y
-//     with atomicAdd, and conv3d_k3_s1_finish adds ADDIN, takes STATS and
-//     rounds to bf16.
+//     still feeds 27 taps. Each split stores its fp32 partials to its own
+//     slice of a (splits, N*D*H*W, Co) scratch (8.4 MB a split at 16^3 x
+//     256, 2.1 MB at 8^3 x 512, 0.26 MB at 4^3 x 512, N=2: 2, 8 and 16
+//     splits), and conv3d_k3_s1_finish adds the slices in split order,
+//     adds ADDIN and rounds to bf16; with STATS each finish block stores
+//     its [sum; sumsq] per channel (its rows added in order) to a slot, and
+//     conv3d_k3_s1_fstats adds the slots in block order.
+//   Determinism. No sum uses atomics: two runs on the same inputs give
+//     bit-equal y and stats.
 // mma.sync rather than wgmma: a tap's A rows are the brick's rows shifted by
 // the tap, which no canonical wgmma shared-memory layout describes; ldmatrix
 // with per-lane row addresses does.
@@ -92,6 +104,9 @@ constexpr int THREADS = 256;
 constexpr int X_BYTES = HALO * XROW;                  // 19200
 constexpr int W_BYTES = 27 * KC * WROW;               // 27648
 constexpr int STAGE = X_BYTES + W_BYTES;  // one ring stage; PRE adds X_BYTES
+constexpr int WARPS = THREADS / 32;
+constexpr int SLOT = 2 * BN;                          // stats floats a warp
+constexpr int STAT_THREADS = 1024;
 constexpr int FIN_VOX = 64;                           // finish: voxels/block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -147,6 +162,8 @@ struct Geom {
   int N, D, H, W, Ci, Co;
   int nbh, nbw, NB;     // bricks per axis (h, w) and per sample
   int NT, cps;          // output channel tiles, Ci chunks per unit
+  int groups;           // (channel tile, sample) groups: NT * N
+  long long slice;      // floats of one split's slice: N * D * H * W * Co
 };
 
 struct Unit {
@@ -243,8 +260,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
                  const float* __restrict__ pre,
                  const __nv_bfloat16* __restrict__ add_to,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ stats,
-                 float* __restrict__ part, Geom g, int units, float slope) {
+                 __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                 Geom g, int units, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
@@ -356,8 +373,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
             const int co = nt * 8 + tc;
             float v0 = acc[mt][nt][2 * hv], v1 = acc[mt][nt][2 * hv + 1];
             if (SPLIT) {
-              atomicAdd(part + off + co, v0);
-              atomicAdd(part + off + co + 1, v1);
+              *reinterpret_cast<float2*>(part + (t.c0 / g.cps) * g.slice +
+                                         off + co) = make_float2(v0, v1);
               continue;
             }
             if (ADDIN) {
@@ -385,6 +402,9 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
       // the sums change owner when the brick index wraps (new sample or
       // channel tile) and at the block's last unit
       if (STATS && !SPLIT && (u + 1 == u1 || (u + 1) % g.NB == 0)) {
+        const int slot =
+            (u + 1) % g.NB == 0 ? u / g.NB : g.groups + (int)blockIdx.x;
+        float* sp = part + ((size_t)slot * WARPS + warp) * SLOT;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -396,9 +416,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
               qv += __shfl_xor_sync(0xffffffffu, qv, m);
             }
             if (lane < 4) {
-              const int co = t.co0 + nt * 8 + tc + e;
-              atomicAdd(stats + (size_t)t.n * 2 * g.Co + co, s);
-              atomicAdd(stats + ((size_t)t.n * 2 + 1) * g.Co + co, qv);
+              sp[nt * 8 + tc + e] = s;
+              sp[BN + nt * 8 + tc + e] = qv;
             }
             ssum[nt][e] = qsum[nt][e] = 0.f;
           }
@@ -415,14 +434,50 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// split mode: the fp32 sum of the splits (+ ADDIN) -> bf16 y, with STATS
+// stats[n, 0 / 1, tile * 32 + c] for group G = tile * N + n: the slots
+// groups + b of the blocks b whose last unit lies inside G but not at its
+// end (a contiguous range of b, so of slots), then G's own slot. One block
+// per group, thread (grp, col) summing every 16th warp row of the range in
+// order, then the 16 partial sums and G's slot's warps in order.
+__global__ void __launch_bounds__(STAT_THREADS)
+conv3d_k3_s1_stats(const float* __restrict__ part, float* __restrict__ stats,
+                   int N, int NB, int groups, int units, int grid, int Co) {
+  constexpr int GROUPS = STAT_THREADS / SLOT;
+  __shared__ float red[GROUPS][SLOT];
+  const int G = blockIdx.x;
+  const int col = threadIdx.x % SLOT, grp = threadIdx.x / SLOT;
+  // block b's last unit is floor((b + 1) units / grid) - 1; the first b
+  // whose last unit reaches T is ceil(T grid / units) - 1
+  const long long lo = ((long long)G * NB + 1) * grid, hi =
+      (long long)(G + 1) * NB * grid;
+  const int b0 = (int)((lo + units - 1) / units) - 1;
+  const int b1 = (int)((hi + units - 1) / units) - 1;
+  const float* p = part + ((size_t)(groups + b0) * WARPS) * SLOT + col;
+  const long long rows = (long long)(b1 - b0) * WARPS;
+  float s = 0.f;
+  for (long long r = grp; r < rows; r += GROUPS) s += p[r * SLOT];
+  red[grp][col] = s;
+  __syncthreads();
+  if (threadIdx.x < SLOT) {
+    float t = 0.f;
+    for (int k = 0; k < GROUPS; ++k) t += red[k][col];
+    for (int w = 0; w < WARPS; ++w)
+      t += part[((size_t)G * WARPS + w) * SLOT + col];
+    stats[((size_t)(G % N) * 2 + col / BN) * Co + (G / N) * BN + col % BN] =
+        t;
+  }
+}
+
+// split mode: y = bf16(the splits' slices added in split order + ADDIN);
+// with STATS the block's [sum; sumsq] per channel (its threads' partial
+// sums added in row order) to slot (n, block) of fpart
 template <bool STATS, bool ADDIN>
 __global__ void __launch_bounds__(THREADS)
 conv3d_k3_s1_finish(const float* __restrict__ part,
                     const __nv_bfloat16* __restrict__ add_to,
-                    __nv_bfloat16* __restrict__ y, float* __restrict__ stats,
-                    long long S, int Co) {
-  extern __shared__ float red[];  // [2][Co] in STATS mode
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ fpart,
+                    long long S, int Co, int splits, long long slice) {
+  extern __shared__ float red[];  // [rows][2 Co] in STATS mode
   // thread (row, group): 8 channels c0.. of every rows-th voxel, so its
   // [sum; sumsq] stay in registers (Co <= 8 * THREADS)
   const int n = blockIdx.y, CG = Co / 8, rows = THREADS / CG;
@@ -430,17 +485,18 @@ conv3d_k3_s1_finish(const float* __restrict__ part,
   const long long v0 = (long long)blockIdx.x * FIN_VOX;
   float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float q[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (STATS) {
-    for (int c = threadIdx.x; c < 2 * Co; c += THREADS) red[c] = 0.f;
-    __syncthreads();
-  }
   for (int i = row; row < rows && i < FIN_VOX; i += rows) {
     const long long v = v0 + i;
     if (v >= S) break;
     const size_t off = ((size_t)n * S + v) * Co + c0;
-    const float4 p0 = *reinterpret_cast<const float4*>(part + off);
-    const float4 p1 = *reinterpret_cast<const float4*>(part + off + 4);
-    float r[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < splits; ++k) {
+      const float4 p0 = *reinterpret_cast<const float4*>(part + k * slice + off);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(part + k * slice + off + 4);
+      r[0] += p0.x, r[1] += p0.y, r[2] += p0.z, r[3] += p0.w;
+      r[4] += p1.x, r[5] += p1.y, r[6] += p1.z, r[7] += p1.w;
+    }
     if (ADDIN) {
       const uint4 aq = *reinterpret_cast<const uint4*>(add_to + off);
       const __nv_bfloat162* av = reinterpret_cast<const __nv_bfloat162*>(&aq);
@@ -469,19 +525,36 @@ conv3d_k3_s1_finish(const float* __restrict__ part,
     if (row < rows) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        atomicAdd(&red[c0 + j], s[j]);
-        atomicAdd(&red[Co + c0 + j], q[j]);
+        red[row * 2 * Co + c0 + j] = s[j];
+        red[row * 2 * Co + Co + c0 + j] = q[j];
       }
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < 2 * Co; c += THREADS)
-      atomicAdd(stats + ((size_t)n * 2 + c / Co) * Co + c % Co, red[c]);
+    for (int c = threadIdx.x; c < 2 * Co; c += THREADS) {
+      float t = 0.f;
+      for (int k = 0; k < rows; ++k) t += red[k * 2 * Co + c];
+      fpart[((size_t)n * gridDim.x + blockIdx.x) * 2 * Co + c] = t;
+    }
   }
+}
+
+// stats[n, c'] (c' over the 2 Co values) = the finish blocks' slots added
+// in block order
+__global__ void __launch_bounds__(THREADS)
+conv3d_k3_s1_fstats(const float* __restrict__ fpart,
+                    float* __restrict__ stats, int N, int nblk, int Co) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= N * 2 * Co) return;
+  const int n = i / (2 * Co), c = i % (2 * Co);
+  float t = 0.f;
+  for (int b = 0; b < nblk; ++b)
+    t += fpart[((size_t)n * nblk + b) * 2 * Co + c];
+  stats[i] = t;
 }
 
 struct Args {
   const void *x, *w, *pre, *add_to;
-  void *y, *stats, *part;
+  void *y, *part;
   float slope;
 };
 
@@ -498,8 +571,8 @@ cudaError_t launch_main(int grid, cudaStream_t st, const Args& a,
       static_cast<const __nv_bfloat16*>(a.w),
       static_cast<const float*>(a.pre),
       static_cast<const __nv_bfloat16*>(a.add_to),
-      static_cast<__nv_bfloat16*>(a.y), static_cast<float*>(a.stats),
-      static_cast<float*>(a.part), g, units, a.slope);
+      static_cast<__nv_bfloat16*>(a.y), static_cast<float*>(a.part), g, units,
+      a.slope);
   return cudaGetLastError();
 }
 
@@ -516,12 +589,15 @@ cudaError_t launch_direct(int key, int grid, cudaStream_t st, const Args& a,
 
 template <bool ST, bool A>
 cudaError_t launch_finish(dim3 grid, cudaStream_t st, const Args& a,
-                          long long S, int Co) {
-  conv3d_k3_s1_finish<ST, A><<<grid, THREADS, ST ? 2 * Co * sizeof(float) : 0,
-                               st>>>(
-      static_cast<const float*>(a.part),
-      static_cast<const __nv_bfloat16*>(a.add_to),
-      static_cast<__nv_bfloat16*>(a.y), static_cast<float*>(a.stats), S, Co);
+                          long long S, const Geom& g, int splits) {
+  const int rows = THREADS / (g.Co / 8);
+  conv3d_k3_s1_finish<ST, A>
+      <<<grid, THREADS, ST ? rows * 2 * g.Co * sizeof(float) : 0, st>>>(
+          static_cast<const float*>(a.part),
+          static_cast<const __nv_bfloat16*>(a.add_to),
+          static_cast<__nv_bfloat16*>(a.y),
+          static_cast<float*>(a.part) + splits * g.slice, S, g.Co, splits,
+          g.slice);
   return cudaGetLastError();
 }
 
@@ -530,8 +606,12 @@ cudaError_t launch_finish(dim3 grid, cudaStream_t st, const Args& a,
 // Launches y = conv(x, w) at stride 1 on `stream` over `grid` persistent
 // blocks, K split into `splits` ranges of Ci chunks (a divisor of Ci / 16;
 // ops/conv3d.py _s1_plan chooses both). pre / add_to / stats may be null
-// when their mode is off; stats must be zeroed by the caller. With
-// splits > 1, part is a zeroed fp32 (N, D, H, W, Co) scratch buffer.
+// when their mode is off; stats (N, 2, Co) is written, not added to. part
+// is an fp32 scratch, null with neither splits > 1 nor stats: with
+// splits == 1, (groups + grid) x 8 warps x 64 floats of statistics slots
+// (groups = Co / 32 x N); with splits > 1, splits slices of N x D x H x W x
+// Co floats, then with stats N x ceil(D*H*W / 64) x 2 x Co floats of the
+// finish blocks' slots.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int conv3d_k3_s1_ndhwc_launch(const void* x, const void* w,
                                          const void* pre, const void* add_to,
@@ -541,7 +621,8 @@ extern "C" int conv3d_k3_s1_ndhwc_launch(const void* x, const void* w,
                                          float slope, void* stream) {
   if (Ci % (2 * KC) != 0 || Co % BN != 0 || N < 1 || D < 1 || H < 1 ||
       W < 1 || splits < 1 || (Ci / KC) % splits != 0 || grid < 1 ||
-      (splits > 1) != (part != nullptr) || (splits > 1 && Co > 8 * THREADS))
+      (splits > 1 || stats) != (part != nullptr) ||
+      (splits > 1 && Co > 8 * THREADS))
     return (int)cudaErrorInvalidValue;
   Geom g;
   g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
@@ -551,28 +632,41 @@ extern "C" int conv3d_k3_s1_ndhwc_launch(const void* x, const void* w,
   g.NB = nbd * g.nbh * g.nbw;
   g.NT = Co / BN;
   g.cps = (Ci / KC) / splits;
+  g.groups = g.NT * N;
+  const long long S = (long long)D * H * W;
+  g.slice = N * S * Co;
   const long long units = (long long)splits * g.NT * N * g.NB;
   if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if (grid > units) grid = (int)units;
-  const Args a{x, w, pre, add_to, y, stats, part, slope};
+  const Args a{x, w, pre, add_to, y, part, slope};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (splits == 1) {
     const int key = (stats ? 2 : 0) | (add_to ? 1 : 0);
-    return (int)(pre ? launch_direct<true>(key, grid, st, a, g, (int)units)
-                     : launch_direct<false>(key, grid, st, a, g, (int)units));
+    e = pre ? launch_direct<true>(key, grid, st, a, g, (int)units)
+            : launch_direct<false>(key, grid, st, a, g, (int)units);
+    if (e != cudaSuccess || !stats) return (int)e;
+    conv3d_k3_s1_stats<<<g.groups, STAT_THREADS, 0, st>>>(
+        static_cast<const float*>(part), static_cast<float*>(stats), N, g.NB,
+        g.groups, (int)units, grid, Co);
+    return (int)cudaGetLastError();
   }
-  cudaError_t e = pre ? launch_main<true, false, false, true>(grid, st, a, g,
-                                                              (int)units)
-                      : launch_main<false, false, false, true>(grid, st, a, g,
-                                                               (int)units);
+  e = pre ? launch_main<true, false, false, true>(grid, st, a, g, (int)units)
+          : launch_main<false, false, false, true>(grid, st, a, g,
+                                                   (int)units);
   if (e != cudaSuccess) return (int)e;
-  const long long S = (long long)D * H * W;
-  const dim3 fgrid((unsigned)((S + FIN_VOX - 1) / FIN_VOX), N);
+  const int nblk = (int)((S + FIN_VOX - 1) / FIN_VOX);
+  const dim3 fgrid((unsigned)nblk, N);
   if (stats)
-    e = add_to ? launch_finish<true, true>(fgrid, st, a, S, Co)
-               : launch_finish<true, false>(fgrid, st, a, S, Co);
+    e = add_to ? launch_finish<true, true>(fgrid, st, a, S, g, splits)
+               : launch_finish<true, false>(fgrid, st, a, S, g, splits);
   else
-    e = add_to ? launch_finish<false, true>(fgrid, st, a, S, Co)
-               : launch_finish<false, false>(fgrid, st, a, S, Co);
-  return (int)e;
+    e = add_to ? launch_finish<false, true>(fgrid, st, a, S, g, splits)
+               : launch_finish<false, false>(fgrid, st, a, S, g, splits);
+  if (e != cudaSuccess || !stats) return (int)e;
+  conv3d_k3_s1_fstats<<<(N * 2 * Co + THREADS - 1) / THREADS, THREADS, 0,
+                        st>>>(
+      static_cast<const float*>(part) + splits * g.slice,
+      static_cast<float*>(stats), N, nblk, Co);
+  return (int)cudaGetLastError();
 }

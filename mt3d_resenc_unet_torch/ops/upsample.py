@@ -5,9 +5,12 @@ columns are the output parities, written depth-to-space, and its backward.
 which replaces ``mt3d_resenc_unet_tpu/ops/pallas_upsample.py::_fwd_kernel``
 (the 2x2x2 case); ``upsample2x_dx`` and ``upsample2x_dw`` wrap the kernels
 of ``csrc/upsample2x_bwd.cu``, which replace ``::_dx_kernel`` and
-``::_dw_kernel``. All are bound by the fp32 FMA pipes on the H100 (see the
-sources' notes). ``upsample_plain`` is the same function in plain PyTorch,
-for any kernel == stride, and ``upsample2x_dx_plain`` /
+``::_dw_kernel``. The forward runs on the fp32 FMA pipes; the backward
+kernels are GEMMs on the tensor cores, bound by bytes on the H100 (see the
+sources' notes), tiled by :func:`_up_bwd_plan` and staging the cotangent by
+parity as :func:`up2_row` lays it out. Their dW sums across blocks in a
+fixed order (no atomics). ``upsample_plain`` is the same function in plain
+PyTorch, for any kernel == stride, and ``upsample2x_dx_plain`` /
 ``upsample2x_dw_plain`` are the backward's: the wrappers run them for CPU
 tensors, the model runs ``upsample_plain`` for the upsample shapes that have
 no kernel, and the tests and ``chip_smoke.py`` hold the kernels against
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build
+from .conv3d import _sm_count
 
 _KERNEL = "upsample2x"
 _lib_fns = {}
@@ -68,17 +72,94 @@ def upsample_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
 
 
 def _fn(name: str = _KERNEL):
-    """The C launcher ``<name>_ndhwc_launch``, its argument types set; all
-    three take (in, in, out, N, Di, Hi, Wi, Ci, Co, stream)."""
+    """The C launcher ``<name>_ndhwc_launch``, its argument types set: (in,
+    in, out, [scratch,] N, Di, Hi, Wi, Ci, Co, [plan ints,] stream)."""
     fn = _lib_fns.get(name)
     if fn is None:
         source = _KERNEL if name == _KERNEL else "upsample2x_bwd"
         fn = getattr(_build.load(source), f"{name}_ndhwc_launch")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = {
+            _KERNEL: [p] * 3 + [i] * 6 + [p],
+            "upsample2x_dx": [p] * 3 + [i] * 8 + [p],
+            "upsample2x_dw": [p] * 4 + [i] * 9 + [p],
+        }[name]
         fn.restype = i
         _lib_fns[name] = fn
     return fn
+
+
+# tiles of the backward kernels (csrc/upsample2x_bwd.cu): coarse-voxel tiles
+# of vh x UP_VW voxels of one (n, d); dW's K chunks are UP_DW_VH x UP_VW
+UP_VW, UP_DW_VH, UP_DW_STAGES = 16, 4, 4
+UP_DX_MAX_CO = 256     # dx with 32-ci tiles: its resident weights
+
+
+def _up_bwd_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launches of the upsample backward kernels for coarse extents
+    ``size`` = (D, H, W).
+
+    ``dx``: a block owns tiles of ``tm`` coarse voxels (``tm / 16`` rows of
+    h x 16 w of one (n, d); tile t = ((n * D + d) * nhg + hg) * nwg + wg)
+    x ``tci`` input channels, all 8 parities and all Co in its K: 128 x 128
+    at 128->64 and 256 x 64 at 64->32 (so every gy byte is read once),
+    128 x 32 otherwise; gy streams through a ring of ``stages`` of one
+    (a, b) x ``kc`` channels beside the resident weights (``smem`` bytes in
+    all). ``grid`` = (blocks, Ci / tci): the blocks of a ci
+    tile walk contiguous ranges of the ``tiles``, block b taking [b * T /
+    G, (b + 1) * T / G).
+
+    ``dw``: a block owns the output tile of ``pb`` parities x ``tci`` x
+    ``tco`` (8 x 64 x 32 at 64->32, all of it; 2 x 128 x 64 at 128->64, the
+    parities (a, b, 0..1) of one (a, b): gy read once, x 4 times; 8 x 32 x
+    32 otherwise) over a range of the ``chunks`` of 4 x 16 coarse voxels
+    (numbered as dx's tiles): ``splits`` ranges per tile, so that tiles x
+    splits blocks fill the SMs once. Block = split * tiles + tile, tile =
+    (parity group * (Ci / tci) + ci tile) * (Co / tco) + co tile; split s
+    takes chunks [s * C / splits, (s + 1) * C / splits) and stores its
+    partial tile to slice s of the fp32 ``scratch``, which a second kernel
+    adds in split order."""
+    d, h, w = size
+    nwg = -(-w // UP_VW)
+    if co == 64 and ci % 128 == 0:
+        xt = (128, 128, 64, 3)
+    elif co == 32 and ci % 64 == 0:
+        xt = (256, 64, 32, 6)
+    else:
+        xt = (128, 32, 32, 6)
+    tm, xci, kc, stages = xt
+    dx_tiles = n * d * -(-h // (tm // UP_VW)) * nwg
+    ci_tiles = ci // xci
+    dx = dict(tm=tm, tci=xci, kc=kc, stages=stages, tiles=dx_tiles,
+              grid=(min(dx_tiles, max(1, sms // ci_tiles)), ci_tiles),
+              smem=16 * xci * co + stages * 4 * tm * kc)
+    if co == 32 and ci % 64 == 0:
+        wt = (64, 32, 8)
+    elif co == 64 and ci % 128 == 0:
+        wt = (128, 64, 2)
+    else:
+        wt = (32, 32, 8)
+    wci, wco, pb = wt
+    tiles = (8 // pb) * (ci // wci) * (co // wco)
+    chunks = n * d * -(-h // UP_DW_VH) * nwg
+    splits = max(1, min(chunks, sms // tiles))
+    vox = UP_DW_VH * UP_VW
+    dw = dict(tci=wci, tco=wco, pb=pb, tiles=tiles, chunks=chunks,
+              splits=splits, blocks=tiles * splits,
+              scratch=(splits, 8, ci, co),
+              smem=UP_DW_STAGES * 2 * vox * (wci + pb * wco))
+    return dict(dx=dx, dw=dw)
+
+
+def up2_row(ab: int, c: int, vox: int, vw: int, hh: int, k: int) -> int:
+    """The staged row of the backward kernels' gy tile (csrc/upsample2x_bwd.cu
+    ``gy_slots``) that holds fine voxel (2 * hh + b, 2 * k + c) of the tile's
+    (a, b) = ``ab`` (0..3, in the order staged), for coarse row ``hh`` and
+    coarse w ``k`` of a tile of ``vox`` voxels, ``vw`` along w: the parity
+    blocks (ab, c) of ``vox`` rows each, in that order, and in each the
+    tile's voxels row-major, so coarse voxel v = hh * vw + k of parity
+    (a, b, c) is row (2 * ab + c) * vox + v."""
+    return (2 * ab + c) * vox + hh * vw + k
 
 
 def _check(fn: str, **tensors: torch.Tensor) -> None:
@@ -176,10 +257,17 @@ def upsample2x_dx(gy: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     _check(fn, gy=gy, wf=wf)
     if wf.shape[4] != co:
         raise ValueError(f"{fn}: wf {tuple(wf.shape)} vs gy channels {co}")
+    if wf.data_ptr() % 16:
+        raise ValueError(f"{fn}: wf must be 16-byte aligned")
+    plan = _up_bwd_plan(n, (d, h, w), ci, co, _sm_count(gy.device))["dx"]
+    if plan["tci"] == 32 and co > UP_DX_MAX_CO:
+        raise ValueError(f"{fn}: unsupported channels {ci}->{co} (Co > "
+                         f"{UP_DX_MAX_CO} outside 128->64 and 64->32)")
     dx = torch.empty((n, d, h, w, ci), dtype=torch.bfloat16, device=gy.device)
     with torch.cuda.device(gy.device):
         rc = _fn(fn)(gy.data_ptr(), wf.data_ptr(), dx.data_ptr(), n, d, h, w,
-                     ci, co, torch.cuda.current_stream(gy.device).cuda_stream)
+                     ci, co, plan["tci"], plan["grid"][0],
+                     torch.cuda.current_stream(gy.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(fn, (ci, co, d, h, w))
@@ -198,10 +286,14 @@ def upsample2x_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     _check(fn, x=x, gy=gy)
     if x.data_ptr() % 16:
         raise ValueError(f"{fn}: x must be 16-byte aligned")
-    dw = torch.zeros((2, 2, 2, ci, co), dtype=torch.float32, device=x.device)
+    plan = _up_bwd_plan(n, (d, h, w), ci, co, _sm_count(x.device))["dw"]
+    dw = torch.empty((2, 2, 2, ci, co), dtype=torch.float32, device=x.device)
+    part = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), dw.data_ptr(), n, d, h, w,
-                     ci, co, torch.cuda.current_stream(x.device).cuda_stream)
+        rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), dw.data_ptr(),
+                     part.data_ptr(), n, d, h, w, ci, co, plan["tci"],
+                     plan["tco"], plan["splits"],
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(fn, (ci, co, d, h, w))

@@ -30,7 +30,8 @@ import torch
 # the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
     ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_"),
-    ("row 2 conv3d_k3_dx_s1", r"conv3d_k3_dx_s1|conv3d_k3_dx_ndhwc<1"),
+    ("row 2 conv3d_k3_dx_s1",
+     r"conv3d_k3_dx_s1|conv3d_k3_dx_ndhwc<1|conv3d_k3_dx_dst_sum"),
     ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1_"),
     ("row 4 conv3d_k3_s2", r"conv3d_k3_s2_"),
     ("row 5 conv3d_k3_dw_s2", r"conv3d_k3_dw_s2_"),

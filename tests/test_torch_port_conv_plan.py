@@ -235,3 +235,75 @@ def test_s2_footprint_rows(bd):
                         for ow in range(bw):
                             assert rows[(2 * od + kd, 2 * oh + kh,
                                          2 * ow + kw)] == first + ow
+
+
+@pytest.mark.parametrize("sms", [132, 20])
+@pytest.mark.parametrize("ci,co,size", SHAPES, ids=IDS)
+def test_forward_scratch_and_stat_slots(ci, co, size, sms):
+    n = 2
+    plan = c3._s1_plan(n, size, ci, co, sms, stats=True)
+    assert c3._s1_plan(n, size, ci, co, sms)["scratch"] == (
+        plan["splits"] * n * int(np.prod(size)) * co
+        if plan["splits"] > 1 else 0)
+    vox = int(np.prod(size))
+    if plan["splits"] > 1:
+        # one slice per split, then the finish blocks' [sum; sumsq] slots
+        assert plan["scratch"] == plan["splits"] * n * vox * co + \
+            n * -(-vox // c3.S1_FIN_VOX) * 2 * co
+        return
+    groups, grid = (co // c3.S1_CT) * n, plan["grid"]
+    assert plan["scratch"] == (groups + grid) * c3.S2_WARPS * c3.S2_SLOT
+    bricks = plan["units"] // groups
+    slots = c3.s1_stat_slots(plan["units"], grid, bricks)
+    # each slot written once, every unit of every group summed once
+    assert len({s for s, *_ in slots}) == len(slots)
+    assert all(s < groups + grid for s, *_ in slots)
+    seen = np.zeros(plan["units"], np.int32)
+    for slot, g, first, last in slots:
+        assert g * bricks <= first <= last < (g + 1) * bricks
+        seen[first:last + 1] += 1
+    assert seen.min() == 1 and seen.max() == 1
+
+
+def test_flagship_split_scratch():
+    # 16^3 x 256, 8^3 and 4^3 x 512 at N=2: 2, 8 and 16 splits of 8.4 MB,
+    # 2.1 MB and 0.26 MB
+    for size, c, splits, mb in (((16,) * 3, 256, 2, 8.39),
+                                ((8,) * 3, 512, 8, 2.10),
+                                ((4,) * 3, 512, 16, 0.26)):
+        plan = c3._s1_plan(2, size, c, c, 132)
+        assert plan["splits"] == splits
+        assert round(plan["scratch"] * 4 / splits / 1e6, 2) == mb
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("size", [(128,) * 3, (9, 10, 11), (7, 8, 9)])
+def test_dx_post_slots(size, stride):
+    n, ci = 2, 64
+    shape = c3._dx_slots(n, size, ci, stride)
+    classes = 8 if stride == 2 else 1
+    # every voxel of every parity class has its 128-voxel block's slot
+    largest = 0
+    for par in range(classes):
+        p = ((par >> 2) & 1, (par >> 1) & 1, par & 1)
+        m = int(np.prod([-(-(s - q) // stride) for s, q in zip(size, p)]))
+        largest = max(largest, m)
+        assert m <= shape[3] * c3.DX_TV
+    assert shape == (n, ci // c3.DX_CIB, classes, -(-largest // c3.DX_TV),
+                     2 * c3.DX_CIB)
+
+
+@pytest.mark.parametrize("units,grid,bricks", [(16384, 264, 8192),
+                                               (2048, 264, 64), (64, 264, 4),
+                                               (100, 7, 3), (45, 45, 1)])
+def test_stat_slot_ranges_match_the_closed_form(units, grid, bricks):
+    # conv3d_k3_s1_stats reads, per group g, the slots of blocks
+    # [ceil((g * bricks + 1) * grid / units) - 1, ceil((g + 1) * bricks *
+    # grid / units) - 1), then slot g
+    groups = units // bricks
+    slots = c3.s1_stat_slots(units, grid, bricks)
+    for g in range(groups):
+        b0 = -(-(g * bricks + 1) * grid // units) - 1
+        b1 = -(-(g + 1) * bricks * grid // units) - 1
+        mine = [s for s, gg, *_ in slots if gg == g]
+        assert mine == [groups + b for b in range(b0, b1)] + [g]

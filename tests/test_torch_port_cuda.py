@@ -11,8 +11,8 @@ in another order, so they may differ by one bf16 step (2^-8 of the value):
 norm-act kernels') and the pre-op backward's [sum du*x; sum du]: 1e-3
 relative. The fp32 weight gradients
 share the bf16 inputs and differ by summation order: 1e-2 of the max abs,
-as the outputs. The stride-2 forward and dW kernels sum in a fixed order:
-two runs on the same inputs must agree bit for bit. The 32^3 training backward in bf16 through the
+as the outputs. Every conv and upsample kernel sums in a fixed order (no
+atomics): two runs on the same inputs must agree bit for bit. The 32^3 training backward in bf16 through the
 kernels against the plain fp32 path: loss within 1e-2 relative and the
 gradients of each top-level module at cosine >= 0.95 (bf16 rounding between
 ~40 instance norms; 0.984 measured for the encoder in the same comparison
@@ -237,8 +237,97 @@ def test_s2_dw_kernel_is_deterministic(dev, stride, ci, co, extent, mode):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("ci,co,extent", [(128, 64, 5), (64, 32, 6),
-                                          (32, 32, 3)])
+# the flagship's stride-1 shapes as cubes: 16^3 x 256, 8^3 and 4^3 x 512
+# split K across blocks (_s1_plan), 9 x 10 x 11 is no multiple of a brick
+_DET_S1 = [(32, 32, (9, 10, 11)), (64, 64, (10, 10, 10)),
+           (256, 256, (16,) * 3), (512, 512, (8,) * 3), (512, 512, (4,) * 3)]
+
+
+def _cube_case(dev, ci, co, size, seed):
+    g = torch.Generator().manual_seed(seed)
+    n = 2
+    x = torch.randn(n, *size, ci, generator=g).to(dev).bfloat16()
+    w = (torch.randn(3, 3, 3, ci, co, generator=g)
+         * (27 * ci) ** -0.5).to(dev).bfloat16()
+    gy, y = (torch.randn(n, *size, co, generator=g).to(dev).bfloat16()
+             for _ in range(2))
+    gs = (torch.randn(n, 2, co, generator=g) * 0.1).to(dev)
+    pre = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                       torch.randn(n, ci, generator=g)], 1).to(dev)
+    return x, w, gy, y, gs, pre
+
+
+@pytest.mark.parametrize("mode", ["plain", "stats", "pre_stats",
+                                  "addin_stats"])
+@pytest.mark.parametrize("ci,co,size", _DET_S1)
+def test_s1_conv_kernel_is_deterministic(dev, ci, co, size, mode):
+    from mt3d_resenc_unet_torch.ops.conv3d import _s1_plan
+    x, w, gy, y, gs, pre = _cube_case(dev, ci, co, size, 10)
+    if size[0] in (16, 8, 4):
+        assert _s1_plan(2, size, ci, co, 132)["splits"] > 1
+    kw = {"emit_stats": mode != "plain"}
+    if mode == "pre_stats":
+        kw["pre"] = pre
+    if mode == "addin_stats":
+        kw["add_to"] = y
+    runs = [conv3d_k3(x, w, 1, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    if mode == "plain":
+        runs = [(r,) for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post"])
+@pytest.mark.parametrize("stride,ci,co,extent", _BWD_SHAPES)
+def test_conv_dx_kernel_is_deterministic(dev, stride, ci, co, extent, mode):
+    x, w, gy, y, gs, pre = _bwd_case(dev, stride, ci, co, extent, 11)
+    kw = {"size": x.shape[1:4]}
+    if mode != "plain":
+        kw.update(y=y, gs=gs)
+    if mode == "corr_post":
+        kw.update(x=x, pre=pre)
+    runs = [conv3d_k3_dx(gy, w, stride, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    if mode != "corr_post":
+        runs = [(r,) for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("mode", ["plain", "pre", "corr", "pre_corr"])
+@pytest.mark.parametrize("ci,co,size", _DET_S1)
+def test_s1_dw_kernel_is_deterministic(dev, ci, co, size, mode):
+    x, w, gy, y, gs, pre = _cube_case(dev, ci, co, size, 12)
+    kw = {}
+    if "pre" in mode:
+        kw["pre"] = pre
+    if "corr" in mode:
+        kw.update(y=y, gs=gs)
+    a, b = (conv3d_k3_dw(x, gy, 1, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# the flagship's upsample channels at extents that are no multiple of the
+# kernels' tiles (16 along w, 4 / 8 / 16 along h), then the small cases
+_UP_BWD = [(128, 64, 9), (64, 32, 17), (128, 64, 5), (64, 32, 6),
+           (32, 32, 3), (64, 64, 4)]
+
+
+@pytest.mark.parametrize("ci,co,extent", _UP_BWD)
+def test_upsample_bwd_kernels_are_deterministic(dev, ci, co, extent):
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, extent, extent + 1, extent, ci,
+                    generator=g).to(dev).bfloat16()
+    wf = torch.randn(2, 2, 2, ci, co, generator=g).to(dev).bfloat16()
+    gy = torch.randn(2, 2 * extent, 2 * extent + 2, 2 * extent, co,
+                     generator=g).to(dev).bfloat16()
+    dx = [upsample2x_dx(gy, wf) for _ in range(2)]
+    dw = [upsample2x_dw(x, gy) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*dx) and torch.equal(*dw)
+
+
+@pytest.mark.parametrize("ci,co,extent", _UP_BWD)
 def test_upsample_bwd_kernels_match_plain(dev, ci, co, extent):
     g = torch.Generator().manual_seed(5)
     x = torch.randn(2, extent, extent + 1, extent, ci,
@@ -246,9 +335,12 @@ def test_upsample_bwd_kernels_match_plain(dev, ci, co, extent):
     wf = torch.randn(2, 2, 2, ci, co, generator=g).to(dev).bfloat16()
     gy = torch.randn(2, 2 * extent, 2 * extent + 2, 2 * extent, co,
                      generator=g).to(dev).bfloat16()
+    before = {k: _build.LAUNCHES[k] for k in ("upsample2x_dx",
+                                               "upsample2x_dw")}
     dx, dx0 = upsample2x_dx(gy, wf), upsample2x_dx_plain(gy, wf)
     dw, dw0 = upsample2x_dw(x, gy), upsample2x_dw_plain(x, gy)
     torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[k] == v + 1 for k, v in before.items())
     assert dx.shape == x.shape and _rel(dx, dx0) <= 1e-2
     assert dw.shape == wf.shape and _rel(dw, dw0) <= 1e-2
 
