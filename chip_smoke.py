@@ -12,7 +12,7 @@ flagship through the port's ``Trainer`` on a synthetic zarr dataset.
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
      per source, all at once), print the registers, shared memory and
-     spills ``-Xptxas -v`` reports (per entry for the five tensor-core
+     spills ``-Xptxas -v`` reports (per entry for the seven tensor-core
      sources) and the card's name and power limit; set the port's one
      precision (``core.config.set_precision``: TF32 off, fp32 split-K
      reductions in bf16 matmuls), as the trainer does;
@@ -34,11 +34,13 @@ Phases (any failure exits non-zero and prints no result line):
      with patch 128^3, overlap 0.25 and batch 2; every launch counter is
      zeroed before it and the forward kernels' must be above zero after it;
   5. training: (a) the backward kernels vs plain at the flagship's shapes
-     (N=2): conv dx at stride 1 in the plain / corr / corr+post modes and at
-     stride 2 with corr, conv dW in the plain / pre / corr / pre+corr modes
-     and at stride 2 with corr, upsample dx and dW; printed per case: the
-     error relative to the plain output's max abs, the [sum du*x; sum du]
-     error where emitted, median ms of kernel, plain and library
+     (N=2): conv dx at stride 1 in the plain / corr / corr+post modes (the
+     16^3, 8^3 and 4^3 shapes split K) and at stride 2 with corr (the mode
+     the step launches) and corr+post, conv dW in the plain / pre / corr /
+     pre+corr modes and at stride 2 with corr, upsample dx and dW; printed
+     per case: the error relative to the plain output's max abs, the
+     [sum du*x; sum du] error where emitted, median ms of kernel, plain and
+     library
      (``torch.nn.grad.conv3d_input`` / ``conv3d_weight``,
      ``aten.convolution_backward``), the kernel's TFLOP/s and its bound.
      (b) TRAIN_STEPS steps of the flagship training step (batch 2
@@ -55,9 +57,9 @@ Phases (any failure exits non-zero and prints no result line):
      the kernels from the same weights and batch are compared: whether
      their losses and grad_norm are bit-equal is printed, not held. (d)
      All nine conv and upsample kernels run twice on the same inputs at the
-     flagship's shapes in the step's modes: every output, statistic and
-     [sum du*x; sum du] must be bit-equal (they sum in a fixed order,
-     without atomics);
+     flagship's shapes in the step's modes (dx at both strides with corr
+     and corr+post): every output, statistic and [sum du*x; sum du] must be
+     bit-equal (they sum in a fixed order, without atomics);
   6. the fused instance norm + LeakyReLU (``ops/norm_act.py``) at N=2 bf16
      and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
      act on and off and one affine case: forward and backward through
@@ -125,6 +127,7 @@ CONV_MODES = ("plain", "stats", "pre_stats", "addin_stats")
 S2_CASES = [(2, 32, 64, 128), (2, 64, 128, 64)]
 UP_CASES = [(128, 64, 32), (64, 32, 64)]
 DX_MODES = ("plain", "corr", "corr_post")
+S2_DX_MODES = ("corr", "corr_post")
 DW_MODES = ("plain", "pre", "corr", "pre_corr")
 PATCH = (128, 128, 128)
 VOLUME = (160, 256, 256)
@@ -167,8 +170,8 @@ SOURCES = {
     "conv3d_k3_s1": f"{_CS}/conv3d_k3_s1.cu",
     "conv3d_k3_s2": f"{_CS}/conv3d_k3_s2.cu",
     "upsample2x": f"{_CS}/upsample2x.cu",
-    "conv3d_k3_dx_s1": f"{_CS}/conv3d_k3_dx.cu",
-    "conv3d_k3_dx_s2": f"{_CS}/conv3d_k3_dx.cu",
+    "conv3d_k3_dx_s1": f"{_CS}/conv3d_k3_dx_s1.cu",
+    "conv3d_k3_dx_s2": f"{_CS}/conv3d_k3_dx_s2.cu",
     "conv3d_k3_dw_s1": f"{_CS}/conv3d_k3_dw_s1.cu",
     "conv3d_k3_dw_s2": f"{_CS}/conv3d_k3_dw_s2.cu",
     "upsample2x_dx": f"{_CS}/upsample2x_bwd.cu",
@@ -262,11 +265,20 @@ def tensor_core_usage(logs):
     s2 = 2 * (foot[c3.S2_BRICK] * c3.S1_KC * 2 + w_chunk)
     s2_pre = 3 * foot[c3.S2_PRE_BRICK] * c3.S1_KC * 2 + 2 * w_chunk
     dw2_x = foot[c3.DW_BRICK] * c3.DW_CT * 2
+    # dx: 2-stage rings of the stride-1 halo'd cotangent brick or the
+    # stride-2 footprint q .. q + 1, with corr y's beside it, and the 27
+    # taps' weights
+    dx1_g = math.prod(b + 2 for b in c3.DX1_BRICK) * c3.S1_KC * 2
+    dx2_g = math.prod(b + 1 for b in c3.DX2_BRICK) * c3.S1_KC * 2
     print(f"  dynamic shared memory per block: conv3d_k3_s1 {s1} B, with "
           f"pre {s1 + halo * c3.S1_KC * 2} B; conv3d_k3_dw_s1 "
           f"{2 * (dw_x + dw_g)} B, with corr {2 * (dw_x + 2 * dw_g)} B; "
           f"conv3d_k3_s2 {s2} B, with pre {s2_pre} B; conv3d_k3_dw_s2 "
-          f"{2 * (dw2_x + dw_g)} B, with corr {2 * (dw2_x + 2 * dw_g)} B")
+          f"{2 * (dw2_x + dw_g)} B, with corr {2 * (dw2_x + 2 * dw_g)} B; "
+          f"conv3d_k3_dx_s1 {2 * (dx1_g + w_chunk)} B, with corr "
+          f"{2 * (2 * dx1_g + w_chunk)} B; conv3d_k3_dx_s2 "
+          f"{2 * (dx2_g + w_chunk)} B, with corr "
+          f"{2 * (2 * dx2_g + w_chunk)} B")
     # the upsample backward at the flagship's two shapes: dx's resident
     # weights, 4-stage ring of one (a, b) x 32 co and output tile; dW's
     # 3-stage ring of 64 voxels of x and the tile's parities of gy
@@ -279,8 +291,9 @@ def tensor_core_usage(logs):
               f"{xd['kc']} co), upsample2x_dw {wd['smem']} B (tile "
               f"{wd['pb']} x {wd['tci']} x {wd['tco']}, {wd['splits']} "
               "splits)")
-    for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dw_s1",
-                   "conv3d_k3_dw_s2", "upsample2x_bwd"):
+    for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
+                   "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
+                   "upsample2x_bwd"):
         entry = None
         for line in logs[source].splitlines():
             if "Compiling entry function" in line:
@@ -614,8 +627,9 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             for m in DX_MODES]
     todo += [(s, ci, co, e, "dw", m) for s, ci, co, e in conv_cases
              for m in DW_MODES]
-    todo += [(s, ci, co, e, op, "corr") for s, ci, co, e in s2_cases
-             for op in ("dx", "dw")]
+    todo += [(s, ci, co, e, "dx", m) for s, ci, co, e in s2_cases
+             for m in S2_DX_MODES]
+    todo += [(s, ci, co, e, "dw", "corr") for s, ci, co, e in s2_cases]
     n = 2
     lib_ms = {}
     for stride, ci, co, extent, op, mode in todo:
@@ -727,8 +741,8 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
     """Phase 5d: all nine conv and upsample kernels twice each on the same
     inputs at the flagship's shapes, in the training step's modes (forward
     with stats, pre-op + stats and add-in + stats; dx with the correction,
-    and with the pre-op backward at stride 1; dW with the correction, and
-    with the pre-op at stride 1; the upsample forward, dx and dW). Every
+    and with the pre-op backward too; dW with the correction, and with the
+    pre-op at stride 1; the upsample forward, dx and dW). Every
     output, statistic and [sum du*x; sum du] must be bit-equal: the kernels
     sum in a fixed order, without atomics. Returns the failures."""
     from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3, conv3d_k3_dw,
@@ -763,10 +777,9 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
                          ("addin_stats", {"add_to": y})):
             check(f"conv3d_k3_s{stride}", f"{shape} {mode}",
                   lambda: conv3d_k3(x, w, stride, emit_stats=True, **kw))
-        dx_modes = [("corr", {})]
+        dx_modes = [("corr", {}), ("corr_post", {"x": x, "pre": pre})]
         dw_modes = [("corr", {})]
         if stride == 1:
-            dx_modes.append(("corr_post", {"x": x, "pre": pre}))
             dw_modes.append(("pre_corr", {"pre": pre}))
         for mode, kw in dx_modes:
             check(f"conv3d_k3_dx_s{stride}", f"{shape} {mode}",

@@ -30,8 +30,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx", "conv3d_k3_dw_s1",
-           "conv3d_k3_dw_s2", "upsample2x", "upsample2x_bwd", "norm_act")
+SOURCES = ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
+           "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
+           "upsample2x", "upsample2x_bwd", "norm_act")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

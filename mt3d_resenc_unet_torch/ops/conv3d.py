@@ -10,18 +10,22 @@ CUDA tensor always goes to the kernel, or the wrapper raises.
                     replacing ``mt3d_resenc_unet_tpu/ops/pallas_conv.py::
                     _conv_kernel``; at stride 2 csrc/conv3d_k3_s2.cu,
                     replacing ``::_s2_fwd_kernel``;
-  ``conv3d_k3_dx``  csrc/conv3d_k3_dx.cu (direct): the input gradient,
+  ``conv3d_k3_dx``  the input gradient: at stride 1 csrc/conv3d_k3_dx_s1.cu,
                     replacing ``_conv_kernel`` in its corr/post mode
-                    (``_conv3d_dx_fused_f``) and ``_s2_dx_kernel``;
+                    (``_conv3d_dx_fused_f``); at stride 2
+                    csrc/conv3d_k3_dx_s2.cu, replacing ``_s2_dx_kernel``;
   ``conv3d_k3_dw``  the weight gradient: at stride 1 csrc/conv3d_k3_dw_s1.cu,
                     replacing ``_dw_kernel``; at stride 2
                     csrc/conv3d_k3_dw_s2.cu, replacing ``_s2_dw_kernel``.
 
-The four forward and dW kernels are implicit GEMMs on the tensor cores and
-take their tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
-:func:`_dw_s1_plan` and :func:`_dw_s2_plan` here; the kernels decode their
-block indices as the planners' docstrings say, and the stride-2 ones stage
-their input by parity as :func:`s2_row` lays it out. Every kernel sums
+All six kernels are implicit GEMMs on the tensor cores and take their
+tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
+:func:`_dx_s1_plan`, :func:`_dx_s2_plan`, :func:`_dw_s1_plan` and
+:func:`_dw_s2_plan` here; the kernels decode their block indices as the
+planners' docstrings say. The stride-2 forward and dW stage their input by
+parity as :func:`s2_row` lays it out; the stride-2 dx stages its cotangent
+footprint as :func:`dx_s2_row` does and runs each parity class's taps
+(:func:`dx_s2_taps`). Every kernel sums
 across blocks and warps in a fixed order (no atomics), through scratch the
 wrapper allocates: two runs on the same inputs give bit-equal outputs,
 statistics, dW and [sum du*x; sum du].
@@ -129,7 +133,8 @@ def _fn(source: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(_build.load(source), f"{source}_ndhwc_launch")
         fn.argtypes = {
-            "conv3d_k3_dx": [p] * 9 + [i] * 7 + [f, p],
+            "conv3d_k3_dx_s1": [p] * 9 + [i] * 8 + [f, p],
+            "conv3d_k3_dx_s2": [p] * 9 + [i] * 7 + [f, p],
             "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, p],
             "conv3d_k3_s2": [p] * 7 + [i] * 7 + [f, p],
             "conv3d_k3_dw_s1": [p] * 7 + [i] * 7 + [f, p],
@@ -261,10 +266,12 @@ def conv3d_k3_dx_plain(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
                        negative_slope: float = 1e-2):
     """Plain PyTorch version of :func:`conv3d_k3_dx` in fp32: the
     transposed conv of the (corrected) cotangent, then the pre-op's
-    backward."""
+    backward. The corrected cotangent is rounded to gy's dtype first, as
+    the JAX kernel rounds it before its matrix unit (``_tile_corr_flat``,
+    ``u.astype(gy_val.dtype)``): a no-op in fp32."""
     _check_corr(y, gs, x, pre, "conv3d_k3_dx")
     n, ci = gy.shape[0], w.shape[3]
-    g = _corrected(gy, y, gs)
+    g = _corrected(gy, y, gs).to(gy.dtype).float()
     gxn = torch.nn.grad.conv3d_input(
         (n, ci) + _dx_size(gy, stride, x, size),
         w.float().permute(4, 3, 0, 1, 2), _nc(g), stride=stride,
@@ -330,14 +337,23 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
-# tiles of the tensor-core kernels (csrc/conv3d_k3_s{1,2}.cu and
-# csrc/conv3d_k3_dw_s{1,2}.cu): a forward unit is a brick of S1_BRICK
-# output voxels (S2_BRICK at stride 2, S2_PRE_BRICK with a pre-op) x 32
-# output channels x a range of 16-channel Ci chunks; a dW block is all 27
-# taps of a 32 x 32 (ci, co) tile over a range of DW_BRICK (output) voxel
-# bricks
+# tiles of the tensor-core kernels (csrc/conv3d_k3_s{1,2}.cu,
+# csrc/conv3d_k3_dx_s{1,2}.cu and csrc/conv3d_k3_dw_s{1,2}.cu): a forward
+# unit is a brick of S1_BRICK output voxels (S2_BRICK at stride 2,
+# S2_PRE_BRICK with a pre-op) x 32 output channels x a range of 16-channel
+# Ci chunks; a stride-1 dx unit a brick of DX1_BRICK dx voxels x 32 dx
+# channels x a range of 16-channel Co chunks; a stride-2 dx unit a brick of
+# DX2_BRICK cotangent voxels q (the 8 x as many dx voxels 2q + p) x 32 dx
+# channels, all Co chunks; both dx kernels run one block of DX1_WARPS /
+# DX2_WARPS warps per SM. A dW block is all 27 taps of a 32 x 32 (ci, co)
+# tile over a range of DW_BRICK (output) voxel bricks
 S1_BRICK, S1_CT, S1_KC = (4, 8, 8), 32, 16
 S2_BRICK, S2_PRE_BRICK = (4, 8, 8), (2, 8, 8)
+DX1_BRICK, DX1_WARPS = (8, 8, 8), 16
+DX2_BRICK, DX2_WARPS = (2, 8, 8), 16
+# the parity classes c = 4 p_d + 2 p_h + p_w whose tile the even and the odd
+# warps of the stride-2 dx kernel own: 13 and 14 taps
+DX2_CLASSES = ((0, 1, 2, 7), (3, 4, 5, 6))
 DW_BRICK, DW_CT = (2, 8, 8), 32
 S2_WARPS, S2_SLOT = 8, 64      # stats scratch: fp32 per unit and warp
 S1_FIN_VOX = 64                # voxels per block of the split finish
@@ -374,21 +390,32 @@ def _s1_plan(n: int, size, ci: int, co: int, sms: int,
     S2_WARPS x S2_SLOT floats each. Split, one slice of n x voxels x co per
     split, then with ``stats`` the finish blocks' [sum; sumsq] slots, n x
     ceil(voxels / S1_FIN_VOX) x 2 x co."""
-    base = math.prod(_bricks(size, S1_BRICK)) * n * (co // S1_CT)
-    nc = ci // S1_KC
+    return _split_k_plan(n, size, co // S1_CT, ci // S1_KC, S1_BRICK,
+                         2 * sms, S2_WARPS, stats)
+
+
+def _split_k_plan(n: int, size, tiles: int, nc: int, brick, blocks: int,
+                  warps: int, sums: bool) -> dict:
+    """The stride-1 forward's and dx's launch: units of a ``brick`` of
+    voxels x one of ``tiles`` 32-wide output channel tiles x a sample, over
+    the ``nc`` 16-channel chunks of K, split into ``splits`` (a divisor of
+    ``nc``) where the unsplit units are fewer than ``blocks`` (the
+    persistent blocks the card holds at once), walked by ``grid`` <=
+    ``blocks`` blocks; ``scratch`` as :func:`_s1_plan` says, with ``warps``
+    warps a block and, with ``sums``, the output's per-channel sums."""
+    base = math.prod(_bricks(size, brick)) * n * tiles
     splits = 1
-    if base < 2 * sms:
+    if base < blocks:
         splits = next((s for s in range(1, nc + 1)
-                       if nc % s == 0 and base * s >= 2 * sms), nc)
+                       if nc % s == 0 and base * s >= blocks), nc)
     units = base * splits
-    grid = min(units, 2 * sms)
-    vox = math.prod(size)
+    grid = min(units, blocks)
+    vox, cout = math.prod(size), tiles * S1_CT
     if splits > 1:
-        scratch = splits * n * vox * co + (
-            n * -(-vox // S1_FIN_VOX) * 2 * co if stats else 0)
+        scratch = splits * n * vox * cout + (
+            n * -(-vox // S1_FIN_VOX) * 2 * cout if sums else 0)
     else:
-        scratch = ((co // S1_CT) * n + grid) * S2_WARPS * S2_SLOT if stats \
-            else 0
+        scratch = (tiles * n + grid) * warps * S2_SLOT if sums else 0
     return dict(splits=splits, units=units, grid=grid, chunks=nc // splits,
                 scratch=scratch)
 
@@ -480,18 +507,71 @@ def _dw_s1_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
                 bricks=bricks)
 
 
-DX_TV, DX_CIB = 128, 32       # the direct dx kernel's block: voxels x ci
+def _dx_s1_plan(n: int, size, ci: int, co: int, sms: int,
+                post: bool = False) -> dict:
+    """The launch of the stride-1 dx kernel: :func:`_s1_plan`'s scheme with
+    the GEMM's N and K swapped (N = the Ci / 32 dx channel tiles, K = 27
+    taps x the Co / 16 cotangent chunks), over bricks of DX1_BRICK dx
+    voxels and one persistent block per SM, so K is split where the units
+    of an unsplit K are fewer than the SMs. The kernel decodes unit u =
+    ((split * tiles + tile) * n + sample) * bricks + brick, brick = (bd *
+    nbh + bh) * nbw + bw, and block b takes units [b * units / grid, (b +
+    1) * units / grid). ``scratch``: with ``post`` unsplit, the [sum du*x;
+    sum du] slots of :func:`s1_stat_slots` (groups = tiles x samples),
+    DX1_WARPS x S2_SLOT floats each; split, one slice of n x voxels x ci
+    per split, then with ``post`` the finish blocks' slots, n x
+    ceil(voxels / S1_FIN_VOX) x 2 x ci."""
+    return _split_k_plan(n, size, ci // S1_CT, co // S1_KC, DX1_BRICK, sms,
+                         DX1_WARPS, post)
 
 
-def _dx_slots(n: int, size, ci: int, stride: int) -> tuple:
-    """The shape of the direct dx kernel's scratch in POST mode
-    (csrc/conv3d_k3_dx.cu): one 64-float slot [sum du*x; sum du] per block,
-    (n, ci / 32, classes, blocks, 64), classes = 8 parity classes at stride
-    2 (1 at stride 1) and blocks = the 128-voxel blocks of the largest
-    class, each (sample, ci tile) group summed in this order after."""
-    classes = 8 if stride == 2 else 1
-    largest = math.prod(-(-s // stride) for s in size)
-    return (n, ci // DX_CIB, classes, -(-largest // DX_TV), 2 * DX_CIB)
+def _dx_s2_plan(n: int, size, ci: int, co: int, sms: int,
+                post: bool = False) -> dict:
+    """The launch of the stride-2 dx kernel for a dx of extent ``size``:
+    ``units`` = dx channel tiles x samples x bricks of DX2_BRICK cotangent
+    voxels (over gy's extent, ``_s2_out(size)``), walked by ``grid``
+    persistent blocks of DX2_WARPS warps (one per SM). The kernel decodes
+    unit u = (tile * n + sample) * bricks + brick, brick = (bd * nbh + bh)
+    * nbw + bw, and block b takes units [b * units / grid, (b + 1) * units
+    / grid). With ``post``, warp k of unit u writes its [sum du*x; sum du]
+    to the ``slots`` fp32 scratch at (u * DX2_WARPS + k) * S2_SLOT (0
+    without)."""
+    units = math.prod(_bricks(_s2_out(size), DX2_BRICK)) * n * (ci // S1_CT)
+    return dict(units=units, grid=min(units, sms),
+                slots=units * DX2_WARPS * S2_SLOT if post else 0)
+
+
+def dx_s2_taps(parity) -> list:
+    """The taps of the stride-2 dx kernel's parity class ``parity`` (p_d,
+    p_h, p_w), in its order (csrc/conv3d_k3_dx_s2.cu ``class_tap``), as
+    (tap (k_d, k_h, k_w), footprint shift (s_d, s_h, s_w)): dx voxel 2q + p
+    takes tap k from cotangent q + s. Along an axis of parity 0 the one tap
+    k = 1 at s = 0; of parity 1, by that axis's bit of the tap number (d,
+    h, w from the lowest bit), k = 0 at s = 1 or k = 2 at s = 0."""
+    out = []
+    for t in range(1 << sum(parity)):
+        k, s = [], []
+        for p in parity:
+            if not p:
+                k.append(1)
+                s.append(0)
+                continue
+            b, t = t & 1, t >> 1
+            k.append(2 if b else 0)
+            s.append(0 if b else 1)
+        out.append((tuple(k), tuple(s)))
+    return out
+
+
+def dx_s2_row(m) -> int:
+    """The staged row of cotangent footprint position (m_d, m_h, m_w),
+    relative to the brick origin, 0 <= m <= DX2_BRICK per axis, in the
+    stride-2 dx kernel (csrc/conv3d_k3_dx_s2.cu ``foot_inside``): row-major
+    over the (b + 1)-wide footprint, so a tap's 8 consecutive q_w are 8
+    consecutive rows at any shift."""
+    _, fh, fw = (b + 1 for b in DX2_BRICK)
+    md, mh, mw = m
+    return (md * fh + mh) * fw + mw
 
 
 def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -522,23 +602,29 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
                       pre, d, h, wd, ci)
     dev = gy.device
     _check(w, "w", torch.bfloat16, (3, 3, 3, ci, co), dev, fn)
+    post = pre is not None
     dx = torch.empty((n, d, h, wd, ci), dtype=torch.bfloat16, device=dev)
-    dst = part = None
-    if pre is not None:
-        dst = torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
-        part = torch.empty(_dx_slots(n, (d, h, wd), ci, stride),
-                           dtype=torch.float32, device=dev)
+    dst = (torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
+           if post else None)
+    if stride == 1:
+        plan = _dx_s1_plan(n, (d, h, wd), ci, co, _sm_count(dev), post)
+        floats, tail = plan["scratch"], (plan["splits"], plan["grid"])
+    else:
+        plan = _dx_s2_plan(n, (d, h, wd), ci, co, _sm_count(dev), post)
+        floats, tail = plan["slots"], (plan["grid"],)
+    part = (torch.empty(floats, dtype=torch.float32, device=dev)
+            if floats else None)
     with torch.cuda.device(dev):
-        rc = _fn(fn)(gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
-                     _ptr(x if pre is not None else None), _ptr(pre),
-                     dx.data_ptr(), _ptr(dst), _ptr(part), n, d, h, wd, ci,
-                     co, stride,
-                     negative_slope, torch.cuda.current_stream(dev).cuda_stream)
+        rc = _fn(f"{fn}_s{stride}")(
+            gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
+            _ptr(x if post else None), _ptr(pre), dx.data_ptr(), _ptr(dst),
+            _ptr(part), n, d, h, wd, ci, co, *tail, negative_slope,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), corr=y is not None,
-                 post=pre is not None)
-    return (dx, dst) if pre is not None else dx
+                 post=post)
+    return (dx, dst) if post else dx
 
 
 def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,

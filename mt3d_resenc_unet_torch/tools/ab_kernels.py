@@ -15,10 +15,11 @@ launches. The cases (N=2, the flagship's
 shapes in the training step's modes): rows 1-3 of PERF.md's kernel table
 (the stride-1 forward with stats, pre-op + stats and add-in + stats at
 128^3 x 32 and 64^3 x 64, and at the split shapes 16^3 x 256 and 8^3 x
-512; dx with the correction and with the pre-op backward; dW with the
-correction and with the pre-op), rows 4-5 (the stride-2 forward with
-stats and with the pre-op, dW with the correction) and rows 8-9 (the
-upsample's dx and dW at 128->64 from 32^3 and 64->32 from 64^3). Needs a
+512; dx with the correction and with the pre-op backward at every
+flagship shape, the split ones included; dW with the correction and with
+the pre-op), rows 4-6 (the stride-2 forward with stats and with the
+pre-op, dW and dx with the correction) and rows 7-9 (the upsample's
+forward, dx and dW at 128->64 from 32^3 and 64->32 from 64^3). Needs a
 CUDA device; exits non-zero without one or when a ROOT's run fails.
 """
 
@@ -34,12 +35,18 @@ CASES = [("fwd", 1, 32, 32, 128, "stats"), ("fwd", 1, 32, 32, 128, "pre_stats"),
          ("fwd", 1, 256, 256, 16, "pre_stats"),
          ("fwd", 1, 512, 512, 8, "addin_stats"),
          ("dx", 1, 32, 32, 128, "corr"), ("dx", 1, 32, 32, 128, "corr_post"),
-         ("dx", 1, 64, 64, 64, "corr_post"), ("dx", 1, 256, 256, 16, "corr"),
+         ("dx", 1, 64, 64, 64, "corr"), ("dx", 1, 64, 64, 64, "corr_post"),
+         ("dx", 1, 256, 256, 16, "corr"),
+         ("dx", 1, 256, 256, 16, "corr_post"),
+         ("dx", 1, 512, 512, 8, "corr"), ("dx", 1, 512, 512, 8, "corr_post"),
+         ("dx", 1, 512, 512, 4, "corr"), ("dx", 1, 512, 512, 4, "corr_post"),
          ("dw", 1, 32, 32, 128, "corr"), ("dw", 1, 32, 32, 128, "pre_corr"),
          ("dw", 1, 64, 64, 64, "pre_corr"), ("dw", 1, 512, 512, 8, "corr"),
          ("fwd", 2, 32, 64, 128, "stats"), ("fwd", 2, 64, 128, 64, "stats"),
          ("fwd", 2, 32, 64, 128, "pre_stats"),
          ("dw", 2, 32, 64, 128, "corr"), ("dw", 2, 64, 128, 64, "corr"),
+         ("dx", 2, 32, 64, 128, "corr"), ("dx", 2, 64, 128, 64, "corr"),
+         ("up", 2, 128, 64, 32, "plain"), ("up", 2, 64, 32, 64, "plain"),
          ("up_dx", 2, 128, 64, 32, "plain"), ("up_dx", 2, 64, 32, 64, "plain"),
          ("up_dw", 2, 128, 64, 32, "plain"), ("up_dw", 2, 64, 32, 64, "plain")]
 
@@ -48,7 +55,8 @@ import statistics, subprocess, sys
 import torch
 from mt3d_resenc_unet_torch.ops import _build
 from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_dw, conv3d_k3_dx
-from mt3d_resenc_unet_torch.ops.upsample import upsample2x_dw, upsample2x_dx
+from mt3d_resenc_unet_torch.ops.upsample import (upsample2x, upsample2x_dw,
+                                                 upsample2x_dx)
 _build.build_all()
 dev = torch.device("cuda", 0)
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -63,8 +71,9 @@ for what, s, ci, co, e, mode in CASES:
               * (8 * co) ** -0.5).to(dev).bfloat16()
         gy = torch.randn(n, 2 * e, 2 * e, 2 * e, co,
                          generator=gen).to(dev).bfloat16()
-        fn = ((lambda: upsample2x_dx(gy, wf)) if what == "up_dx"
-              else (lambda: upsample2x_dw(x, gy)))
+        fn = {"up": lambda: upsample2x(x, wf),
+              "up_dx": lambda: upsample2x_dx(gy, wf),
+              "up_dw": lambda: upsample2x_dw(x, gy)}[what]
     else:
         eo = e // s
         x = torch.randn(n, e, e, e, ci, generator=gen).to(dev).bfloat16()

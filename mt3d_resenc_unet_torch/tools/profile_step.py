@@ -30,12 +30,11 @@ import torch
 # the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
     ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_"),
-    ("row 2 conv3d_k3_dx_s1",
-     r"conv3d_k3_dx_s1|conv3d_k3_dx_ndhwc<1|conv3d_k3_dx_dst_sum"),
+    ("row 2 conv3d_k3_dx_s1", r"conv3d_k3_dx_s1_"),
     ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1_"),
     ("row 4 conv3d_k3_s2", r"conv3d_k3_s2_"),
     ("row 5 conv3d_k3_dw_s2", r"conv3d_k3_dw_s2_"),
-    ("row 6 conv3d_k3_dx_s2", r"conv3d_k3_dx_ndhwc<2"),
+    ("row 6 conv3d_k3_dx_s2", r"conv3d_k3_dx_s2_"),
     ("row 7 upsample2x", r"upsample2x_ndhwc"),
     ("row 8 upsample2x_dx", r"upsample2x_dx_ndhwc"),
     ("row 9 upsample2x_dw", r"upsample2x_dw_ndhwc"),

@@ -162,22 +162,30 @@ def _rel_vec(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post"])
+def _dx_kwargs(mode, x, y, gs, pre):
+    kw = {"size": x.shape[1:4]}
+    if "corr" in mode:
+        kw.update(y=y, gs=gs)
+    if "post" in mode:
+        kw.update(x=x, pre=pre)
+    return kw
+
+
+_DX_MODES = ["plain", "corr", "corr_post", "post"]
+
+
+@pytest.mark.parametrize("mode", _DX_MODES)
 @pytest.mark.parametrize("stride,ci,co,extent", _BWD_SHAPES)
 def test_conv_dx_kernel_matches_plain(dev, stride, ci, co, extent, mode):
     x, w, gy, y, gs, pre = _bwd_case(dev, stride, ci, co, extent, 3)
-    kw = {"size": x.shape[1:4]}
-    if mode != "plain":
-        kw.update(y=y, gs=gs)
-    if mode == "corr_post":
-        kw.update(x=x, pre=pre)
+    kw = _dx_kwargs(mode, x, y, gs, pre)
     name = f"conv3d_k3_dx_s{stride}"
     before = _build.LAUNCHES[name]
     got = conv3d_k3_dx(gy, w, stride, **kw)
     want = conv3d_k3_dx_plain(gy, w, stride, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == before + 1
-    if mode != "corr_post":
+    if "post" not in mode:
         assert got.shape == x.shape and _rel(got, want) <= 1e-2
         return
     assert _rel(got[0], want[0]) <= 1e-2
@@ -277,20 +285,38 @@ def test_s1_conv_kernel_is_deterministic(dev, ci, co, size, mode):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post"])
+@pytest.mark.parametrize("mode", _DX_MODES)
 @pytest.mark.parametrize("stride,ci,co,extent", _BWD_SHAPES)
 def test_conv_dx_kernel_is_deterministic(dev, stride, ci, co, extent, mode):
     x, w, gy, y, gs, pre = _bwd_case(dev, stride, ci, co, extent, 11)
-    kw = {"size": x.shape[1:4]}
-    if mode != "plain":
-        kw.update(y=y, gs=gs)
-    if mode == "corr_post":
-        kw.update(x=x, pre=pre)
+    kw = _dx_kwargs(mode, x, y, gs, pre)
     runs = [conv3d_k3_dx(gy, w, stride, **kw) for _ in range(2)]
     torch.cuda.synchronize()
-    if mode != "corr_post":
+    if "post" not in mode:
         runs = [(r,) for r in runs]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("mode", _DX_MODES)
+@pytest.mark.parametrize("ci,co,size", _DET_S1)
+def test_s1_dx_kernel_split_shapes(dev, ci, co, size, mode):
+    # the flagship's cubes at 16^3 x 256, 8^3 and 4^3 x 512 split K across
+    # blocks (_dx_s1_plan): the finish adds the slices in split order and
+    # applies the pre-op's backward to the sum
+    from mt3d_resenc_unet_torch.ops.conv3d import _dx_s1_plan
+    x, w, gy, y, gs, pre = _cube_case(dev, ci, co, size, 13)
+    if size[0] in (16, 8, 4):
+        assert _dx_s1_plan(2, size, ci, co, 132)["splits"] > 1
+    kw = _dx_kwargs(mode, x, y, gs, pre)
+    runs = [conv3d_k3_dx(gy, w, 1, **kw) for _ in range(2)]
+    want = conv3d_k3_dx_plain(gy, w, 1, **kw)
+    torch.cuda.synchronize()
+    if "post" not in mode:
+        runs, want = [(r,) for r in runs], (want,)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert _rel(runs[0][0], want[0]) <= 1e-2
+    if "post" in mode:
+        assert _rel_vec(runs[0][1], want[1]) <= 1e-3
 
 
 @pytest.mark.parametrize("mode", ["plain", "pre", "corr", "pre_corr"])

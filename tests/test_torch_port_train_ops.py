@@ -37,7 +37,8 @@ from mt3d_resenc_unet_torch.models.network import ResEncUNet
 from mt3d_resenc_unet_torch.ops import _build
 from mt3d_resenc_unet_torch.ops.conv3d import (Conv3dK3Fn, Conv3dK3PairFn,
                                                conv3d_k3, conv3d_k3_dw,
-                                               conv3d_k3_dx)
+                                               conv3d_k3_dx,
+                                               conv3d_k3_dx_plain)
 from mt3d_resenc_unet_torch.ops.upsample import (Upsample2xFn, upsample2x,
                                                  upsample2x_dw, upsample2x_dx)
 
@@ -266,3 +267,51 @@ def test_model_returns_logits_in_train_mode():
         torch.testing.assert_close(logits[name], logits_eval[name])
         torch.testing.assert_close(act(logits[name]), probs[name])
         assert not torch.allclose(logits[name], probs[name])
+
+
+def _bf16(a):
+    """float32 -> the nearest bf16 value (ties to even), as float32: the
+    rounding written out on the bits."""
+    b = np.asarray(a, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+@pytest.mark.parametrize("stride,post", [(1, False), (1, True), (2, False),
+                                         (2, True)])
+def test_plain_dx_rounds_the_corrected_cotangent_as_jax(stride, post):
+    # bf16 gy: the corrected cotangent is rounded to bf16 before the
+    # transposed conv (JAX _tile_corr_flat: u = gy + gs0 + 2*y*gs1 in fp32,
+    # then u.astype(gy.dtype)), so the plain dx equals the plain dx of that
+    # rounded cotangent without the correction, bit for bit
+    rng = np.random.default_rng(11)
+    n, ci, co, size = 2, 32, 32, (6, 5, 7)
+    out = tuple((s - 1) // stride + 1 for s in size)
+    gy, y = (_bf16(rng.standard_normal((n,) + out + (co,))) for _ in range(2))
+    gs = (rng.standard_normal((n, 2, co)) * 0.3).astype(np.float32)
+    w = _bf16(rng.standard_normal((3, 3, 3, ci, co)) * 0.1)
+    u = (gy + gs[:, 0, None, None, None]) + \
+        (np.float32(2) * y) * gs[:, 1, None, None, None]
+    bf = torch.bfloat16
+    kw = {}
+    if post:
+        kw = dict(x=torch.from_numpy(_bf16(rng.standard_normal(
+            (n,) + size + (ci,)))).to(bf), pre=torch.from_numpy(np.stack(
+                [rng.random((n, ci)) + 0.5, rng.standard_normal((n, ci))],
+                1).astype(np.float32)))
+    wt = torch.from_numpy(w).to(bf)
+    got = conv3d_k3_dx_plain(torch.from_numpy(gy).to(bf), wt, stride,
+                             y=torch.from_numpy(y).to(bf),
+                             gs=torch.from_numpy(gs), size=size, **kw)
+    want = conv3d_k3_dx_plain(torch.from_numpy(_bf16(u)).to(bf), wt, stride,
+                              size=size, **kw)
+    unrounded = conv3d_k3_dx_plain(torch.from_numpy(u), wt.float(), stride,
+                                   size=size, **kw)
+    got, want, unrounded = ((r if post else (r,)) for r in (got, want,
+                                                           unrounded))
+    assert got[0].dtype == bf
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # and the rounding shows: the fp32 cotangent gives another dx
+    assert not torch.equal(got[0], unrounded[0].to(bf))
