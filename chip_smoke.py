@@ -12,14 +12,16 @@ flagship through the port's ``Trainer`` on a synthetic zarr dataset.
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
      per source, all at once), print the registers, shared memory and
-     spills ``-Xptxas -v`` reports (per entry for the seven tensor-core
-     sources) and the card's name and power limit; set the port's one
-     precision (``core.config.set_precision``: TF32 off, fp32 split-K
-     reductions in bf16 matmuls), as the trainer does;
+     spills ``-Xptxas -v`` reports (per entry for the eight tensor-core
+     sources, every conv and upsample source) and the card's name and
+     power limit; set the port's one precision
+     (``core.config.set_precision``: TF32 off, fp32 split-K reductions in
+     bf16 matmuls), as the trainer does;
   2. kernel vs plain on the card at the flagship's shapes (N=2): the conv
      at stride 1 (C=32 @128^3, 64 @64^3, 256 @16^3, 512 @8^3 and @4^3, each
      in the plain / stats / pre+stats / add-in+stats modes), at stride 2
-     (32->64, 64->128, with stats) and the upsample (128->64, 64->32). Plain
+     (32->64, 64->128, with stats) and the upsample forward (128->64,
+     64->32; a GEMM on the tensor cores, as its backward). Plain
      versions run in fp32 (TF32 off). Printed per case: the max abs
      error relative to the plain output's max abs, the stats' relative
      error, the median ms of kernel, plain and the one bf16 library call of
@@ -279,21 +281,26 @@ def tensor_core_usage(logs):
           f"{2 * (2 * dx1_g + w_chunk)} B; conv3d_k3_dx_s2 "
           f"{2 * (dx2_g + w_chunk)} B, with corr "
           f"{2 * (2 * dx2_g + w_chunk)} B")
-    # the upsample backward at the flagship's two shapes: dx's resident
-    # weights, 4-stage ring of one (a, b) x 32 co and output tile; dW's
-    # 3-stage ring of 64 voxels of x and the tile's parities of gy
+    # the upsample at the flagship's two shapes: the forward's resident
+    # weights, 2-stage ring of x tiles and one (a, b)'s staged outputs; the
+    # backward's dx resident weights, ring of one (a, b) x kc co and output
+    # tile; dW's ring of 64 voxels of x and the tile's parities of gy
     from mt3d_resenc_unet_torch.ops import upsample as up
     for ci, co, extent in UP_CASES:
+        f = up._up_fwd_plan(2, (extent,) * 3, ci, co, 132)
         p = up._up_bwd_plan(2, (extent,) * 3, ci, co, 132)
         xd, wd = p["dx"], p["dw"]
-        print(f"  upsample {ci}->{co}: upsample2x_dx {xd['smem']} B (tile "
+        print(f"  upsample {ci}->{co}: upsample2x {f['smem']} B (tile "
+              f"{f['tm']} x {f['tco']} co, "
+              f"{'weights resident' if f['resident'] else 'streamed'}), "
+              f"upsample2x_dx {xd['smem']} B (tile "
               f"{xd['tm']} x {xd['tci']}, {xd['stages']} stages of "
               f"{xd['kc']} co), upsample2x_dw {wd['smem']} B (tile "
               f"{wd['pb']} x {wd['tci']} x {wd['tco']}, {wd['splits']} "
               "splits)")
     for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
                    "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
-                   "upsample2x_bwd"):
+                   "upsample2x", "upsample2x_bwd"):
         entry = None
         for line in logs[source].splitlines():
             if "Compiling entry function" in line:

@@ -5,10 +5,11 @@ columns are the output parities, written depth-to-space, and its backward.
 which replaces ``mt3d_resenc_unet_tpu/ops/pallas_upsample.py::_fwd_kernel``
 (the 2x2x2 case); ``upsample2x_dx`` and ``upsample2x_dw`` wrap the kernels
 of ``csrc/upsample2x_bwd.cu``, which replace ``::_dx_kernel`` and
-``::_dw_kernel``. The forward runs on the fp32 FMA pipes; the backward
-kernels are GEMMs on the tensor cores, bound by bytes on the H100 (see the
-sources' notes), tiled by :func:`_up_bwd_plan` and staging the cotangent by
-parity as :func:`up2_row` lays it out. Their dW sums across blocks in a
+``::_dw_kernel``. All three are GEMMs on the tensor cores, bound by bytes on
+the H100 (see the sources' notes): the forward tiled by :func:`_up_fwd_plan`
+and staging its output by parity as :func:`up2_row` lays it out before the
+fine rows leave, the backward tiled by :func:`_up_bwd_plan` and staging the
+cotangent the same way. Their dW sums across blocks in a
 fixed order (no atomics). ``upsample_plain`` is the same function in plain
 PyTorch, for any kernel == stride, and ``upsample2x_dx_plain`` /
 ``upsample2x_dw_plain`` are the backward's: the wrappers run them for CPU
@@ -80,13 +81,49 @@ def _fn(name: str = _KERNEL):
         fn = getattr(_build.load(source), f"{name}_ndhwc_launch")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            _KERNEL: [p] * 3 + [i] * 6 + [p],
+            _KERNEL: [p] * 3 + [i] * 11 + [p],
             "upsample2x_dx": [p] * 3 + [i] * 8 + [p],
             "upsample2x_dw": [p] * 4 + [i] * 9 + [p],
         }[name]
         fn.restype = i
         _lib_fns[name] = fn
     return fn
+
+
+# tiles of the forward kernel (csrc/upsample2x.cu): (tm, tco) of the
+# flagship's two shapes, where a block keeps all eight parities' weights
+# resident; elsewhere tiles of UP_FWD_TM voxels x 32 co, with x and the
+# weights streamed in chunks of UP_FWD_KC input channels
+UP_FWD_RESIDENT = {(128, 64): (128, 64), (64, 32): (256, 32)}
+UP_FWD_TM, UP_FWD_KC = 64, 32
+
+
+def _up_fwd_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the upsample forward kernel for coarse extents
+    ``size`` = (D, H, W).
+
+    A block owns tiles of ``tm`` coarse voxels (``tm / 16`` rows of h x 16
+    w of one (n, d); tile t = ((n * D + d) * nhg + hg) * nwg + wg, as the
+    backward's) x ``tco`` output channels, all eight parities: the four
+    (a, b) pairs in turn, both c of each. At 128->64 and 64->32 (tiles of
+    128 x 64 and 256 x 32) the weights stay ``resident`` in shared memory
+    and a ring stage holds a whole tile's x (``kc`` = Ci), so every x byte
+    is read once; elsewhere (64 x 32) a ring stage holds ``kc`` = 32
+    channels of the tile's x and of the current pair's weights, so any Ci
+    fits. ``grid`` = (blocks, Co / tco): the blocks of a co tile walk
+    contiguous ranges of the ``tiles``, block b taking [b * T / G, (b + 1)
+    * T / G). ``smem`` is the resident weights, a 2-stage ring and one
+    pair's staged outputs."""
+    d, h, w = size
+    resident = (ci, co) in UP_FWD_RESIDENT
+    tm, tco = UP_FWD_RESIDENT.get((ci, co), (UP_FWD_TM, 32))
+    kc = ci if resident else UP_FWD_KC
+    stage = tm * kc * 2 + (0 if resident else 2 * kc * tco * 2)
+    smem = 8 * ci * tco * 2 * resident + 2 * stage + 2 * tm * tco * 2
+    tiles = n * d * -(-h // (tm // UP_VW)) * -(-w // UP_VW)
+    groups = co // tco
+    return dict(tm=tm, tco=tco, kc=kc, resident=resident, tiles=tiles,
+                grid=(min(tiles, max(1, sms // groups)), groups), smem=smem)
 
 
 # tiles of the backward kernels (csrc/upsample2x_bwd.cu): coarse-voxel tiles
@@ -153,8 +190,10 @@ def _up_bwd_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
 
 def up2_row(ab: int, c: int, vox: int, vw: int, hh: int, k: int) -> int:
     """The staged row of the backward kernels' gy tile (csrc/upsample2x_bwd.cu
-    ``gy_slots``) that holds fine voxel (2 * hh + b, 2 * k + c) of the tile's
-    (a, b) = ``ab`` (0..3, in the order staged), for coarse row ``hh`` and
+    ``gy_slots``), and of the forward kernel's output tile of one pair
+    (csrc/upsample2x.cu, ``ab`` = 0), that holds fine voxel (2 * hh + b, 2 *
+    k + c) of the tile's (a, b) = ``ab`` (0..3, in the order staged), for
+    coarse row ``hh`` and
     coarse w ``k`` of a tile of ``vox`` voxels, ``vw`` along w: the parity
     blocks (ab, c) of ``vox`` rows each, in that order, and in each the
     tile's voxels row-major, so coarse voxel v = hh * vw + k of parity
@@ -186,13 +225,16 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     if wf.shape[3] != ci or ci % 32 or co % 32:
         raise ValueError(f"upsample2x: unsupported channels {ci}->{co}")
     _check("upsample2x", x=x, wf=wf)
-    if x.data_ptr() % 16:
-        raise ValueError("upsample2x: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or wf.data_ptr() % 16:
+        raise ValueError("upsample2x: x and wf must be 16-byte aligned")
+    plan = _up_fwd_plan(n, (d, h, w), ci, co, _sm_count(x.device))
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=torch.bfloat16,
                     device=x.device)
     with torch.cuda.device(x.device):
         rc = _fn()(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w, ci,
-                   co, torch.cuda.current_stream(x.device).cuda_stream)
+                   co, plan["tm"], plan["tco"], plan["smem"], plan["tiles"],
+                   plan["grid"][0],
+                   torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x: kernel launch failed, CUDA error {rc}")
     _build.count(_KERNEL, (ci, co, d, h, w))

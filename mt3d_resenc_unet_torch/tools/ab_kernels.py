@@ -2,7 +2,7 @@
 one NVIDIA GPU, in turns, so that a before / after comparison is made
 inside one call on one card.
 
-    python -m mt3d_resenc_unet_torch.tools.ab_kernels ROOT [ROOT ...]
+    python -m mt3d_resenc_unet_torch.tools.ab_kernels [--only WHAT,...] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (``.`` for this one; another commit
 unpacked with ``git archive`` into a git-ignored directory). Each runs in a
@@ -19,7 +19,9 @@ shapes in the training step's modes): rows 1-3 of PERF.md's kernel table
 flagship shape, the split ones included; dW with the correction and with
 the pre-op), rows 4-6 (the stride-2 forward with stats and with the
 pre-op, dW and dx with the correction) and rows 7-9 (the upsample's
-forward, dx and dW at 128->64 from 32^3 and 64->32 from 64^3). Needs a
+forward, dx and dW at 128->64 from 32^3 and 64->32 from 64^3). ``--only``
+keeps the cases whose first field is one of WHAT (fwd, dx, dw, up, up_dx,
+up_dw). Needs a
 CUDA device; exits non-zero without one or when a ROOT's run fails.
 """
 
@@ -116,15 +118,20 @@ for what, s, ci, co, e, mode in CASES:
 
 
 def main(argv=None) -> int:
-    roots = sys.argv[1:] if argv is None else argv
-    if not roots:
+    roots = list(sys.argv[1:] if argv is None else argv)
+    cases = CASES
+    if roots and roots[0] == "--only":
+        only = set(roots[1].split(",")) if len(roots) > 1 else set()
+        cases = [c for c in CASES if c[0] in only]
+        roots = roots[2:]
+    if not roots or not cases:
         print(__doc__)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    code = f"CASES = {CASES!r}\n{_CHILD}"
+    code = f"CASES = {cases!r}\n{_CHILD}"
     rc = 0
     for root in roots:
         print(f"== {root}", flush=True)

@@ -89,16 +89,79 @@ def test_conv_kernel_matches_plain(dev, stride, ci, co, extent, mode):
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-2)
 
 
-@pytest.mark.parametrize("ci,co,extent", [(128, 64, 5), (64, 32, 6),
-                                          (32, 32, 3)])
-def test_upsample_kernel_matches_plain(dev, ci, co, extent):
-    g = torch.Generator().manual_seed(1)
+# the flagship's upsample channels at extents that are no multiple of the
+# kernels' tiles (16 along w, 4 / 8 / 16 along h), then the small cases
+_UP_BWD = [(128, 64, 9), (64, 32, 17), (128, 64, 5), (64, 32, 6),
+           (32, 32, 3), (64, 64, 4)]
+
+
+def _up_inputs(dev, seed, ci, co, extent):
+    g = torch.Generator().manual_seed(seed)
     x = torch.randn(2, extent, extent + 1, extent, ci,
                     generator=g).to(dev).bfloat16()
     wf = torch.randn(2, 2, 2, ci, co, generator=g).to(dev).bfloat16()
+    return x, wf
+
+
+# the forward also at channels whose weights stream through the ring in
+# chunks (Ci 96, and 640 past what shared memory could hold resident)
+_UP_FWD = _UP_BWD + [(96, 96, 5), (640, 32, 3)]
+
+
+@pytest.mark.parametrize("ci,co,extent", _UP_FWD)
+def test_upsample_kernel_matches_plain(dev, ci, co, extent):
+    x, wf = _up_inputs(dev, 1, ci, co, extent)
+    before = _build.LAUNCHES["upsample2x"]
     got, want = upsample2x(x, wf), upsample_plain(x, wf)
     torch.cuda.synchronize()
-    assert _rel(got, want) <= 1e-2
+    assert _build.LAUNCHES["upsample2x"] == before + 1
+    assert got.shape == want.shape and _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("ci,co,extent", _UP_FWD)
+def test_upsample_fwd_kernel_is_deterministic(dev, ci, co, extent):
+    x, wf = _up_inputs(dev, 17, ci, co, extent)
+    a, b = (upsample2x(x, wf) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_upsample_fwd_refuses_misaligned_inputs(dev):
+    x, wf = _up_inputs(dev, 3, 64, 32, 4)
+
+    def shifted(t):   # the same values 2 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for args in ((shifted(x), wf), (x, shifted(wf))):
+        assert args[0].is_contiguous() and args[1].is_contiguous()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            upsample2x(*args)
+
+
+def test_upsample_fwd_launcher_refuses_a_plan_not_its_own(dev):
+    """The C launcher checks the plan it is given: a co tile that does not
+    divide Co, and shared memory or a tile count other than its own, are
+    refused before anything launches."""
+    from mt3d_resenc_unet_torch.ops import upsample as up
+    x, wf = _up_inputs(dev, 5, 128, 96, 4)
+    n, d, h, w, ci = x.shape
+    y = torch.empty(n, 2 * d, 2 * h, 2 * w, 96, dtype=torch.bfloat16,
+                    device=dev)
+    good = up._up_fwd_plan(n, (d, h, w), ci, 96, 132)
+    bad = [dict(good, tm=128, tco=64, smem=229376,
+                tiles=up._up_fwd_plan(n, (d, h, w), 128, 64, 132)["tiles"]),
+           dict(good, smem=good["smem"] + 16),
+           dict(good, tiles=good["tiles"] + 1)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for plan in [good] + bad:
+        rc = up._fn()(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w,
+                      ci, 96, plan["tm"], plan["tco"], plan["smem"],
+                      plan["tiles"], plan["grid"][0], stream)
+        assert (rc == 0) == (plan is good), plan
+    torch.cuda.synchronize()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -331,12 +394,6 @@ def test_s1_dw_kernel_is_deterministic(dev, ci, co, size, mode):
     a, b = (conv3d_k3_dw(x, gy, 1, **kw) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-
-
-# the flagship's upsample channels at extents that are no multiple of the
-# kernels' tiles (16 along w, 4 / 8 / 16 along h), then the small cases
-_UP_BWD = [(128, 64, 9), (64, 32, 17), (128, 64, 5), (64, 32, 6),
-           (32, 32, 3), (64, 64, 4)]
 
 
 @pytest.mark.parametrize("ci,co,extent", _UP_BWD)
