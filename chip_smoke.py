@@ -4,8 +4,10 @@ port's CUDA kernels, holds each against its plain PyTorch version at the
 flagship's shapes, runs the full-width flagship forward against the plain
 fp32 path, serves a volume through ``predict_volume``, runs the full-width
 flagship training step through the kernels against the plain fp32 path,
-holds the fused instance-norm op against its plain version, and trains the
-flagship through the port's ``Trainer`` on a synthetic zarr dataset.
+holds the fused instance-norm op against its plain version, trains the
+flagship through the port's ``Trainer`` on a synthetic zarr dataset, and
+serves a zarr volume through the port's inference engine in each of its
+model passes.
 
     python3 chip_smoke.py
 
@@ -80,6 +82,24 @@ Phases (any failure exits non-zero and prints no result line):
      have launched. Printed per epoch: losses, patches/s, t_fetch, t_step,
      the checkpoint's size and save time, and the trainer's patches/s next
      to phase 5b's step-alone rate.
+  8. the zarr inference engine (``infer/engine.py::ZarrInferenceEngine``)
+     with the flagship plan at full width (torch-default init from the
+     seed, saved with ``save_params``), sheet + normals heads, patch 128^3,
+     overlap 0.25, batch 2, ``standardize``, on a seeded u8 volume of
+     (256, 512, 512) written as uncompressed zarr with 128^3 chunks:
+     (a) ``device_accumulate: "auto"``, which must take the device pass
+     (finals marked "finalized on device"), twice; (b) the rolling host
+     pass; (c) the tiled pass at a budget of two y-bands, killed after its
+     first tile and resumed, whose sums and counts must be bit-equal to an
+     uninterrupted tiled run's; (d) ``postprocess_only`` twice on (b)'s
+     store, which must skip the finalize and keep the finals' bits; (e) a
+     uint16 copy of a (160, 256, 256) corner on the device pass against
+     the rolling pass. The finals of (b), (c) and (e) are held against the
+     device pass's with ``tests/test_infer_device.py``'s limits; every
+     launch counter is zeroed before each run and the three forward
+     kernels must be above zero after it. Printed per run, beside the
+     card's name and power limit: patches/s and voxels/s (wall and loop),
+     ``last_phases``, peak device memory and the host slab's peak.
 Then one JSON line of the thirteen kernels (launches, error, and ms,
 plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
 last, the device line.
@@ -145,6 +165,13 @@ TRAINER_EPOCHS = 2
 TRAINER_STEPS = 6
 TRAINER_VAL_STEPS = 2
 WORK_DIR = "build/chip_smoke"
+# phase 8: the engine's input volume (u8) and its uint16 copy's extent
+ENGINE_VOLUME = (256, 512, 512)
+ENGINE_U16_VOLUME = (160, 256, 256)
+# the tiled pass's host-RAM budget: a 256-row y-band of the (256, 512, 512)
+# volume's 24 B a voxel of sums and counts (two bands), under the 2.2 GB
+# the rolling slab would take
+ENGINE_TILE_BUDGET_GB = 0.75
 
 _PC = "mt3d_resenc_unet_tpu/ops/pallas_conv.py"
 _PU = "mt3d_resenc_unet_tpu/ops/pallas_upsample.py"
@@ -465,22 +492,28 @@ def main() -> int:
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
 
     t0 = time.perf_counter()
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
-             TRAIN_STEPS, NORM_CASES, TRAIN_DATA)
-    print(f"phases 2-7: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+             TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
+             ENGINE_U16_VOLUME)
+    print(f"phases 2-8: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return rc
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
-        train_steps, norm_cases, train_data) -> int:
-    """Phases 2-7 and the result lines; the case lists and sizes are
+        train_steps, norm_cases, train_data, engine_volume,
+        engine_u16_volume) -> int:
+    """Phases 2-8 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -585,6 +618,9 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                 **{k: norm_launches.get(k, 0) for k in NORM_KERNELS}}
     failures += [f"kernels line: {k} has no launches"
                  for k, v in launches.items() if v <= 0]
+
+    # 8. the zarr inference engine at full width
+    failures += engine_phase(patch, engine_volume, engine_u16_volume)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -1261,6 +1297,248 @@ def trainer_phase(patch, train_data, step_rate):
             failures.append(f"trainer: kernel {name} was never launched")
     shutil.rmtree(work, ignore_errors=True)
     return launches, failures
+
+
+# sheet: median u8 difference and share of voxels off by more than 3;
+# normals: mean and share over 3e-2 of the decoded vectors' distance
+# (tests/test_infer_device.py::_assert_outputs_close)
+FINALS_SHEET_MEDIAN = 1
+FINALS_SHEET_OVER3 = 5e-3
+FINALS_NORMALS_MEAN = 1e-3
+FINALS_NORMALS_OVER = 5e-3
+
+
+def outputs_close(store_a, store_b, label, failures):
+    """``tests/test_infer_device.py::_assert_outputs_close`` on two stores'
+    finals: the two passes sum in another order and the bf16 forward
+    amplifies input ulps, so they agree to arithmetic noise."""
+    import os
+    from mt3d_resenc_unet_torch.data.zio import open_zarr
+    fa = open_zarr(os.path.join(store_a, "sheet_final")).read_all()
+    fb = open_zarr(os.path.join(store_b, "sheet_final")).read_all()
+    ok = fa.dtype == fb.dtype == np.uint8 and fa.shape == fb.shape
+    diff = np.abs(fa.astype(np.int16) - fb.astype(np.int16))
+    median, over3 = float(np.median(diff)), float((diff > 3).mean())
+    del fa, fb, diff
+    na = open_zarr(os.path.join(store_a, "normals_final")).read_all()
+    nb = open_zarr(os.path.join(store_b, "normals_final")).read_all()
+    ok = ok and na.dtype == nb.dtype == np.uint16 and na.shape == nb.shape
+    err = np.linalg.norm(na.astype(np.float32) / 32767.5
+                         - nb.astype(np.float32) / 32767.5, axis=0)
+    mean, over = float(err.mean()), float((err > 3e-2).mean())
+    print(f"engine finals {label}: sheet median diff {median} (limit "
+          f"{FINALS_SHEET_MEDIAN}), share > 3 {over3:.3e} (limit "
+          f"{FINALS_SHEET_OVER3}); normals mean err {mean:.3e} (limit "
+          f"{FINALS_NORMALS_MEAN}), share > 3e-2 {over:.3e} (limit "
+          f"{FINALS_NORMALS_OVER})")
+    if not (ok and median <= FINALS_SHEET_MEDIAN
+            and over3 < FINALS_SHEET_OVER3 and mean < FINALS_NORMALS_MEAN
+            and over < FINALS_NORMALS_OVER):
+        failures.append(f"engine finals {label}: sheet median {median} "
+                        f"over3 {over3}, normals mean {mean} over {over}")
+
+
+def engine_config(ckpt, img, out, patch, device_accumulate, **infer):
+    """The flagship (autoconfigured at ``patch``, sheet + normals heads,
+    bf16) served from ``ckpt`` over ``img`` into ``out``."""
+    return {
+        "tr_setup": {"model_name": "flagship", "autoconfigure": True,
+                     "seed": SEED},
+        "tr_config": {"patch_size": list(patch), "batch_size": 2,
+                      "compute_dtype": "bfloat16"},
+        "model_config": {},
+        "dataset_config": {
+            "in_channels": 1, "volume_paths": [],
+            "targets": {"sheet": {"channels": 1, "activation": "sigmoid"},
+                        "normals": {"channels": 3, "activation": "none"}}},
+        "inference_config": {
+            "checkpoint_path": str(ckpt), "input_path": str(img),
+            "output_path": str(out), "patch_size": list(patch),
+            "overlap": 0.25, "batch_size": 2,
+            "normalization": "standardize", "gaussian_blend": True,
+            "device_accumulate": device_accumulate, **infer},
+    }
+
+
+class _KillAfterTile(Exception):
+    """Raised by phase 8's tile callback to cut a tiled pass."""
+
+
+def engine_phase(patch, volume, u16_volume):
+    """Phase 8. Returns the failures."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    from mt3d_resenc_unet_torch.data.positions import sliding_window_grid
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet, count_params
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.train.checkpoint import save_params
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "engine"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        plan = plan_from_autoconfig(
+            patch, 1, [TaskHead("sheet", 1, "sigmoid"),
+                       TaskHead("normals", 3, "none")], model_name="flagship")
+        model = ResEncUNet(plan, seed=SEED)
+        n_params = count_params(model)
+        ckpt = work / "flagship.pt"
+        save_params(ckpt, model.state_dict())
+        del model
+        rng = np.random.default_rng(SEED)
+        vol = rng.integers(0, 256, volume, dtype=np.uint8)
+        img = work / "image.zarr"
+        create_zarr(str(img), volume, np.uint8, patch,
+                    compressor=None)[...] = vol
+        d, h, w = u16_volume
+        img16 = work / "image_u16.zarr"
+        create_zarr(str(img16), u16_volume, np.uint16, patch,
+                    compressor=None)[...] = vol[:d, :h, :w].astype(
+                        np.uint16) * 257
+        del vol
+        print(f"engine: flagship checkpoint ({n_params} params), u8 volume "
+              f"{volume} and u16 volume {u16_volume} written in "
+              f"{time.perf_counter() - t_phase:.1f} s")
+
+        def serve(label, out, want_mode, shape=volume, input_path=img,
+                  device_accumulate=False, resume=False, **infer):
+            """One engine run from a fresh model; checks its pass and its
+            launches and prints its rates over the grid's patches (not
+            for a resumed run, which completes part of the grid). Returns
+            the store."""
+            n = len(sliding_window_grid(shape, patch, 0.25))
+            cfg = engine_config(ckpt, input_path, work / out, patch,
+                                device_accumulate, **infer)
+            _build.clear_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine = ZarrInferenceEngine(config_dict=cfg, device=None,
+                                         resume=resume)
+            try:
+                store = engine.infer()
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = dict(_build.LAUNCHES)
+                phases = engine.last_phases
+                stepped = phases.get("first_step", 0.0) + phases.get(
+                    "loop", 0.0)
+                voxels = int(np.prod(shape))
+                print(f"engine {label} [{smi}]: pass {engine.last_mode}, "
+                      f"{n} patches of {shape} in {dt:.2f} s: " + (
+                          f"{n / dt:.3f} patches/s, {voxels / dt:.4g} "
+                          f"voxels/s wall; {n / stepped:.3f} patches/s, "
+                          f"{voxels / stepped:.4g} voxels/s in first_step "
+                          "+ loop; " if stepped and not resume else "")
+                      + "phases " + ", ".join(
+                          f"{k} {v:.3f} s" for k, v in phases.items())
+                      + f"; peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                      f"GiB; max_slab_bytes {engine.max_slab_bytes}; "
+                      f"launches {launches}")
+            if engine.last_mode != want_mode:
+                failures.append(f"engine {label}: ran the "
+                                f"{engine.last_mode} pass, not {want_mode}")
+            for name in FORWARD:
+                if launches.get(name, 0) <= 0:
+                    failures.append(f"engine {label}: kernel {name} was "
+                                    "never launched")
+            return store
+
+        # (a) "auto" must take the device pass; run twice
+        store_a = serve("(a) auto", "auto_1", "device",
+                           device_accumulate="auto")
+        with open(os.path.join(store_a, ".finalized")) as f:
+            marker = f.read().strip()
+        print(f"engine (a) marker: {marker!r}")
+        if marker != "finalized on device":
+            failures.append(f"engine (a): marker {marker!r}")
+        again = serve("(a) auto, second run", "auto_2", "device",
+                         device_accumulate="auto")
+        shutil.rmtree(again)
+
+        # (b) the rolling host pass
+        store_b = serve("(b) rolling", "rolling", "rolling")
+        outputs_close(store_b, store_a, "(b) rolling vs (a) device",
+                      failures)
+
+        # (c) tiled: killed after its first tile, resumed, and held bit for
+        # bit against an uninterrupted tiled run
+        def kill(tile):
+            raise _KillAfterTile(tile)
+
+        tiled = dict(host_ram_budget_gb=ENGINE_TILE_BUDGET_GB)
+        cut = ZarrInferenceEngine(config_dict=engine_config(
+            ckpt, img, work / "tiled_resumed", patch, False, **tiled),
+            device=None)
+        cut.tile_callback = kill
+        try:
+            cut.infer()
+            failures.append("engine (c): the tile callback did not cut "
+                            "the pass")
+        except _KillAfterTile as exc:
+            print(f"engine (c): cut after tile {exc.args[0]}")
+        del cut
+        store_c = serve("(c) tiled, resumed", "tiled_resumed", "tiled",
+                        resume=True, **tiled)
+        store_ref = serve("(c) tiled, uninterrupted", "tiled", "tiled",
+                             **tiled)
+        for name in ("sheet_sum", "sheet_count", "normals_sum",
+                     "normals_count"):
+            same = np.array_equal(
+                open_zarr(os.path.join(store_c, name)).read_all(),
+                open_zarr(os.path.join(store_ref, name)).read_all())
+            print(f"engine (c) resumed {name} bit-equal to uninterrupted: "
+                  f"{same}")
+            if not same:
+                failures.append(f"engine (c): resumed {name} differs")
+        outputs_close(store_c, store_a, "(c) tiled vs (a) device", failures)
+        shutil.rmtree(store_ref)
+        shutil.rmtree(store_c)
+
+        # (d) postprocess_only twice on (b)'s store: skips, keeps the bits
+        finals_b = {n: open_zarr(os.path.join(store_b, f"{n}_final"))
+                    .read_all() for n in ("sheet", "normals")}
+        for i in range(2):
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                ZarrInferenceEngine(config_dict=engine_config(
+                    ckpt, img, work / "rolling", patch, False),
+                    postprocess_only=True, device=None).infer()
+            skipped = log.getvalue().count("already finalized; skipping")
+            same = all(np.array_equal(
+                open_zarr(os.path.join(store_b, f"{n}_final")).read_all(),
+                v) for n, v in finals_b.items())
+            print(f"engine (d) postprocess_only run {i + 1}: "
+                  f"{time.perf_counter() - t0:.2f} s, finalize skipped for "
+                  f"{skipped} of 2 targets, finals bit-equal {same}")
+            if skipped != 2 or not same:
+                failures.append(f"engine (d) run {i + 1}: skipped "
+                                f"{skipped}, finals kept {same}")
+        del finals_b
+
+        # (e) uint16 input: the device pass's decode against the host's
+        store_e = serve("(e) u16 device", "u16_device", "device",
+                           shape=u16_volume, input_path=img16,
+                           device_accumulate=True)
+        store_e2 = serve("(e) u16 rolling", "u16_rolling", "rolling",
+                            shape=u16_volume, input_path=img16)
+        outputs_close(store_e2, store_e, "(e) u16 rolling vs device",
+                      failures)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 8 (engine): {time.perf_counter() - t_phase:.1f} s")
+    return failures
 
 
 if __name__ == "__main__":

@@ -48,8 +48,8 @@ def resolve_device(device=None) -> torch.device:
 
 def set_precision() -> None:
     """The port's one conv and matmul precision, set by every entry point
-    that runs on the card (``Trainer``, ``chip_smoke.py``,
-    ``tools/profile_step.py``), so that what is timed is what a user runs:
+    that runs on the card (``Trainer``, ``ZarrInferenceEngine``,
+    ``chip_smoke.py``, ``tools/profile_step.py``), so that what is timed is what a user runs:
     fp32 convs and matmuls in full fp32 (TF32 off: the fp32 reference
     model, the plain versions of the kernels), and bf16 matmuls that add
     cuBLAS's split-K partials in fp32, as the JAX package's fp32

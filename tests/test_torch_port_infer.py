@@ -3,7 +3,8 @@ the CPU.
 
 ``predict_volume`` is held against a numpy blend of the JAX model's eval
 forward over the same grid, normalization and Gaussian map, with the same
-parameters carried over by ``params_from_jax``. Tolerance: 1e-4 relative
+parameters carried over by ``params_from_jax``; the normals are renormalized
+to unit length on both sides. Tolerance: 1e-4 relative
 and absolute (fp32 on both sides, sums in another order; see
 test_torch_port_model.py).
 """
@@ -42,7 +43,9 @@ def _tasks(cls):
 
 def _jax_blend(model, params, vol):
     """Reference: the JAX engine's read path (normalize_to_unit then
-    standardize), its eval forward, and a numpy Gaussian-weighted blend."""
+    standardize), its eval forward, and a numpy Gaussian-weighted blend:
+    the weighted mean, or for the normals the weighted sum renormalized to
+    unit length as the JAX engine finalizes them (engine.py:579-584)."""
     positions = sorted(jax_grid(vol.shape, PATCH, OVERLAP))
     wmap = jax_gaussian(PATCH, 1.0 / 8)
     batch = np.stack([
@@ -61,7 +64,12 @@ def _jax_blend(model, params, vol):
         for i, (z, y, x) in enumerate(positions):
             acc[z:z + PATCH[0], y:y + PATCH[1], x:x + PATCH[2]] += \
                 pred[i] * wmap[..., None]
-        result[name] = acc / weight[..., None]
+        if name == "normals":
+            # the engine's finalize: the weighted sum over its magnitude
+            mag = np.sqrt(np.sum(acc * acc, axis=-1, keepdims=True))
+            result[name] = acc / np.maximum(mag, 1e-30)
+        else:
+            result[name] = acc / weight[..., None]
     return result
 
 
@@ -95,6 +103,12 @@ def test_predict_volume_matches_jax_blend(blended, task, channels):
 def test_sheet_blend_is_a_probability(blended):
     sheet = blended[0]["sheet"]
     assert sheet.min() >= 0.0 and sheet.max() <= 1.0
+
+
+def test_served_normals_have_unit_length(blended):
+    normals = blended[0]["normals"]
+    np.testing.assert_allclose(np.linalg.norm(normals, axis=-1), 1.0,
+                               atol=1e-5)
 
 
 def test_predict_volume_rejects_unknown_normalization():
