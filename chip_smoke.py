@@ -4,10 +4,12 @@ port's CUDA kernels, holds each against its plain PyTorch version at the
 flagship's shapes, runs the full-width flagship forward against the plain
 fp32 path, serves a volume through ``predict_volume``, runs the full-width
 flagship training step through the kernels against the plain fp32 path,
-holds the fused instance-norm op against its plain version, trains the
-flagship through the port's ``Trainer`` on a synthetic zarr dataset, and
-serves a zarr volume through the port's inference engine in each of its
-model passes.
+with and without squeeze-excitation, holds the fused instance-norm op
+against its plain version, trains ``tasks/sheet_normals.yaml``'s network
+(squeeze-excitation on) through the port's ``Trainer`` on a synthetic zarr
+dataset, serves a zarr volume through the port's inference engine in each
+of its model passes, and runs ``tasks/ink.yaml``'s 5-stage plan at its
+non-cubic patch through the kernels against the plain path.
 
     python3 chip_smoke.py
 
@@ -63,7 +65,15 @@ Phases (any failure exits non-zero and prints no result line):
      All nine conv and upsample kernels run twice on the same inputs at the
      flagship's shapes in the step's modes (dx at both strides with corr
      and corr+post): every output, statistic and [sum du*x; sum du] must be
-     bit-equal (they sum in a fixed order, without atomics);
+     bit-equal (they sum in a fixed order, without atomics). (e) The
+     flagship with ``squeeze_excitation=True`` (``tasks/sheet_normals.yaml``'s
+     network), batch 2: the eval forward against plain fp32 with phase 3's
+     limits, then TRAIN_STEPS steps as (b) with every counter zeroed before
+     and all nine conv and upsample kernels launched, two first steps held
+     bit-equal, the gradient cosines per module without the SE's
+     ``reduce`` layers, whose gradients (rounding noise: their input's
+     spatial mean is 0 up to rounding) are held by SE_REDUCE_ATOL on the
+     max abs difference; its launches per step printed beside (c)'s;
   6. the fused instance norm + LeakyReLU (``ops/norm_act.py``) at N=2 bf16
      and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
      act on and off and one affine case: forward and backward through
@@ -74,14 +84,14 @@ Phases (any failure exits non-zero and prints no result line):
   7. the trainer: a seeded synthetic sheet + normals dataset written as
      uncompressed zarr v2 (image u8 (256, 384, 384), sheet u8, normals u16)
      and ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
-     settings without squeeze-excitation, for 2 epochs of 6 steps and 2
+     settings, squeeze-excitation included, for 2 epochs of 6 steps and 2
      validation steps, then resumed from its checkpoint to a 3rd epoch: the
      resume must start at epoch 3 with the optimizer count at 12 and the
      parameters and momenta bit-equal to the saved ones; every launch
      counter is zeroed before and all nine conv and upsample kernels must
      have launched. Printed per epoch: losses, patches/s, t_fetch, t_step,
      the checkpoint's size and save time, and the trainer's patches/s next
-     to phase 5b's step-alone rate.
+     to phase 5e's step-alone rate (the same network).
   8. the zarr inference engine (``infer/engine.py::ZarrInferenceEngine``)
      with the flagship plan at full width (torch-default init from the
      seed, saved with ``save_params``), sheet + normals heads, patch 128^3,
@@ -100,6 +110,14 @@ Phases (any failure exits non-zero and prints no result line):
      kernels must be above zero after it. Printed per run, beside the
      card's name and power limit: patches/s and voxels/s (wall and loop),
      ``last_phases``, peak device memory and the host slab's peak.
+  9. ``tasks/ink.yaml``'s plan (5 stages, 32-512 channels, BasicBlockD,
+     the ink head with BCEWithLogitsLossZSmooth) at its (64, 192, 192)
+     patch and batch 3: the eval forward against plain fp32 (ink
+     probability within SHEET_TOL), INK_STEPS training steps as phase 5b
+     (counters zeroed before, all nine kernels launched, peak memory; its
+     grad_norm held by INK_GNORM_TOL, see there), and
+     then every kernel the step launched, at each shape it launched it
+     (non-cubic), against its plain version in phases 2 and 5a's modes.
 Then one JSON line of the thirteen kernels (launches, error, and ms,
 plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
 last, the device line.
@@ -109,6 +127,7 @@ Imports torch and the port only: nothing of JAX or of the JAX package.
 
 import collections
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -134,6 +153,13 @@ TRAIN_LOSS_TOL = 1e-4      # rel. diff of the first step's total loss; 4.6e-6
 TRAIN_GNORM_TOL = 5e-3     # rel. diff of the first step's grad_norm; 4.1e-4
 TRAIN_MIN_COS = 0.85       # gradient cosine per top-level module; 0.974
 TRAIN_STEPS = 4
+# phase 5e, the flagship with squeeze-excitation: the se.reduce gradients
+# are held by their max abs difference, bf16 kernels against fp32 plain
+# (their input's spatial mean is rounding noise, so the kernel's gradient
+# is too, and the bias's is a small sum of near-cancelling terms); on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W) at seed 0: kernels 8.1e-9 and 1.0e-11
+# at most, biases 1.3e-4 with differences up to 7.8e-6; limit 6.4x that
+SE_REDUCE_ATOL = 5e-5
 DST_TOL = 1e-3             # [sum du*x; sum du] of the pre-op backward
 SEED = 0
 # the card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W):
@@ -153,6 +179,35 @@ S2_DX_MODES = ("corr", "corr_post")
 DW_MODES = ("plain", "pre", "corr", "pre_corr")
 PATCH = (128, 128, 128)
 VOLUME = (160, 256, 256)
+# the flagship's two heads and their losses (bench.py)
+FLAGSHIP_LOSSES = {"sheet": {"loss_fn": "BCEDiceLoss",
+                             "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
+                   "normals": {"loss_fn": "MaskedCosineLoss"}}
+# phase 9: tasks/ink.yaml's plan, patch, batch and loss (the card has no
+# pyyaml)
+INK_PATCH = (64, 192, 192)
+INK_BATCH = 3
+INK_STEPS = 2
+INK_MODEL = {
+    "basic_encoder_block": "BasicBlockD", "basic_decoder_block": "ConvBlock",
+    "bottleneck_block": "BasicBlockD",
+    "features_per_stage": [32, 64, 128, 256, 512], "num_stages": 5,
+    "n_blocks_per_stage": [1, 3, 4, 6, 6],
+    "n_conv_per_stage_decoder": [1, 1, 1, 1], "kernel_sizes": [3] * 5,
+    "strides": [1, 2, 2, 2, 2], "conv_bias": False,
+    "squeeze_excitation": False}
+INK_LOSSES = {"ink": {"loss_fn": "BCEWithLogitsLossZSmooth",
+                      "loss_kwargs": {"center_smoothing": 0.1,
+                                      "edge_smoothing": 0.4}}}
+# the ink step's grad_norm, bf16 kernels against fp32 plain: measured
+# 6.1e-3 on an H100 (NVIDIA H100 80GB HBM3, 700 W) at seed 0, over
+# TRAIN_GNORM_TOL. The norm is the seg head's: its 32-weight kernel's
+# gradient, a near-cancelling sum over 7.1 M voxels against random 0/1
+# targets, moves by ~1% with the bf16 rounding of the logits and their
+# cotangent (the phase prints the parameters that move the norm); loss
+# and gradient cosines stay within TRAIN_LOSS_TOL and TRAIN_MIN_COS
+# (3.7e-5, 0.9988). Limit ~5x the value
+INK_GNORM_TOL = 3e-2
 # (extent, C) of the flagship's instance norms, N=2 bf16; phase 6 runs each
 # with act on and off, and the first with an affine
 NORM_CASES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512), (4, 512)]
@@ -257,8 +312,20 @@ def bound(flops, nbytes, peak=PEAK_BF16):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _ext(extent):
+    """A case's extent as (D, H, W): an int is a cube."""
+    return tuple(extent) if isinstance(extent, tuple) else (extent,) * 3
+
+
+def _at(extent) -> str:
+    """"@128^3" for a cube, "@64x192x192" otherwise."""
+    d, h, w = _ext(extent)
+    return f"@{d}^3" if d == h == w else f"@{d}x{h}x{w}"
+
+
 def conv_flops(n, ci, co, extent, stride):
-    return 2 * 27 * ci * co * n * (extent // stride) ** 3
+    return 2 * 27 * ci * co * n * math.prod(e // stride
+                                            for e in _ext(extent))
 
 
 def _ncdhw(t):
@@ -337,12 +404,15 @@ def tensor_core_usage(logs):
                 print(f"  {source} {entry[:60]}: {usage}")
 
 
-def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
-    """Phase 2. Returns (per-case records, failures). Each record holds the
-    kernel's and the plain version's median ms, the bf16 library call's
-    (``library_ms``: cuDNN through F.conv3d / F.conv_transpose3d on the
-    same tensors viewed as channels-last NCDHW, weights laid out for it
-    before timing) and the bound."""
+def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
+                 timed=True):
+    """Phase 2 (and the ink plan's forward cases in phase 10, untimed: no
+    ms, and no library call). Returns (per-case records, failures). Each
+    record holds the kernel's and the plain version's median ms, the bf16
+    library call's (``library_ms``: cuDNN through F.conv3d /
+    F.conv_transpose3d on the same tensors viewed as channels-last NCDHW,
+    weights laid out for it before timing) and the bound. An extent is an
+    int (a cube) or (D, H, W)."""
     import torch.nn.functional as F
     from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_plain
     from mt3d_resenc_unet_torch.ops.upsample import upsample2x, upsample_plain
@@ -350,23 +420,25 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
+    def ms_of(fn):
+        return median_ms(fn) if timed else None
+
     records, failures = [], []
     todo = [(s, ci, co, e, m) for s, ci, co, e in conv_cases
             for m in CONV_MODES]
     todo += [(s, ci, co, e, "stats") for s, ci, co, e in s2_cases]
-    n = 2
     lib_ms = {}
     for stride, ci, co, extent, mode in todo:
-        x = randn(n, extent, extent, extent, ci).bfloat16()
+        x = randn(n, *_ext(extent), ci).bfloat16()
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).bfloat16()
-        eo = extent // stride
+        eo = tuple(e // stride for e in _ext(extent))
         kw = dict(emit_stats=mode != "plain")
         if mode == "pre_stats":
             kw["pre"] = torch.stack(
                 [torch.rand(n, ci, generator=gen) * 1.5 + 0.5,
                  torch.randn(n, ci, generator=gen)], 1).to(dev)
         if mode == "addin_stats":
-            kw["add_to"] = randn(n, eo, eo, eo, co).bfloat16()
+            kw["add_to"] = randn(n, *eo, co).bfloat16()
         got = conv3d_k3(x, w, stride, **kw)
         want = conv3d_k3_plain(x, w, stride, **kw)
         torch.cuda.synchronize()
@@ -374,78 +446,90 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases):
             got, want = (got, None), (want, None)
         err = rel_err(got[0], want[0])
         s_err = stats_err(got[1], want[1]) if got[1] is not None else None
-        ms = median_ms(lambda: conv3d_k3(x, w, stride, **kw))
-        plain_ms = median_ms(lambda: conv3d_k3_plain(x, w, stride, **kw))
+        ms = ms_of(lambda: conv3d_k3(x, w, stride, **kw))
+        plain_ms = ms_of(lambda: conv3d_k3_plain(x, w, stride, **kw))
         key = (stride, ci, co, extent)
-        if key not in lib_ms:    # one library call per shape: the conv alone
+        if timed and key not in lib_ms:
+            # one library call per shape: the conv alone
             xl, wl = _ncdhw(x), _lib_conv_w(w)
             lib = F.conv3d(xl, wl, stride=stride, padding=1)
             # the first case of a shape is its plain or stats mode, whose
             # output is the conv alone
-            print(f"  library conv3d {ci}->{co} @{extent}^3 s{stride}: err "
+            print(f"  library conv3d {ci}->{co} {_at(extent)} s{stride}: err "
                   f"{rel_err(lib.permute(0, 2, 3, 4, 1), want[0]):.3e} "
                   "vs plain")
             lib_ms[key] = median_ms(
                 lambda: F.conv3d(xl, wl, stride=stride, padding=1))
             del xl, wl, lib
-        nbytes = 2 * (x.numel() + w.numel() + n * eo ** 3 * co * (
+        nbytes = 2 * (x.numel() + w.numel() + n * math.prod(eo) * co * (
             2 if "addin" in mode else 1)) + (8 * n * ci if "pre" in mode
                                              else 0) + (8 * n * co if mode
                                                         != "plain" else 0)
         b_ms, b_by = bound(conv_flops(n, ci, co, extent, stride), nbytes)
         name = f"conv3d_k3_s{stride}"
+        case = f"{ci}->{co} {_at(extent)} {mode}"
         records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
-                            case=f"{ci}->{co} @{extent}^3 {mode}",
-                            max_abs_err=err, stats_err=s_err, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms[key],
-                            bound_ms=b_ms, bound_by=b_by,
+                            case=case, max_abs_err=err, stats_err=s_err,
+                            ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms.get(key), bound_ms=b_ms,
+                            bound_by=b_by,
                             tflops=conv_flops(n, ci, co, extent, stride)
-                            / ms / 1e9))
+                            / ms / 1e9 if timed else None))
         if not err <= KERNEL_TOL or (s_err is not None
                                      and not s_err <= STATS_TOL):
-            failures.append(f"{name} {ci}->{co} @{extent}^3 {mode}: "
-                            f"err {err} stats {s_err}")
+            failures.append(f"{name} {case}: err {err} stats {s_err}")
         del x, w, kw, got, want
     for ci, co, extent in up_cases:
-        x = randn(n, extent, extent, extent, ci).bfloat16()
+        x = randn(n, *_ext(extent), ci).bfloat16()
         wf = randn(2, 2, 2, ci, co, scale=(8 * co) ** -0.5).bfloat16()
         got, want = upsample2x(x, wf), upsample_plain(x, wf)
         torch.cuda.synchronize()
         err = rel_err(got, want)
-        xl, wu = _ncdhw(x), _lib_up_w(wf)
-        lib = F.conv_transpose3d(xl, wu, stride=2)
-        print(f"  library conv_transpose3d {ci}->{co} @{extent}^3: err "
-              f"{rel_err(lib.permute(0, 2, 3, 4, 1), want):.3e} vs plain")
-        flops = 2 * 8 * ci * co * n * extent ** 3
+        flops = 2 * 8 * ci * co * x.numel() // ci
         b_ms, b_by = bound(flops, 2 * (x.numel() + wf.numel() + got.numel()))
-        ms = median_ms(lambda: upsample2x(x, wf))
+        lib = None
+        if timed:
+            xl, wu = _ncdhw(x), _lib_up_w(wf)
+            out = F.conv_transpose3d(xl, wu, stride=2)
+            print(f"  library conv_transpose3d {ci}->{co} {_at(extent)}: err "
+                  f"{rel_err(out.permute(0, 2, 3, 4, 1), want):.3e} vs plain")
+            lib = median_ms(lambda: F.conv_transpose3d(xl, wu, stride=2))
+            del xl, wu, out
+        ms = ms_of(lambda: upsample2x(x, wf))
+        case = f"{ci}->{co} {_at(extent)}"
         records.append(dict(kernel="upsample2x", shape=(ci, co, extent),
-                            mode="plain", case=f"{ci}->{co} @{extent}^3",
-                            max_abs_err=err, stats_err=None, ms=ms,
-                            plain_ms=median_ms(lambda: upsample_plain(x, wf)),
-                            library_ms=median_ms(
-                                lambda: F.conv_transpose3d(xl, wu, stride=2)),
-                            bound_ms=b_ms, bound_by=b_by,
-                            tflops=flops / ms / 1e9))
+                            mode="plain", case=case, max_abs_err=err,
+                            stats_err=None, ms=ms,
+                            plain_ms=ms_of(lambda: upsample_plain(x, wf)),
+                            library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                            tflops=flops / ms / 1e9 if timed else None))
         if not err <= KERNEL_TOL:
-            failures.append(f"upsample2x {ci}->{co} @{extent}^3: err {err}")
-        del x, wf, got, want, xl, wu, lib
+            failures.append(f"upsample2x {case}: err {err}")
+        del x, wf, got, want
     return records, failures
 
 
-def flagship_models(dev, patch):
+def flagship_models(dev, patch, **overrides):
+    """The flagship plan (with the plan ``overrides``) in bf16 through the
+    kernels, and the plain fp32 path with the same weights."""
     import dataclasses
     from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
-    from mt3d_resenc_unet_torch.models.network import ResEncUNet, count_params
     plan = plan_from_autoconfig(
         patch, 1,
         [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
-        model_name="flagship", use_pallas_conv=True)
+        model_name="flagship", use_pallas_conv=True, **overrides)
+    return paired_models(dev, plan, "flagship plan" + (
+        f" {overrides}" if overrides else ""))
+
+
+def paired_models(dev, plan, label):
+    import dataclasses
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet, count_params
     fast = ResEncUNet(plan, dtype=torch.bfloat16, seed=SEED).to(dev)
     plain = ResEncUNet(dataclasses.replace(plan, use_pallas_conv=False),
                        dtype=torch.float32, seed=SEED).to(dev)
     plain.load_state_dict(fast.state_dict())
-    print(f"flagship plan: features {plan.features_per_stage} blocks "
+    print(f"{label}: features {plan.features_per_stage} blocks "
           f"{plan.n_blocks_per_stage} params {count_params(fast)}")
     return fast, plain
 
@@ -497,8 +581,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
-             ENGINE_U16_VOLUME)
-    print(f"phases 2-8: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+             ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
+    print(f"phases 2-9: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return rc
 
 
@@ -512,8 +596,8 @@ def card() -> str:
 
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
-        engine_u16_volume) -> int:
-    """Phases 2-8 and the result lines; the case lists and sizes are
+        engine_u16_volume, ink_patch, ink_batch) -> int:
+    """Phases 2-9 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -594,11 +678,16 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
-    step_rate, step_shapes, fails = training(dev, fast, plain, patch,
-                                             train_steps)
+    _, step_launches, step_shapes, fails = training(
+        fast, plain, flagship_batch(dev, patch, 2), train_steps, "flagship")
     failures += fails
     step_table(records, step_shapes, train_steps)
     del fast, plain
+    torch.cuda.empty_cache()
+
+    # 5e. the flagship with squeeze-excitation, as tasks/sheet_normals.yaml
+    step_rate, fails = se_phase(dev, gen, patch, train_steps, step_launches)
+    failures += fails
     torch.cuda.empty_cache()
 
     # 6. the fused instance norm + LeakyReLU op
@@ -621,6 +710,9 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 8. the zarr inference engine at full width
     failures += engine_phase(patch, engine_volume, engine_u16_volume)
+
+    # 9. tasks/ink.yaml's 5-stage plan at its patch and batch
+    failures += ink_phase(dev, gen, ink_patch, ink_batch)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -648,10 +740,12 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     return 0
 
 
-def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
-    """Phase 5a. Returns (per-case records, failures). ``library_ms`` is
-    the bf16 cuDNN call of the same function: ``torch.nn.grad.conv3d_input``
-    / ``conv3d_weight`` for the conv, ``aten.convolution_backward`` of the
+def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
+                   timed=True):
+    """Phase 5a (and the ink plan's backward cases in phase 10, untimed).
+    Returns (per-case records, failures). ``library_ms`` is the bf16 cuDNN
+    call of the same function: ``torch.nn.grad.conv3d_input`` /
+    ``conv3d_weight`` for the conv, ``aten.convolution_backward`` of the
     transposed conv for the upsample, timed once per shape."""
     from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3_dw,
                                                    conv3d_k3_dw_plain,
@@ -665,6 +759,9 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
+    def ms_of(fn):
+        return median_ms(fn) if timed else None
+
     records, failures = [], []
     todo = [(s, ci, co, e, "dx", m) for s, ci, co, e in conv_cases
             for m in DX_MODES]
@@ -673,16 +770,15 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
     todo += [(s, ci, co, e, "dx", m) for s, ci, co, e in s2_cases
              for m in S2_DX_MODES]
     todo += [(s, ci, co, e, "dw", "corr") for s, ci, co, e in s2_cases]
-    n = 2
     lib_ms = {}
     for stride, ci, co, extent, op, mode in todo:
-        eo = extent // stride
-        x = randn(n, extent, extent, extent, ci).bfloat16()
+        eo = tuple(e // stride for e in _ext(extent))
+        x = randn(n, *_ext(extent), ci).bfloat16()
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).bfloat16()
-        gy = randn(n, eo, eo, eo, co).bfloat16()
+        gy = randn(n, *eo, co).bfloat16()
         kw = {}
         if "corr" in mode:
-            kw.update(y=randn(n, eo, eo, eo, co).bfloat16(),
+            kw.update(y=randn(n, *eo, co).bfloat16(),
                       gs=randn(n, 2, co, scale=0.1))
         if mode in ("pre", "pre_corr", "corr_post"):
             kw["pre"] = torch.stack(
@@ -708,16 +804,17 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             dst_err = rel_err(got[1], want[1])
             got, want = got[0], want[0]
         err = rel_err(got, want)
-        ms, plain_ms = median_ms(fn), median_ms(ref)
+        ms, plain_ms = ms_of(fn), ms_of(ref)
         key = (op, stride, ci, co, extent)
-        if key not in lib_ms:    # the first case of a shape is its plain mode
+        if timed and key not in lib_ms:
+            # the first case of a shape is its plain mode
             xl, wl, gl = _ncdhw(x), _lib_conv_w(w), _ncdhw(gy)
             out = lib()
             if op == "dx":
                 out = out.permute(0, 2, 3, 4, 1)
             else:
                 out = out.permute(2, 3, 4, 1, 0)
-            print(f"  library {op} {ci}->{co} @{extent}^3 s{stride}: err "
+            print(f"  library {op} {ci}->{co} {_at(extent)} s{stride}: err "
                   f"{rel_err(out, want):.3e} vs plain ({mode})")
             lib_ms[key] = median_ms(lib)
             del xl, wl, gl, out
@@ -731,20 +828,21 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             if op == "dx" else 4 * w.numel())
         b_ms, b_by = bound(flops, nbytes)
         name = f"conv3d_k3_{op}_s{stride}"
-        case = f"{ci}->{co} @{extent}^3 {mode}"
+        case = f"{ci}->{co} {_at(extent)} {mode}"
         records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
                             case=case, max_abs_err=err, dst_err=dst_err,
-                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms[key],
-                            bound_ms=b_ms, bound_by=b_by,
-                            tflops=flops / ms / 1e9))
+                            ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms.get(key), bound_ms=b_ms,
+                            bound_by=b_by,
+                            tflops=flops / ms / 1e9 if timed else None))
         if not err <= KERNEL_TOL or (dst_err is not None
                                      and not dst_err <= DST_TOL):
             failures.append(f"{name} {case}: err {err} dst {dst_err}")
         del x, w, gy, kw, got, want, fn, ref
     for ci, co, extent in up_cases:
-        x = randn(n, extent, extent, extent, ci).bfloat16()
+        x = randn(n, *_ext(extent), ci).bfloat16()
         wf = randn(2, 2, 2, ci, co, scale=(8 * co) ** -0.5).bfloat16()
-        gy = randn(n, 2 * extent, 2 * extent, 2 * extent, co).bfloat16()
+        gy = randn(n, *(2 * e for e in _ext(extent)), co).bfloat16()
         xl, wu, gl = _ncdhw(x), _lib_up_w(wf), _ncdhw(gy)
 
         def conv_bwd(mask):
@@ -752,7 +850,7 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
                 gl, xl, wu, None, [2] * 3, [0] * 3, [1] * 3, True, [0] * 3, 1,
                 mask)
 
-        flops = 2 * 8 * ci * co * n * extent ** 3
+        flops = 2 * 8 * ci * co * x.numel() // ci
         for name, fn, ref, lib, out_bytes in (
                 ("upsample2x_dx", lambda: upsample2x_dx(gy, wf),
                  lambda: upsample2x_dx_plain(gy, wf),
@@ -763,16 +861,17 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases):
             got, want = fn(), ref()
             torch.cuda.synchronize()
             err = rel_err(got, want)
-            ms, plain_ms = median_ms(fn), median_ms(ref)
-            case = f"{ci}->{co} @{extent}^3"
+            ms, plain_ms = ms_of(fn), ms_of(ref)
+            case = f"{ci}->{co} {_at(extent)}"
             nbytes = 2 * gy.numel() + out_bytes + (
                 2 * wf.numel() if name == "upsample2x_dx" else 2 * x.numel())
             b_ms, b_by = bound(flops, nbytes)
             records.append(dict(kernel=name, shape=(ci, co, extent),
                                 mode="plain", case=case, max_abs_err=err,
                                 dst_err=None, ms=ms, plain_ms=plain_ms,
-                                library_ms=median_ms(lib), bound_ms=b_ms,
-                                bound_by=b_by, tflops=flops / ms / 1e9))
+                                library_ms=ms_of(lib), bound_ms=b_ms,
+                                bound_by=b_by,
+                                tflops=flops / ms / 1e9 if timed else None))
             if not err <= KERNEL_TOL:
                 failures.append(f"{name} {case}: err {err}")
             del got, want
@@ -844,15 +943,16 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
     return failures
 
 
-def step_repeatability(model, batch):
+def step_repeatability(model, batch, losses):
     """Two first training steps through the kernels from the same weights
     and batch: prints whether their metrics (losses, grad_norm) are
-    bit-equal, without failing; the weights are restored after."""
+    bit-equal and returns it; the weights are restored after."""
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     runs = []
     for i in range(2):
         model.load_state_dict(state)
-        runs.append(train_path(model, batch, 1, f"repeat {i}")[0][0])
+        runs.append(train_path(model, batch, 1, f"repeat {i}",
+                               losses)[0][0])
     model.load_state_dict(state)
     del state
     same = runs[0] == runs[1]
@@ -876,22 +976,20 @@ def flagship_batch(dev, patch, n):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def train_path(model, batch, steps, label):
-    """Runs ``steps`` training steps from the model's current weights;
+def train_path(model, batch, steps, label, losses):
+    """Runs ``steps`` training steps from the model's current weights with
+    the task ``losses`` (``build_task_losses``' config, weight 1 each);
     returns (per-step metrics, median step ms, peak bytes, first-step
-    gradients flattened per top-level module)."""
+    gradients by parameter name)."""
     from mt3d_resenc_unet_torch.train.losses import build_task_losses
     from mt3d_resenc_unet_torch.train.step import (build_optimizer,
                                                    cosine_epoch_schedule,
                                                    make_train_step)
-    loss_fns = build_task_losses({
-        "sheet": {"loss_fn": "BCEDiceLoss",
-                  "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
-        "normals": {"loss_fn": "MaskedCosineLoss"}})
     opt = build_optimizer(model.parameters(), "AdamW",
                           cosine_epoch_schedule(1e-3, 500, 250),
                           weight_decay=1e-4, grad_clip_norm=3.0)
-    step = make_train_step(model, loss_fns, {"sheet": 1.0, "normals": 1.0})
+    step = make_train_step(model, build_task_losses(losses),
+                           {task: 1.0 for task in losses})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, times, grads = [], [], None
@@ -902,10 +1000,9 @@ def train_path(model, batch, steps, label):
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
-            grads = {name: torch.cat([p.grad.flatten()
-                                      for p in mod.parameters()
-                                      if p.grad is not None])
-                     for name, mod in model.named_children()}
+            grads = {name: p.grad.detach().clone()
+                     for name, p in model.named_parameters()
+                     if p.grad is not None}
         print(f"  {label} step {i}: " + " ".join(
             f"{k} {v:.6f}" for k, v in metrics[-1].items())
             + f"  {times[-1]:.1f} ms")
@@ -916,57 +1013,213 @@ def train_path(model, batch, steps, label):
     return metrics, statistics.median(times[1:] or times), peak, grads
 
 
-def training(dev, fast, plain, patch, steps):
-    """Phases 5b and 5c. Returns (the kernel path's patches/s,
-    failures)."""
+def training(fast, plain, batch, steps, label, losses=FLAGSHIP_LOSSES,
+             absolute=(), hold_repeat=False, gnorm_tol=TRAIN_GNORM_TOL):
+    """Phases 5b-5c (and 5e, 9): two first steps through the kernels
+    (bit-equal or not: held with ``hold_repeat``), then ``steps`` steps of
+    the kernel path in bf16 with every launch counter zeroed before and
+    read after, and of the plain fp32 path from the same weights; their
+    first steps compared: the total loss and grad_norm by relative
+    difference (TRAIN_LOSS_TOL, ``gnorm_tol``), the gradients by cosine
+    per top-level module, except the parameters whose name holds one of
+    ``absolute``, whose gradients are held by SE_REDUCE_ATOL on the max
+    abs difference. Returns (the kernel path's patches/s, its launch
+    counts by kernel, by shape and mode, failures)."""
     from mt3d_resenc_unet_torch.ops import _build
     from mt3d_resenc_unet_torch.utils.flops import (H100_PEAK_BF16_TFLOPS,
                                                      mfu, train_step_flops)
-    n = 2
+    n = batch["image"].shape[0]
     failures = []
-    batch = flagship_batch(dev, patch, n)
-    step_repeatability(fast, batch)
+    same = step_repeatability(fast, batch, losses)
+    if hold_repeat and not same:
+        failures.append(f"{label}: two first steps differ")
     torch.cuda.empty_cache()
     plain.load_state_dict(fast.state_dict())
     _build.clear_counts()
-    got = train_path(fast, batch, steps, "kernels bf16")
+    got = train_path(fast, batch, steps, f"{label} kernels bf16", losses)
     launches = dict(_build.LAUNCHES)
     shapes = dict(_build.LAUNCH_SHAPES)
     torch.cuda.empty_cache()
-    want = train_path(plain, batch, steps, "plain fp32")
-    print(f"training launches {launches}")
-    flops = train_step_flops(fast.plan, patch)
-    for (metrics, ms, peak, _), label in ((got, "kernels bf16"),
-                                          (want, "plain fp32")):
+    want = train_path(plain, batch, steps, f"{label} plain fp32", losses)
+    print(f"{label} training launches {launches}")
+    flops = train_step_flops(fast.plan, tuple(batch["image"].shape[1:4]))
+    smi = card()
+    for (metrics, ms, peak, _), path in ((got, "kernels bf16"),
+                                         (want, "plain fp32")):
         tflops, frac = mfu(n / (ms / 1e3), flops)
-        print(f"train step {label}: {ms:.1f} ms median, "
+        print(f"{label} train step {path} [{smi}]: {ms:.1f} ms median, "
               f"{n / (ms / 1e3):.3f} patches/s, {tflops:.2f} model TFLOP/s, "
               f"MFU {frac:.4f} of {H100_PEAK_BF16_TFLOPS} TFLOP/s bf16, "
               f"peak memory {peak / 2 ** 30:.2f} GiB")
         for i, m in enumerate(metrics):
             if not all(np.isfinite(v) for v in m.values()):
-                failures.append(f"train {label} step {i}: non-finite {m}")
+                failures.append(f"{label} {path} step {i}: non-finite {m}")
     m0, p0 = got[0][0], want[0][0]
     loss_diff = abs(m0["total_loss"] - p0["total_loss"]) / abs(
         p0["total_loss"])
     gn_diff = abs(m0["grad_norm"] - p0["grad_norm"]) / p0["grad_norm"]
-    print(f"train first step: total loss rel diff {loss_diff:.3e} "
+    print(f"{label} first step: total loss rel diff {loss_diff:.3e} "
           f"(limit {TRAIN_LOSS_TOL}), grad_norm rel diff {gn_diff:.3e} "
-          f"(limit {TRAIN_GNORM_TOL})")
-    if not (loss_diff <= TRAIN_LOSS_TOL and gn_diff <= TRAIN_GNORM_TOL):
-        failures.append(f"train: loss diff {loss_diff} grad_norm diff "
+          f"(limit {gnorm_tol})")
+    if not (loss_diff <= TRAIN_LOSS_TOL and gn_diff <= gnorm_tol):
+        failures.append(f"{label}: loss diff {loss_diff} grad_norm diff "
                         f"{gn_diff}")
-    for name, g in got[3].items():
+    g_fast, g_plain = got[3], want[3]
+    # which parameters move the squared norm between the two paths
+    moves = sorted(((float(g_fast[k].float().square().sum()
+                           - g_plain[k].square().sum()), k) for k in g_fast),
+                   key=lambda t: -abs(t[0]))
+    total = sum(d for d, _ in moves)
+    print(f"{label} first step: grad_norm^2 kernels - plain {total:.3e}, "
+          "largest parts " + ", ".join(f"{k} {d:.3e}" for d, k in moves[:3]))
+    modules = collections.defaultdict(list)
+    worst = (0.0, None)
+    for name in g_fast:
+        if any(a in name for a in absolute):
+            diff = float((g_fast[name] - g_plain[name]).abs().max())
+            worst = max(worst, (diff, name), key=lambda t: t[0])
+            continue
+        modules[name.split(".")[0]].append(name)
+    for mod, names in modules.items():
         cos = float(torch.nn.functional.cosine_similarity(
-            g, want[3][name], dim=0))
-        print(f"train first-step gradient cosine {name}: {cos:.6f} "
-              f"(limit {TRAIN_MIN_COS})")
+            torch.cat([g_fast[k].flatten() for k in names]),
+            torch.cat([g_plain[k].flatten() for k in names]), dim=0))
+        print(f"{label} first-step gradient cosine {mod}"
+              + (f" without {absolute}" if absolute else "")
+              + f": {cos:.6f} (limit {TRAIN_MIN_COS})")
         if not cos >= TRAIN_MIN_COS:
-            failures.append(f"train: gradient cosine {name} {cos}")
+            failures.append(f"{label}: gradient cosine {mod} {cos}")
+    if absolute:
+        held = collections.defaultdict(list)
+        for k in g_fast:
+            if any(a in k for a in absolute):
+                held[k.rsplit(".", 1)[-1]].append(k)
+        for kind, names in held.items():
+            print(f"{label} first-step gradients of {len(names)} {absolute} "
+                  f"{kind} tensors: max abs " + ", ".join(
+                      f"{max(float(g[k].abs().max()) for k in names):.3e} "
+                      f"({path})" for g, path in ((g_fast, "kernels bf16"),
+                                                  (g_plain, "plain fp32")))
+                  + ", max abs difference " + "%.3e" % max(
+                      float((g_fast[k] - g_plain[k]).abs().max())
+                      for k in names))
+        print(f"{label}: worst {absolute} gradient difference {worst[0]:.3e}"
+              f" at {worst[1]} (limit {SE_REDUCE_ATOL})")
+        if not worst[0] <= SE_REDUCE_ATOL:
+            failures.append(f"{label}: {worst[1]} gradient differs by "
+                            f"{worst[0]}")
+    rate = n / (got[1] / 1e3)
+    del g_fast, g_plain, got, want
     for name in CONV_KERNELS:
         if launches.get(name, 0) <= 0:
-            failures.append(f"training: kernel {name} was never launched")
-    return n / (got[1] / 1e3), shapes, failures
+            failures.append(f"{label}: kernel {name} was never launched")
+    return rate, launches, shapes, failures
+
+
+def se_phase(dev, gen, patch, steps, flagship_launches):
+    """Phase 5e: the flagship with ``squeeze_excitation=True`` at full
+    width, batch 2: the eval forward, bf16 through the kernels against
+    plain fp32 (phase 3's limits), then the training step as phase 5b, with
+    two first steps held bit-equal and the se.reduce gradients held by an
+    absolute limit. Its launches per step are printed beside phase 5c's.
+    Returns (the kernel path's patches/s, failures)."""
+    failures = []
+    fast, plain = flagship_models(dev, patch, squeeze_excitation=True)
+    x = torch.randn(2, *patch, 1, generator=gen).to(dev)
+    with torch.inference_mode():
+        got = fast(x)
+        want = plain(x)
+        torch.cuda.synchronize()
+        fwd_ms = median_ms(lambda: fast(x), reps=3, warmup=1)
+    compare_outputs(got, want, f"SE flagship forward 2x{patch[0]}^3",
+                    failures)
+    print(f"SE flagship forward batch 2 [{card()}]: {fwd_ms:.1f} ms "
+          "through the kernels (bf16)")
+    del got, want, x
+    torch.cuda.empty_cache()
+    rate, launches, _, fails = training(
+        fast, plain, flagship_batch(dev, patch, 2), steps, "SE flagship",
+        absolute=("se.reduce",), hold_repeat=True)
+    failures += fails
+    per_step = {k: launches.get(k, 0) / steps for k in CONV_KERNELS}
+    base = {k: flagship_launches.get(k, 0) / steps for k in CONV_KERNELS}
+    print(f"SE flagship launches per step {per_step}; without SE (phase "
+          f"5c) {base}: {'equal' if per_step == base else 'they differ'}")
+    del fast, plain
+    return rate, failures
+
+
+def ink_phase(dev, gen, patch, n):
+    """Phase 9: ``tasks/ink.yaml``'s 5-stage plan (32-512 channels) at its
+    (64, 192, 192) patch and batch 3 in bf16 through the kernels against
+    plain fp32: the eval forward (the ink head's probability within
+    SHEET_TOL), then the training step as phase 5b with its
+    BCEWithLogitsLossZSmooth loss and peak memory; then every kernel the
+    step launched, at each non-cubic shape it launched it, against its
+    plain version in each mode of phases 2 and 5a (untimed). Returns the
+    failures."""
+    import dataclasses
+    from mt3d_resenc_unet_torch.core.plan import (TaskHead,
+                                                  plan_from_manual_config)
+    failures = []
+    plan = dataclasses.replace(plan_from_manual_config(
+        INK_MODEL, patch, 1, [TaskHead("ink", 1, "sigmoid")],
+        model_name="ink"), use_pallas_conv=True)
+    fast, plain = paired_models(dev, plan, f"ink plan {patch} batch {n}")
+    x = torch.randn(n, *patch, 1, generator=gen).to(dev)
+    with torch.inference_mode():
+        got = fast(x)["ink"]
+        want = plain(x)["ink"]
+        torch.cuda.synchronize()
+        fwd_ms = median_ms(lambda: fast(x), reps=3, warmup=1)
+    diff = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    print(f"ink forward batch {n} [{card()}]: ink max abs diff {diff} "
+          f"(limit {SHEET_TOL}), finite {finite}, {fwd_ms:.1f} ms through "
+          "the kernels (bf16)")
+    if not (diff <= SHEET_TOL and finite):
+        failures.append(f"ink forward: diff {diff} finite {finite}")
+    del got, want, x
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "image": rng.random((n,) + patch + (1,), np.float32),
+        "ink": (rng.random((n,) + patch + (1,)) > 0.5).astype(
+            np.float32)}.items()}
+    _, launches, shapes, fails = training(fast, plain, batch, INK_STEPS,
+                                          "ink", losses=INK_LOSSES,
+                                          gnorm_tol=INK_GNORM_TOL)
+    failures += fails
+    del fast, plain, batch
+    torch.cuda.empty_cache()
+    print("ink launches per step by shape and mode: " + ", ".join(
+        f"{k} {ci}->{co} {_at((d, h, w))} {mode} {c / INK_STEPS:g}"
+        for (k, (ci, co, d, h, w), mode), c in sorted(shapes.items())))
+
+    def launched(kernel):
+        return sorted({(ci, co, (d, h, w)) for (k, (ci, co, d, h, w), _)
+                       in shapes if k == kernel})
+
+    conv = [(1, *c) for c in launched("conv3d_k3_s1")]
+    s2 = [(2, *c) for c in launched("conv3d_k3_s2")]
+    up = launched("upsample2x")
+    records, fails = kernel_cases(dev, gen, conv, s2, up, n=n, timed=False)
+    failures += fails
+    bwd, fails = backward_cases(dev, gen, conv, s2, up, n=n, timed=False)
+    failures += fails
+    records += bwd
+    for r in records:
+        extra = r.get("stats_err") if r.get("stats_err") is not None \
+            else r.get("dst_err")
+        print(f"  ink {r['kernel']:15s} {r['case']:34s} err "
+              f"{r['max_abs_err']:.3e}"
+              + (f" stats/dst {extra:.3e}" if extra is not None else ""))
+    for name in CONV_KERNELS:
+        if not any(r["kernel"] == name for r in records):
+            failures.append(f"ink: kernel {name} was not held against its "
+                            "plain version")
+    torch.cuda.empty_cache()
+    return failures
 
 
 def step_table(records, shapes, steps):
@@ -1138,8 +1391,8 @@ def norm_act_cases(dev, gen, cases):
 
 def sheet_normals_config(work, volume_paths, patch, max_epoch):
     """``tasks/sheet_normals.yaml``'s settings as a dict (the card has no
-    pyyaml), cut to a few steps, on the synthetic dataset, without
-    squeeze-excitation (the port raises for it)."""
+    pyyaml), squeeze-excitation included, cut to a few steps, on the
+    synthetic dataset."""
     return {
         "tr_setup": {"model_name": "sheet_normals", "autoconfigure": True,
                      "tr_val_split": 0.9, "dilate_label": False,
@@ -1152,7 +1405,7 @@ def sheet_normals_config(work, volume_paths, patch, max_epoch):
                       "batch_size": 2, "max_steps_per_epoch": TRAINER_STEPS,
                       "max_val_steps_per_epoch": TRAINER_VAL_STEPS,
                       "max_epoch": max_epoch, "compute_dtype": "bfloat16"},
-        "model_config": {},
+        "model_config": {"squeeze_excitation": True},
         "dataset_config": {
             "min_bbox_percent": 0.97, "min_labeled_ratio": 0.15,
             "use_cache": True, "cache_folder": str(work / "patch_cache"),
@@ -1269,8 +1522,9 @@ def trainer_phase(patch, train_data, step_rate):
     rate = sum(h["train/patches_per_sec"] for h in steady) / len(steady)
     fetch = sum(h["train/t_fetch_s"] for h in steady)
     step = sum(h["train/t_step_s"] for h in steady)
-    print(f"trainer epochs 2-{len(history)}: {rate:.3f} patches/s against "
-          f"{step_rate:.3f} for the step alone (phase 5b); t_fetch is "
+    print(f"trainer epochs 2-{len(history)} [{card()}]: {rate:.3f} "
+          f"patches/s against {step_rate:.3f} for the step alone (phase "
+          f"5e, the same network); t_fetch is "
           f"{fetch / (fetch + step):.1%} of fetch + step")
 
     host_sample_cost(sheet_normals_config(work, paths, patch, 1))

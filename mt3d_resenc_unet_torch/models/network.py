@@ -4,56 +4,32 @@ The port of ``mt3d_resenc_unet_tpu/models/network.py`` (reference:
 build_network_from_config.py:20-326, encoder.py, decoder.py). ``forward``
 takes (N, D, H, W, C_in) and returns ``{task: (N, D, H, W, C_task)}`` in
 fp32: logits in train mode, each task's activation applied in eval mode,
-as the JAX model does with ``train=True`` / ``train=False``.
+as the JAX model does with ``train=True`` / ``train=False``; with deep
+supervision a list per task, full resolution first.
 
-Plan options the port does not run raise ``NotImplementedError`` at
-construction (see :func:`check_plan`). ``plan.remat`` is ignored: the
-flagship step at batch 2 fits the H100's 80 GB without recomputation.
+The port builds every plan the JAX package builds: BasicBlockD and
+BottleneckD residual encoders or a ConvBlock encoder, with or without the
+stem; ConvBlock or ResidualBlock decoders; squeeze-excitation, DropPath,
+dropout, conv biases, affine norms, deep supervision; any ``dim``, kernel
+size and stride. ``plan.nonlin`` is not read, as in the JAX package: every
+nonlinearity is LeakyReLU(``nonlin_negative_slope``). ``plan.remat`` is
+ignored: it changes memory, not the function, and the flagship step at
+batch 2 fits the H100's 80 GB without recomputation.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
 
 from ..core.plan import NetworkPlan
 from ..ops import lowp
-from ..ops.instance_norm import stats_to_scale_shift
 from ..ops.upsample import Upsample2xFn, upsample2x_supported, upsample_plain
 from .blocks import (StackedConvBlocks, StackedResidualBlocks, torch_uniform_,
                      voxel_count)
-
-
-def check_plan(plan: NetworkPlan) -> None:
-    """Raise NotImplementedError for every plan option the port does not
-    run yet (``remat`` is not one: it changes memory, not the function, and
-    the port ignores it)."""
-    unsupported = {
-        "dim != 3": plan.dim != 3,
-        "basic_encoder_block other than BasicBlockD":
-            plan.basic_encoder_block != "BasicBlockD",
-        "basic_decoder_block other than ConvBlock":
-            plan.basic_decoder_block != "ConvBlock",
-        "conv_bias": plan.conv_bias,
-        "norm_affine": plan.norm_affine,
-        "nonlin other than leaky_relu": plan.nonlin != "leaky_relu",
-        "dropout_p > 0": plan.dropout_p > 0.0,
-        "squeeze_excitation": plan.squeeze_excitation,
-        "stochastic_depth_p > 0": plan.stochastic_depth_p > 0.0,
-        "deep_supervision": plan.deep_supervision,
-        "do_stem=False": not plan.do_stem,
-        "kernel sizes other than 3x3x3":
-            any(tuple(k) != (3, 3, 3) for k in plan.kernel_sizes),
-        "strides other than 1 or 2 on all axes":
-            any(tuple(s) not in ((1, 1, 1), (2, 2, 2)) for s in plan.strides),
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
-    if bad:
-        raise NotImplementedError(
-            "the torch port does not support: " + ", ".join(bad))
 
 
 class UpsampleConv(nn.Module):
@@ -65,41 +41,48 @@ class UpsampleConv(nn.Module):
     the CUDA upsample through its autograd Function when ``use_kernels``;
     the flip stays outside it, so autograd takes its gradient. Other shapes
     run the GEMM in plain PyTorch: in fp32 for an fp32 input, in the
-    input's dtype with fp32 accumulation for a bf16 one (ops/lowp.py)."""
+    input's dtype with fp32 accumulation for a bf16 one (ops/lowp.py).
+    ``bias`` (with ``conv_bias``) is added in the output's dtype."""
 
-    def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False):
+    def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False,
+                 bias: bool = False):
         super().__init__()
         self.kernel_size = tuple(kernel)
         self.use_kernels = use_kernels
         self.kernel = nn.Parameter(torch.empty(*kernel, ci, co))
+        self.bias = nn.Parameter(torch.empty(co)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # torch ConvTranspose default: fan_in = co * prod(k) (its weight
         # layout (ci, co, *k) makes size(1) = co the "input fmaps")
-        co = self.kernel.shape[-1]
-        torch_uniform_(self.kernel, co * math.prod(self.kernel_size),
-                       generator)
+        fan_in = self.kernel.shape[-1] * math.prod(self.kernel_size)
+        torch_uniform_(self.kernel, fan_in, generator)
+        if self.bias is not None:
+            torch_uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        wf = torch.flip(self.kernel.to(x.dtype), dims=(0, 1, 2)).contiguous()
+        wf = torch.flip(self.kernel.to(x.dtype),
+                        dims=tuple(range(len(self.kernel_size)))).contiguous()
         ci, co = wf.shape[-2:]
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
                 and upsample2x_supported(x.shape, ci, co)):
-            return Upsample2xFn.apply(x, wf)
-        if x.dtype != torch.float32:
-            return lowp.upsample(x, wf)
-        return upsample_plain(x, wf)
+            y = Upsample2xFn.apply(x, wf)
+        elif x.dtype != torch.float32:
+            y = lowp.upsample(x, wf)
+        else:
+            y = upsample_plain(x, wf)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class SegLayer(nn.Module):
     """1x1x1 segmentation head with bias, as a channel matmul: in fp32 for
     an fp32 input, in the input's dtype (then fp32) for a bf16 one, as the
     JAX ``SegLayer`` (reference: decoder.py:97-100). Layout: kernel
-    (1, 1, 1, ci, co)."""
+    (*1, ci, co) with one 1 per spatial axis of a ``dim``-D plan."""
 
-    def __init__(self, ci: int, co: int):
+    def __init__(self, ci: int, co: int, dim: int = 3):
         super().__init__()
-        self.kernel = nn.Parameter(torch.empty(1, 1, 1, ci, co))
+        self.kernel = nn.Parameter(torch.empty(*(1,) * dim, ci, co))
         self.bias = nn.Parameter(torch.empty(co))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -116,70 +99,114 @@ class SegLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Stem conv + residual stages, returning every stage's output as a
-    skip (reference: encoder.py:27-158). The stem's instance norm
-    is handed to stage 0 as its first conv's pre-op (JAX network.py:196-219)
-    instead of running as a pass of its own."""
+    """Stem conv + stages, returning every stage's output as a skip
+    (reference: encoder.py:27-158): residual stages (``BasicBlockD``, or
+    ``plan.bottleneck_block`` for a ``BottleneckBlockD`` encoder, as JAX
+    network.py:226-229 picks it) or plain conv stacks (``ConvBlock``). The
+    stem's instance norm is handed to a residual stage 0 as its first
+    conv's pre-op (JAX network.py:196-219) where the stem runs the fused
+    chain; a plain-conv encoder takes the stem's normalized output, as in
+    JAX, whose handoff needs a residual encoder too."""
 
     def __init__(self, plan: NetworkPlan):
         super().__init__()
         p = plan
         common = dict(eps=p.norm_eps, negative_slope=p.nonlin_negative_slope,
-                      use_kernels=p.use_pallas_conv)
-        self.eps = p.norm_eps
-        self.stem = StackedConvBlocks(1, p.in_channels, p.stem_width,
-                                      p.kernel_sizes[0], (1, 1, 1), **common)
-        ci = p.stem_width
+                      use_kernels=p.use_pallas_conv, conv_bias=p.conv_bias,
+                      norm_affine=p.norm_affine, dropout_p=p.dropout_p)
+        ones = (1,) * p.dim
+        residual = p.basic_encoder_block in ("BasicBlockD",
+                                             "BottleneckBlockD")
+        self.stem = (StackedConvBlocks(1, p.in_channels, p.stem_width,
+                                       p.kernel_sizes[0], ones, **common)
+                     if p.do_stem else None)
+        self.handoff = self.stem is not None and self.stem.fused and residual
+        block_type = (p.bottleneck_block
+                      if p.basic_encoder_block == "BottleneckBlockD"
+                      else "BasicBlockD")
+        ci = p.stem_width if p.do_stem else p.in_channels
         self.stages = []
         for s in range(p.num_stages):
-            stage = StackedResidualBlocks(
-                p.n_blocks_per_stage[s], ci, p.features_per_stage[s],
-                p.kernel_sizes[s], p.strides[s], **common)
+            args = (p.n_blocks_per_stage[s], ci, p.features_per_stage[s],
+                    p.kernel_sizes[s], p.strides[s])
+            if residual:
+                stage = StackedResidualBlocks(
+                    *args, block_type=block_type,
+                    bottleneck_features=(p.bottleneck_channels[s]
+                                         if p.bottleneck_channels else None),
+                    squeeze_excitation=p.squeeze_excitation,
+                    se_ratio=p.squeeze_excitation_reduction_ratio,
+                    stochastic_depth_p=p.stochastic_depth_p, **common)
+            else:
+                stage = StackedConvBlocks(*args, **common)
             self.add_module(f"stage{s}", stage)
             self.stages.append(stage)
             ci = p.features_per_stage[s]
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        y, stats = self.stem.raw(x)
-        pre = stats_to_scale_shift(stats, voxel_count(y), self.eps)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        pre = None
+        if self.handoff:
+            x, stats = self.stem.raw(x)
+            pre = self.stem.convs[-1].norm.vectors(stats, voxel_count(x))
+        elif self.stem is not None:
+            x = self.stem(x, generator=generator)
         skips = []
-        for s, stage in enumerate(self.stages):
-            y = stage(y, pre if s == 0 else None)
-            skips.append(y)
+        for stage in self.stages:
+            if isinstance(stage, StackedResidualBlocks):
+                x = stage(x, pre, generator=generator)
+            else:
+                x = stage(x, generator=generator)
+            pre = None
+            skips.append(x)
         return skips
 
 
 class Decoder(nn.Module):
     """Per-task head: transposed-conv upsample, split-weight skip concat,
-    conv stack per resolution, and the last stage's 1x1 seg layer
-    (reference: decoder.py:16-162). Seg layers exist for every
-    stage so checkpoints match the JAX package's."""
+    a conv stack (``ConvBlock``) or residual stack (``ResidualBlock``) per
+    resolution, and 1x1 seg layers (reference: decoder.py:16-162). Seg
+    layers exist for every stage so checkpoints match the JAX package's
+    with and without deep supervision; with it ``forward`` returns every
+    stage's seg output, full resolution first (JAX network.py:324-335),
+    else the last stage's."""
 
     def __init__(self, plan: NetworkPlan, num_classes: int):
         super().__init__()
         p = plan
         n = p.num_stages
+        common = dict(eps=p.norm_eps, negative_slope=p.nonlin_negative_slope,
+                      use_kernels=p.use_pallas_conv, conv_bias=p.conv_bias,
+                      norm_affine=p.norm_affine, dropout_p=p.dropout_p)
+        stack = (StackedResidualBlocks
+                 if p.basic_decoder_block == "ResidualBlock"
+                 else StackedConvBlocks)
+        self.deep_supervision = p.deep_supervision
         self.levels = []
         for s in range(1, n):
             skip_c = p.features_per_stage[n - 1 - s]
             up = UpsampleConv(p.features_per_stage[n - s], skip_c,
-                              p.strides[n - s], p.use_pallas_conv)
-            stage = StackedConvBlocks(
-                p.n_conv_per_stage_decoder[s - 1], 2 * skip_c, skip_c,
-                p.kernel_sizes[n - 1 - s], (1, 1, 1), eps=p.norm_eps,
-                negative_slope=p.nonlin_negative_slope,
-                use_kernels=p.use_pallas_conv)
-            seg = SegLayer(skip_c, num_classes)
+                              p.strides[n - s], p.use_pallas_conv,
+                              p.conv_bias)
+            stage = stack(p.n_conv_per_stage_decoder[s - 1], 2 * skip_c,
+                          skip_c, p.kernel_sizes[n - 1 - s], (1,) * p.dim,
+                          **common)
+            seg = SegLayer(skip_c, num_classes, p.dim)
             self.add_module(f"up{s - 1}", up)
             self.add_module(f"stage{s - 1}", stage)
             self.add_module(f"seg{s - 1}", seg)
             self.levels.append((up, stage, seg))
 
-    def forward(self, skips: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, skips: List[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         x = skips[-1]
-        for s, (up, stage, _) in enumerate(self.levels, start=1):
-            x = stage(up(x), skips[-1 - s])
-        return self.levels[-1][2](x)
+        outs = []
+        for s, (up, stage, seg) in enumerate(self.levels, start=1):
+            x = stage(up(x), x2=skips[-1 - s], generator=generator)
+            if self.deep_supervision or s == len(self.levels):
+                outs.append(seg(x))
+        return outs[::-1] if self.deep_supervision else outs[0]
 
 
 def _apply_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -199,12 +226,11 @@ class ResEncUNet(nn.Module):
     where the kernels need it); parameters stay fp32 and are cast at each
     call, as in the JAX model, so their gradients are fp32. Parameters start
     from torch's default init drawn from a ``torch.Generator`` seeded with
-    ``seed``."""
+    ``seed`` (affine norms start at ones and zeros)."""
 
     def __init__(self, plan: NetworkPlan, dtype: torch.dtype = torch.float32,
                  seed: int = 0):
         super().__init__()
-        check_plan(plan)
         self.plan = plan
         self.dtype = dtype
         self.encoder = Encoder(plan)
@@ -218,19 +244,27 @@ class ResEncUNet(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor,
-                apply_activations: Optional[bool] = None
-                ) -> Dict[str, torch.Tensor]:
+                apply_activations: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
         """``apply_activations`` defaults to ``not self.training``, as in the
         JAX model: training losses take logits; validation asks for logits
-        in eval mode with ``False``."""
+        in eval mode with ``False``. ``generator``: the caller's
+        ``torch.Generator`` on the input's device, from which dropout and
+        DropPath draw in train mode (the JAX model's "dropout" and
+        "droppath" rngs); needed only by a plan that has them."""
         if apply_activations is None:
             apply_activations = not self.training
-        skips = self.encoder(x.to(self.dtype).contiguous())
+        skips = self.encoder(x.to(self.dtype).contiguous(), generator)
         out = {}
         for task in self.plan.tasks:
-            logits = getattr(self, f"decoder_{task.name}")(skips)
-            out[task.name] = (_apply_activation(logits, task.activation)
-                              if apply_activations else logits)
+            logits = getattr(self, f"decoder_{task.name}")(skips, generator)
+            if apply_activations:
+                logits = (
+                    [_apply_activation(v, task.activation) for v in logits]
+                    if isinstance(logits, list)
+                    else _apply_activation(logits, task.activation))
+            out[task.name] = logits
         return out
 
 

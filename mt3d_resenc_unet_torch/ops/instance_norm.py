@@ -26,14 +26,22 @@ def instance_stats(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
 
 
-def stats_to_scale_shift(stats: torch.Tensor, count: int,
-                         eps: float) -> Vectors:
+def stats_to_scale_shift(stats: torch.Tensor, count: int, eps: float,
+                         scale: Optional[torch.Tensor] = None,
+                         bias: Optional[torch.Tensor] = None) -> Vectors:
     """(N, 2, C) fp32 [sum; sumsq] -> (inv, mean * inv), each (N, C) fp32,
-    so that ``x * inv - shift`` is the instance-normalized tensor."""
+    so that ``x * inv - shift`` is the instance-normalized tensor; an
+    affine ``scale`` / ``bias`` (C,) folds in as ``inv * scale`` and
+    ``shift - bias`` (JAX ``stats_to_scale_shift``)."""
     mean = stats[:, 0] / count
     var = torch.clamp(stats[:, 1] / count - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
-    return inv, mean * inv
+    if scale is not None:
+        inv = inv * scale.float()
+    shift = mean * inv
+    if bias is not None:
+        shift = shift - bias.float()
+    return inv, shift
 
 
 def pre_vector(vectors: Vectors) -> torch.Tensor:

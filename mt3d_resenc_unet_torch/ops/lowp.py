@@ -22,9 +22,12 @@ conv a bf16 activation. The functions here do the same for an input in a
 A pre-op's normalized input is rounded to the input's dtype before the
 conv; statistics are fp32 sums of the rounded output. Everything is plain
 PyTorch differentiated by autograd, except the stem's weight gradient
-(:class:`StemConvFn`). An fp32 input never comes here: ``conv3d.
-conv3d_k3_plain`` and ``upsample.upsample_plain`` stay the fp32 path (the
-fp32 reference model, and the kernels' yardsticks).
+(:class:`StemConvFn`). ``conv3d.conv3d_k3_plain`` and ``upsample.
+upsample_plain`` stay the fp32 path of the kernels' shape classes (the fp32
+reference model, and the kernels' yardsticks); an fp32 input comes here
+only for what no kernel class covers (:func:`conv` of another kernel,
+stride or rank; the pointwise and matmul functions), and is computed in
+fp32.
 """
 
 from __future__ import annotations
@@ -48,26 +51,35 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    """3x3x3 pad-1 conv of NDHWC x with w (3, 3, 3, Ci, Co) in x's dtype;
-    on the card cuDNN on the channels-last views."""
-    xl = x.permute(0, 4, 1, 2, 3)
-    wl = w.to(x.dtype).permute(4, 3, 0, 1, 2)
+def _conv(x: torch.Tensor, w: torch.Tensor, stride) -> torch.Tensor:
+    """Same-padded ((k - 1) // 2 on both sides, JAX ``_pad_same``) conv of
+    channels-last x (N, *spatial, Ci) with w (*k, Ci, Co) in x's dtype, of
+    any rank, kernel and stride (an int or one per axis); on the card cuDNN
+    on the channels-first views."""
+    nd = x.dim() - 2
+    k = w.shape[:nd]
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    pad = tuple((kk - 1) // 2 for kk in k)
+    xl = x.permute(0, nd + 1, *range(1, nd + 1))
+    wl = w.to(x.dtype).permute(nd + 1, nd, *range(nd))
     if x.device.type == "cuda":
-        y = F.conv3d(xl, wl.contiguous(memory_format=torch.channels_last_3d),
-                     stride=stride, padding=1)
+        fmt = (torch.channels_last_3d if nd == 3
+               else torch.contiguous_format)
+        y = conv(xl, wl.contiguous(memory_format=fmt), stride=stride,
+                 padding=pad)
     else:
-        y = F.conv3d(xl.float(), wl.float(), stride=stride,
-                     padding=1).to(x.dtype)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+        y = conv(xl.float(), wl.float(), stride=stride,
+                 padding=pad).to(x.dtype)
+    return y.permute(0, *range(2, nd + 2), 1).contiguous()
 
 
 def stem_class(x: torch.Tensor, w: torch.Tensor, stride: int) -> bool:
     """The JAX stem GEMM's class (gemm_conv.py ``stem_supported``): one
     input channel, 3x3x3, stride 1, for an input that needs no gradient
     (the image; :class:`StemConvFn` has no dx)."""
-    return (x.shape[-1] == 1 and tuple(w.shape[:4]) == (3, 3, 3, 1)
-            and stride == 1 and not x.requires_grad)
+    return (x.dim() == 5 and x.shape[-1] == 1
+            and tuple(w.shape[:4]) == (3, 3, 3, 1)
+            and stride in (1, (1, 1, 1)) and not x.requires_grad)
 
 
 def _stem_patches(x: torch.Tensor) -> torch.Tensor:
@@ -107,19 +119,28 @@ class StemConvFn(torch.autograd.Function):
         return None, dw[:27].reshape(3, 3, 3, 1, co)
 
 
-def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-              pre: Optional[torch.Tensor] = None,
-              add_to: Optional[torch.Tensor] = None,
-              emit_stats: bool = False, negative_slope: float = 1e-2):
-    """The function of ``conv3d.conv3d_k3_plain`` in x's dtype: the pre-op
-    ``leaky(x * pre[:, 0] - pre[:, 1])`` in fp32, rounded to x's dtype;
-    the conv (:class:`StemConvFn` in the stem's class); ``add_to`` added in
-    x's dtype (JAX adds the two halves' outputs so); ``emit_stats``: fp32
-    [sum; sumsq] of the result. Returns ``y`` or ``(y, stats)``."""
+def apply_pre(x: torch.Tensor, pre: torch.Tensor,
+              negative_slope: float) -> torch.Tensor:
+    """A producer's norm + LeakyReLU ``leaky(x * pre[:, 0] - pre[:, 1])``
+    in fp32, rounded to x's dtype; ``pre`` is (N, 2, C)."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    u = x.float() * pre[:, 0].reshape(shape) - pre[:, 1].reshape(shape)
+    return torch.where(u >= 0, u, u * negative_slope).to(x.dtype)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
+         pre: Optional[torch.Tensor] = None,
+         add_to: Optional[torch.Tensor] = None,
+         emit_stats: bool = False, negative_slope: float = 1e-2):
+    """The function of ``conv3d.conv3d_k3_plain`` in x's dtype, for any
+    rank, kernel and stride: the pre-op (:func:`apply_pre`); the conv
+    (:class:`StemConvFn` in the stem's class); ``add_to`` added in x's
+    dtype (JAX adds the two halves' outputs so); ``emit_stats``: fp32
+    [sum; sumsq] of the result. Returns ``y`` or ``(y, stats)``. An fp32
+    input computes the same in fp32: the fp32 model's convs outside the
+    3x3x3 class (other kernels, anisotropic strides, 2-D plans)."""
     if pre is not None:
-        u = (x.float() * pre[:, 0, None, None, None, :]
-             - pre[:, 1, None, None, None, :])
-        x = torch.where(u >= 0, u, u * negative_slope).to(x.dtype)
+        x = apply_pre(x, pre, negative_slope)
     w = w.to(x.dtype)
     if stem_class(x, w, stride):
         y = StemConvFn.apply(x, w)
@@ -133,28 +154,33 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 def pool_proj(x: torch.Tensor, k: torch.Tensor,
               p: Sequence[int] = ()) -> torch.Tensor:
     """AvgPool(p) (window == stride, VALID) then the 1x1 projection k
-    (1, 1, 1, Ci, Co), as JAX ``_pool_proj``: for p = (2, 2, 2) at Ci <= 64
+    (*1, Ci, Co), as JAX ``_pool_proj``: for p = (2, 2, 2) at Ci <= 64
     the D and H pair sums in x's dtype and one matmul whose K takes the W
     pair; otherwise one matmul over the whole window (JAX's fallback conv
     with k / prod(p) over the window). No ``p``: the plain 1x1 conv."""
-    n, d, h, wd, ci = x.shape
+    n, ci = x.shape[0], x.shape[-1]
     co = k.shape[-1]
     w2 = k.to(x.dtype).reshape(ci, co) / math.prod(p)
     if not p:
         a = x
-    elif (tuple(p) == (2, 2, 2) and ci <= 64 and 128 % ci == 0
-          and wd % (128 // ci) == 0 and d % 2 == 0 and h % 2 == 0):
+    elif (x.dim() == 5 and tuple(p) == (2, 2, 2) and ci <= 64
+          and 128 % ci == 0 and x.shape[3] % (128 // ci) == 0
+          and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+        _, d, h, wd, _ = x.shape
         t = x[:, 0::2] + x[:, 1::2]
         t = t[:, :, 0::2] + t[:, :, 1::2]
         a = t.reshape(n, d // 2, h // 2, wd // 2, 2 * ci)
         w2 = torch.cat([w2, w2])
     else:
-        pd, ph, pw = p
-        do, ho, wo = d // pd, h // ph, wd // pw
-        a = x[:, :do * pd, :ho * ph, :wo * pw].reshape(
-            n, do, pd, ho, ph, wo, pw, ci).permute(0, 1, 3, 5, 2, 4, 6, 7)
-        a = a.reshape(n, do, ho, wo, pd * ph * pw * ci)
-        w2 = w2.repeat(pd * ph * pw, 1)
+        nd = len(p)
+        out = [s // q for s, q in zip(x.shape[1:-1], p)]
+        a = x[(slice(None),) + tuple(slice(0, o * q)
+                                     for o, q in zip(out, p))]
+        a = a.reshape(n, *(v for o, q in zip(out, p) for v in (o, q)), ci)
+        a = a.permute(0, *range(1, 2 * nd, 2), *range(2, 2 * nd + 1, 2),
+                      2 * nd + 1)
+        a = a.reshape(n, *out, math.prod(p) * ci)
+        w2 = w2.repeat(math.prod(p), 1)
     return matmul(a.reshape(-1, a.shape[-1]), w2).reshape(*a.shape[:-1], co)
 
 

@@ -1,9 +1,11 @@
 """Where the time of the flagship training step goes on one NVIDIA GPU.
 
     python -m mt3d_resenc_unet_torch.tools.profile_step [--steps 2]
+        [--squeeze-excitation]
 
 Builds the flagship plan (128^3 patch, 6 stages, sheet + normals heads,
-torch-default weights from seed 0) in bf16 through the kernels, runs two
+torch-default weights from seed 0; with ``--squeeze-excitation`` the
+network of ``tasks/sheet_normals.yaml``) in bf16 through the kernels, runs two
 warm-up steps of the training step (batch 2, BCEDice + MaskedCosine, clip 3,
 AdamW), then traces ``--steps`` steps with ``torch.profiler`` and prints the
 device time per step in groups (the port's kernels by row of PERF.md's
@@ -58,6 +60,7 @@ def _device_us(event) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=2)
+    parser.add_argument("--squeeze-excitation", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -77,7 +80,8 @@ def main(argv=None) -> int:
     plan = plan_from_autoconfig(
         patch, 1, [TaskHead("sheet", 1, "sigmoid"),
                    TaskHead("normals", 3, "none")],
-        model_name="flagship", use_pallas_conv=True)
+        model_name="flagship", use_pallas_conv=True,
+        squeeze_excitation=args.squeeze_excitation)
     model = ResEncUNet(plan, dtype=torch.bfloat16, seed=0).to(dev)
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in {

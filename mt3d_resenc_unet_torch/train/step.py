@@ -153,7 +153,8 @@ def multitask_loss(outputs: Mapping[str, object],
 
 def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
                     task_weights: Mapping[str, float],
-                    grad_accum_steps: int = 1):
+                    grad_accum_steps: int = 1,
+                    generator: Optional[torch.Generator] = None):
     """Build ``train_step(optimizer, batch) -> metrics``.
 
     The batch holds 'image' plus one entry per task, each with leading
@@ -162,7 +163,9 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
     The gradients, per-task losses and total are the means over the
     microbatches. Metrics are 0-d tensors on the model's device (no host
     sync): the per-task losses, ``total_loss`` and ``grad_norm`` (the global
-    norm before the clip)."""
+    norm before the clip). ``generator``: the ``torch.Generator`` on the
+    model's device from which dropout and DropPath draw (the JAX step's
+    ``TrainState.rng``); a plan without them needs none."""
     loss_fns = dict(loss_fns)
     task_weights = dict(task_weights)
     normal_keys = tuple(k for k in loss_fns if k.lower() == "normals")
@@ -177,7 +180,7 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
         for k in range(accum):
             micro = decode_wire({key: v[k::accum] for key, v in batch.items()},
                                 normal_keys)
-            outputs = model(micro["image"])
+            outputs = model(micro["image"], generator=generator)
             targets = {key: v for key, v in micro.items() if key != "image"}
             total, per_task = multitask_loss(outputs, targets, loss_fns,
                                              task_weights)

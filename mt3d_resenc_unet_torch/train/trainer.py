@@ -171,8 +171,13 @@ class Trainer:
             print(f"[trainer] auto-resumed from epoch {start_epoch}")
         self.start_epoch = start_epoch
 
+        # dropout and DropPath draw from this generator, seeded as the JAX
+        # trainer seeds its TrainState.rng (seed + 1)
+        generator = torch.Generator(device=self.device).manual_seed(
+            mgr.seed + 1)
         train_step = make_train_step(model, loss_fns, task_weights,
-                                     grad_accum_steps=accum)
+                                     grad_accum_steps=accum,
+                                     generator=generator)
         eval_step = make_eval_step(model, loss_fns)
         predict_step = make_predict_step(model)
 

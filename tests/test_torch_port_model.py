@@ -162,13 +162,3 @@ def test_seeded_init_is_torch_default_and_reproducible():
     assert float(k.abs().max()) > 0.9 * bound
     up = a["decoder_sheet.up0.kernel"]                      # (2,2,2,256,128)
     assert float(up.abs().max()) <= 1.0 / np.sqrt(8 * 128)
-
-
-@pytest.mark.parametrize("override", [
-    {"conv_bias": True}, {"norm_affine": True}, {"dropout_p": 0.1},
-    {"squeeze_excitation": True}, {"stochastic_depth_p": 0.1},
-    {"deep_supervision": True}, {"basic_decoder_block": "ResidualBlock"},
-    {"basic_encoder_block": "BottleneckBlockD"}, {"do_stem": False}])
-def test_unsupported_plan_options_raise(override):
-    with pytest.raises(NotImplementedError):
-        ResEncUNet(_port_plan(**override))
