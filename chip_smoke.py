@@ -8,8 +8,11 @@ with and without squeeze-excitation, holds the fused instance-norm op
 against its plain version, trains ``tasks/sheet_normals.yaml``'s network
 (squeeze-excitation on) through the port's ``Trainer`` on a synthetic zarr
 dataset, serves a zarr volume through the port's inference engine in each
-of its model passes, and runs ``tasks/ink.yaml``'s 5-stage plan at its
-non-cubic patch through the kernels against the plain path.
+of its model passes, runs ``tasks/ink.yaml``'s 5-stage plan at its
+non-cubic patch through the kernels against the plain path, holds the
+device augmentation and every optimizer of the factory on the card
+against the CPU, and runs the training step and the trainer with the
+augmentation on the card.
 
     python3 chip_smoke.py
 
@@ -118,6 +121,31 @@ Phases (any failure exits non-zero and prints no result line):
      grad_norm held by INK_GNORM_TOL, see there), and
      then every kernel the step launched, at each shape it launched it
      (non-cubic), against its plain version in phases 2 and 5a's modes.
+ 10. device augmentation (``data/augment_device.py``) on the wire-decoded
+     flagship batch (2 x 128^3, u8 image and sheet, u16 normals): one
+     ``AugParams`` drawn with a CUDA generator at the defaults, then every
+     stage forced on with each blur type in turn; each stage applied on
+     the card and, on a CPU copy of its input and the same draws, on the
+     CPU, the image in fp32 (within AUG_FP32_TOL) and bf16 (within
+     AUG_BF16_ULPS); flips, rot90 and the cutout mask bit-equal; ``apply``
+     equal to its stages. Printed: the augmentation's ms at batch 2 back
+     to back (draws included), its device time, and each blur type's ms
+     with every stage on;
+ 11. phase 5b's flagship step with ``augment_fn=make_device_augment()``
+     and a generator on the card: two first steps from the same seed held
+     bit-equal (the draws included), TRAIN_STEPS steps with every counter
+     zeroed before and all nine conv and upsample kernels launched; ms,
+     patches/s, MFU and peak memory beside phase 5b's, launches per step
+     beside 5c's, and the step's device time (torch.profiler) with the
+     augmentation's share of it;
+ 12. phase 7 with ``augment_on_device: true`` (the dataset ships
+     unaugmented wire bytes), its patches/s and ``t_fetch`` share beside
+     phase 7's;
+ 13. every name of ``train/optimizers.py::create_optimizer`` on the
+     flagship's 235.5 M parameters: 2 updates from one gradient set made
+     on the card, held against the same rule on the CPU on copies of the
+     largest conv kernel, a 512x512 one, a bias and a seg-head kernel
+     (OPT_TOL of the move); each rule's ms per update on the card.
 Then one JSON line of the thirteen kernels (launches, error, and ms,
 plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
 last, the device line.
@@ -582,7 +610,8 @@ def main() -> int:
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
              ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
-    print(f"phases 2-9: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"phases 2-13: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
     return rc
 
 
@@ -597,7 +626,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-9 and the result lines; the case lists and sizes are
+    """Phases 2-13 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -678,7 +707,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
-    _, step_launches, step_shapes, fails = training(
+    step_summary, step_launches, step_shapes, fails = training(
         fast, plain, flagship_batch(dev, patch, 2), train_steps, "flagship")
     failures += fails
     step_table(records, step_shapes, train_steps)
@@ -701,7 +730,8 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     torch.cuda.empty_cache()
 
     # 7. the trainer on a synthetic zarr dataset
-    train_launches, fails = trainer_phase(patch, train_data, step_rate)
+    train_launches, fails, host_trainer = trainer_phase(patch, train_data,
+                                                        step_rate)
     failures += fails
     launches = {**{k: train_launches.get(k, 0) for k in CONV_KERNELS},
                 **{k: norm_launches.get(k, 0) for k in NORM_KERNELS}}
@@ -713,6 +743,25 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 9. tasks/ink.yaml's 5-stage plan at its patch and batch
     failures += ink_phase(dev, gen, ink_patch, ink_batch)
+
+    # 10. device augmentation at the flagship batch, card against CPU
+    aug_ms, fails = augment_phase(dev, patch)
+    failures += fails
+    torch.cuda.empty_cache()
+
+    # 11. the flagship training step with device augmentation
+    failures += augmented_step_phase(dev, patch, train_steps, step_summary,
+                                     step_launches, aug_ms)
+    torch.cuda.empty_cache()
+
+    # 12. phase 7's trainer with augment_on_device: true
+    _, fails, _ = trainer_phase(patch, train_data, step_rate,
+                                device_augment=True, host=host_trainer)
+    failures += fails
+    torch.cuda.empty_cache()
+
+    # 13. every optimizer of the factory on the flagship's parameters
+    failures += optimizer_phase(dev, patch)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -943,16 +992,17 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
     return failures
 
 
-def step_repeatability(model, batch, losses):
+def step_repeatability(model, batch, losses, augment_fn=None):
     """Two first training steps through the kernels from the same weights
-    and batch: prints whether their metrics (losses, grad_norm) are
-    bit-equal and returns it; the weights are restored after."""
+    and batch (and, with ``augment_fn``, the same generator seed): prints
+    whether their metrics (losses, grad_norm) are bit-equal and returns
+    it; the weights are restored after."""
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     runs = []
     for i in range(2):
         model.load_state_dict(state)
-        runs.append(train_path(model, batch, 1, f"repeat {i}",
-                               losses)[0][0])
+        runs.append(train_path(model, batch, 1, f"repeat {i}", losses,
+                               augment_fn)[0][0])
     model.load_state_dict(state)
     del state
     same = runs[0] == runs[1]
@@ -976,11 +1026,12 @@ def flagship_batch(dev, patch, n):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def train_path(model, batch, steps, label, losses):
+def train_path(model, batch, steps, label, losses, augment_fn=None):
     """Runs ``steps`` training steps from the model's current weights with
-    the task ``losses`` (``build_task_losses``' config, weight 1 each);
-    returns (per-step metrics, median step ms, peak bytes, first-step
-    gradients by parameter name)."""
+    the task ``losses`` (``build_task_losses``' config, weight 1 each) and,
+    given an ``augment_fn``, a generator on the card seeded SEED + 1 for
+    it, as the trainer seeds its own; returns (per-step metrics, median
+    step ms, peak bytes, first-step gradients by parameter name)."""
     from mt3d_resenc_unet_torch.train.losses import build_task_losses
     from mt3d_resenc_unet_torch.train.step import (build_optimizer,
                                                    cosine_epoch_schedule,
@@ -988,8 +1039,13 @@ def train_path(model, batch, steps, label, losses):
     opt = build_optimizer(model.parameters(), "AdamW",
                           cosine_epoch_schedule(1e-3, 500, 250),
                           weight_decay=1e-4, grad_clip_norm=3.0)
+    gen = None
+    if augment_fn is not None:
+        gen = torch.Generator(device=batch["image"].device).manual_seed(
+            SEED + 1)
     step = make_train_step(model, build_task_losses(losses),
-                           {task: 1.0 for task in losses})
+                           {task: 1.0 for task in losses}, generator=gen,
+                           augment_fn=augment_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, times, grads = [], [], None
@@ -1023,8 +1079,10 @@ def training(fast, plain, batch, steps, label, losses=FLAGSHIP_LOSSES,
     difference (TRAIN_LOSS_TOL, ``gnorm_tol``), the gradients by cosine
     per top-level module, except the parameters whose name holds one of
     ``absolute``, whose gradients are held by SE_REDUCE_ATOL on the max
-    abs difference. Returns (the kernel path's patches/s, its launch
-    counts by kernel, by shape and mode, failures)."""
+    abs difference. Returns (a summary of the kernel path, its launch
+    counts by kernel, by shape and mode, failures); the summary holds the
+    kernel path's patches/s (``rate``), median step ``ms`` and ``peak``
+    bytes."""
     from mt3d_resenc_unet_torch.ops import _build
     from mt3d_resenc_unet_torch.utils.flops import (H100_PEAK_BF16_TFLOPS,
                                                      mfu, train_step_flops)
@@ -1108,12 +1166,12 @@ def training(fast, plain, batch, steps, label, losses=FLAGSHIP_LOSSES,
         if not worst[0] <= SE_REDUCE_ATOL:
             failures.append(f"{label}: {worst[1]} gradient differs by "
                             f"{worst[0]}")
-    rate = n / (got[1] / 1e3)
+    summary = {"rate": n / (got[1] / 1e3), "ms": got[1], "peak": got[2]}
     del g_fast, g_plain, got, want
     for name in CONV_KERNELS:
         if launches.get(name, 0) <= 0:
             failures.append(f"{label}: kernel {name} was never launched")
-    return rate, launches, shapes, failures
+    return summary, launches, shapes, failures
 
 
 def se_phase(dev, gen, patch, steps, flagship_launches):
@@ -1137,7 +1195,7 @@ def se_phase(dev, gen, patch, steps, flagship_launches):
           "through the kernels (bf16)")
     del got, want, x
     torch.cuda.empty_cache()
-    rate, launches, _, fails = training(
+    summary, launches, _, fails = training(
         fast, plain, flagship_batch(dev, patch, 2), steps, "SE flagship",
         absolute=("se.reduce",), hold_repeat=True)
     failures += fails
@@ -1146,7 +1204,7 @@ def se_phase(dev, gen, patch, steps, flagship_launches):
     print(f"SE flagship launches per step {per_step}; without SE (phase "
           f"5c) {base}: {'equal' if per_step == base else 'they differ'}")
     del fast, plain
-    return rate, failures
+    return summary["rate"], failures
 
 
 def ink_phase(dev, gen, patch, n):
@@ -1389,10 +1447,11 @@ def norm_act_cases(dev, gen, cases):
     return records, {k: op_launches[k] for k in NORM_KERNELS}, failures
 
 
-def sheet_normals_config(work, volume_paths, patch, max_epoch):
+def sheet_normals_config(work, volume_paths, patch, max_epoch,
+                         device_augment=False):
     """``tasks/sheet_normals.yaml``'s settings as a dict (the card has no
     pyyaml), squeeze-excitation included, cut to a few steps, on the
-    synthetic dataset."""
+    synthetic dataset; ``device_augment`` sets ``augment_on_device``."""
     return {
         "tr_setup": {"model_name": "sheet_normals", "autoconfigure": True,
                      "tr_val_split": 0.9, "dilate_label": False,
@@ -1404,7 +1463,8 @@ def sheet_normals_config(work, volume_paths, patch, max_epoch):
                       "num_dataloader_workers": 8, "patch_size": list(patch),
                       "batch_size": 2, "max_steps_per_epoch": TRAINER_STEPS,
                       "max_val_steps_per_epoch": TRAINER_VAL_STEPS,
-                      "max_epoch": max_epoch, "compute_dtype": "bfloat16"},
+                      "max_epoch": max_epoch, "compute_dtype": "bfloat16",
+                      "augment_on_device": device_augment},
         "model_config": {"squeeze_excitation": True},
         "dataset_config": {
             "min_bbox_percent": 0.97, "min_labeled_ratio": 0.15,
@@ -1449,8 +1509,12 @@ def host_sample_cost(cfg, n=24):
         augment._HAS_CV2 = has_cv2
 
 
-def trainer_phase(patch, train_data, step_rate):
-    """Phase 7. Returns (launch counts of the two trainer runs, failures)."""
+def trainer_phase(patch, train_data, step_rate, device_augment=False,
+                  host=None):
+    """Phase 7 (and, with ``device_augment``, phase 12: the same runs with
+    ``augment_on_device: true``, printed beside ``host``, phase 7's
+    summary). Returns (launch counts of the two trainer runs, failures,
+    a summary: the mean patches/s and t_fetch's share of epochs 2-3)."""
     import os
     import shutil
     from pathlib import Path
@@ -1460,6 +1524,7 @@ def trainer_phase(patch, train_data, step_rate):
     from mt3d_resenc_unet_torch.train.checkpoint import CheckpointManager
     from mt3d_resenc_unet_torch.train.trainer import Trainer
     failures = []
+    label = "trainer, device augmentation" if device_augment else "trainer"
     work = Path(WORK_DIR).absolute()
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1488,18 +1553,20 @@ def trainer_phase(patch, train_data, step_rate):
         _build.clear_counts()
         t0 = time.perf_counter()
         first = Trainer(config_dict=sheet_normals_config(
-            work, paths, patch, TRAINER_EPOCHS), verbose=False).train()
+            work, paths, patch, TRAINER_EPOCHS, device_augment),
+            verbose=False).train()
         history = first["history"]
         del first
         torch.cuda.empty_cache()
-        cfg = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS + 1)
+        cfg = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS + 1,
+                                   device_augment)
         cfg["tr_setup"]["checkpoint_path"] = str(work / "ckpt" /
                                                  "sheet_normals")
         second = ResumeProbe(config_dict=cfg, verbose=False).train()
         history += second["history"]
         del second
         launches = dict(_build.LAUNCHES)
-        print(f"trainer: {time.perf_counter() - t0:.1f} s for "
+        print(f"{label}: {time.perf_counter() - t0:.1f} s for "
               f"{TRAINER_EPOCHS} + 1 epochs; launches {launches}")
     finally:
         os.chdir(cwd)
@@ -1507,27 +1574,36 @@ def trainer_phase(patch, train_data, step_rate):
 
     for h in history:
         losses = {k: v for k, v in h.items() if k.endswith("_loss")}
-        print(f"trainer epoch {h['epoch'] + 1}: " + " ".join(
+        print(f"{label} epoch {h['epoch'] + 1}: " + " ".join(
             f"{k} {v:.6f}" for k, v in losses.items())
             + f"  {h['train/patches_per_sec']:.3f} patches/s, t_fetch "
             f"{h['train/t_fetch_s']:.2f} s, t_step {h['train/t_step_s']:.2f} s"
             + (f", checkpoint {h['ckpt/bytes'] / 2 ** 30:.3f} GiB saved in "
                f"{h['ckpt/seconds']:.2f} s" if "ckpt/bytes" in h else ""))
         if not all(np.isfinite(v) for v in losses.values()):
-            failures.append(f"trainer epoch {h['epoch'] + 1}: non-finite "
+            failures.append(f"{label} epoch {h['epoch'] + 1}: non-finite "
                             f"{losses}")
     if [h["epoch"] for h in history] != list(range(TRAINER_EPOCHS + 1)):
-        failures.append(f"trainer: epochs {[h['epoch'] for h in history]}")
+        failures.append(f"{label}: epochs {[h['epoch'] for h in history]}")
     steady = history[1:]
     rate = sum(h["train/patches_per_sec"] for h in steady) / len(steady)
     fetch = sum(h["train/t_fetch_s"] for h in steady)
     step = sum(h["train/t_step_s"] for h in steady)
-    print(f"trainer epochs 2-{len(history)} [{card()}]: {rate:.3f} "
+    summary = {"rate": rate, "fetch_share": fetch / (fetch + step),
+               "t_fetch": fetch, "t_step": step}
+    print(f"{label} epochs 2-{len(history)} [{card()}]: {rate:.3f} "
           f"patches/s against {step_rate:.3f} for the step alone (phase "
           f"5e, the same network); t_fetch is "
-          f"{fetch / (fetch + step):.1%} of fetch + step")
-
-    host_sample_cost(sheet_normals_config(work, paths, patch, 1))
+          f"{summary['fetch_share']:.1%} of fetch + step (t_fetch "
+          f"{fetch:.2f} s, t_step {step:.2f} s)")
+    if host is not None:
+        print(f"{label} against host augmentation (phase 7) [{card()}]: "
+              f"{rate:.3f} against {host['rate']:.3f} patches/s, t_fetch "
+              f"share {summary['fetch_share']:.1%} against "
+              f"{host['fetch_share']:.1%}, t_step {step:.2f} s against "
+              f"{host['t_step']:.2f} s")
+    if not device_augment:
+        host_sample_cost(sheet_normals_config(work, paths, patch, 1))
 
     saved = CheckpointManager(work / "ckpt", "sheet_normals").restore(
         TRAINER_EPOCHS - 1)
@@ -1539,18 +1615,18 @@ def trainer_phase(patch, train_data, step_rate):
                sorted(saved["opt_state"]["state"].items())]
     same_momenta = bool(probe) and len(saved_m) == len(probe["momenta"]) \
         and all(torch.equal(a, b) for a, b in zip(probe["momenta"], saved_m))
-    print(f"trainer resume: start epoch {probe.get('epoch', -1) + 1}, "
+    print(f"{label} resume: start epoch {probe.get('epoch', -1) + 1}, "
           f"optimizer count {probe.get('count')} (want {want_count}), params "
           f"bit-equal {same_params}, momenta bit-equal {same_momenta}")
     if not (probe.get("epoch") == TRAINER_EPOCHS
             and probe.get("count") == want_count and same_params
             and same_momenta):
-        failures.append("trainer: the resume did not restore the state")
+        failures.append(f"{label}: the resume did not restore the state")
     for name in CONV_KERNELS:
         if launches.get(name, 0) <= 0:
-            failures.append(f"trainer: kernel {name} was never launched")
+            failures.append(f"{label}: kernel {name} was never launched")
     shutil.rmtree(work, ignore_errors=True)
-    return launches, failures
+    return launches, failures, summary
 
 
 # sheet: median u8 difference and share of voxels off by more than 3;
@@ -1792,6 +1868,348 @@ def engine_phase(patch, volume, u16_volume):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (engine): {time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+# ---------------------------------------------------------------------------
+# phases 10-13: device augmentation and the optimizer factory
+# ---------------------------------------------------------------------------
+
+# device augmentation, card against CPU on the same batch and draws: each
+# stage's image in fp32 within AUG_FP32_TOL, a bf16 image within
+# AUG_BF16_ULPS of the larger value; flips, rot90 and the cutout mask
+# bit-equal (they move or select values)
+AUG_FP32_TOL = 1e-5
+AUG_BF16_ULPS = 1
+AUG_REPS = 7            # median_ms samples of the augmentation
+# every optimizer: 2 updates on the card against the same rule on the CPU
+# on copies of a few tensors, max |card - CPU| over the card's move. The
+# learning rate keeps each move far above the parameters' fp32 spacing (at
+# lr 1e-3 one ulp of a 0.006 weight is up to 2e-4 of some rules' moves);
+# lars scales its step by its trust coefficient 1e-3, so it takes
+# OPT_LR / 1e-3 (its fp32 error against float64 on the CPU: 8.6e-6 of the
+# move at lr 1, 8.7e-5 at 0.1)
+OPT_TOL = 1e-5
+OPT_LR = 0.1
+OPT_LARS_LR = OPT_LR / 1e-3
+OPT_GRAD_SCALE = 1e-3
+
+
+def wire_batch(dev, patch, n):
+    """A wire-format batch (u8 image, u8 0/255 sheet, u16 normals) made
+    from the seed with numpy, decoded on the card as the step decodes it."""
+    from mt3d_resenc_unet_torch.train.step import decode_wire
+    rng = np.random.default_rng(SEED)
+    wire = {"image": rng.integers(0, 256, (n,) + patch + (1,),
+                                  dtype=np.uint8),
+            "sheet": ((rng.random((n,) + patch + (1,)) > 0.5) * 255).astype(
+                np.uint8),
+            "normals": rng.integers(0, 65536, (n,) + patch + (3,)).astype(
+                np.uint16)}
+    return decode_wire({k: torch.from_numpy(v).to(dev)
+                        for k, v in wire.items()}, ("normals",))
+
+
+def bf16_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of the larger magnitude."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    return float(torch.where(g == w, 0.0, (g - w).abs() / ulp).max())
+
+
+def profiled_ms(fn, n=2):
+    """(wall ms, device ms) per call of ``fn`` over ``n`` calls traced by
+    torch.profiler; the device time sums every CUDA kernel, without the
+    spans of annotations that cover kernels counted already."""
+    from mt3d_resenc_unet_torch.tools.profile_step import _device_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    device = sum(_device_us(e) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith(("Optimizer.", "ProfilerStep")))
+    return wall, device / 1e3 / n
+
+
+def forced_params(params, blur_type):
+    """``params`` with every stage on, both picks of each per-sample choice
+    (sample 0 takes the first branch, sample 1 the second), blur type
+    ``blur_type``, sample 0 flipped on every axis and a rot90 choice that
+    follows the blur type."""
+    import dataclasses
+    dev = params.gate_1.device
+    on = torch.ones_like(params.gate_1)
+    pick = torch.tensor([True, False], device=dev)
+    return dataclasses.replace(
+        params, gate_1=on, pick_1=pick, gate_2=on, pick_2=~pick,
+        gate_blur=on, blur_type=torch.tensor(blur_type, device=dev),
+        gate_cutout=on,
+        flip=torch.tensor([[True] * 3, [blur_type % 2 == 0, True, False]],
+                          device=dev),
+        rot_gate=torch.tensor(True, device=dev),
+        rot_pick=torch.tensor(2 * blur_type + 1, device=dev))
+
+
+def augment_phase(dev, patch, n=2):
+    """Phase 10: ``data/augment_device.py`` on the wire-decoded flagship
+    batch (n x patch, normals). One ``AugParams`` drawn with a CUDA
+    generator at the defaults, and then with every stage forced on for each
+    blur type in turn; each applied stage by stage on the card and, on a
+    CPU copy of the stage's input and the same draws, on the CPU, with the
+    image in fp32 and in bf16. Then the augmentation's ms at batch n, timed
+    back to back (draws included), and its device time. Returns (the
+    augmentation's device ms at the defaults, failures)."""
+    from mt3d_resenc_unet_torch.data import augment_device as ad
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    cfg = ad.DeviceAugConfig()
+    on = ad.DeviceAugConfig(p_intensity_1=1.0, p_intensity_2=1.0,
+                            p_blur=1.0, p_cutout=1.0, p_flip_axis=1.0,
+                            p_flip_transform=1.0, p_rot90=1.0)
+    base = wire_batch(dev, patch, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    drawn = ad.draw_params(gen, n, patch, cfg)
+    cases = [("defaults as drawn", drawn, cfg)] + [
+        (f"all on, {kind}", forced_params(drawn, t), on)
+        for t, kind in enumerate(ad.BLUR_TYPES)]
+    for label, params, c in cases:
+        pc = params.to("cpu")
+        blur_type, rot_gate, rot_pick = torch.stack(
+            [params.blur_type, params.rot_gate.long(),
+             params.rot_pick]).tolist()
+        stages = (("intensity 1", ad.intensity_1), ("intensity 2",
+                                                   ad.intensity_2),
+                  ("blur " + ad.BLUR_TYPES[blur_type],
+                   lambda x, p: ad.blur(x, p, blur_type)),
+                  ("cutout", lambda x, p: ad.cutout(x, p, c)))
+        mask = ad.cutout_mask(params.hole_count, params.hole_start,
+                              params.hole_size, patch)
+        mask_cpu = ad.cutout_mask(pc.hole_count, pc.hole_start,
+                                  pc.hole_size, patch)
+        if not torch.equal(mask.cpu(), mask_cpu):
+            failures.append(f"augment {label}: cutout masks differ")
+        for dtype in (torch.float32, torch.bfloat16):
+            batch = {**base, "image": base["image"].to(dtype)}
+            x = batch["image"]
+            errs = []
+            for name, fn in stages:
+                y = fn(x, params)
+                y_cpu = fn(x.cpu(), pc)
+                if dtype == torch.float32:
+                    err = float((y.cpu() - y_cpu).abs().max())
+                    ok = err <= AUG_FP32_TOL
+                else:
+                    err = bf16_ulps(y.cpu(), y_cpu)
+                    ok = err <= AUG_BF16_ULPS
+                ok = ok and y.dtype == dtype and bool(torch.isfinite(y).all())
+                errs.append(f"{name} {err:.3g}")
+                if not ok:
+                    failures.append(f"augment {label} {dtype}: {name} "
+                                    f"card vs CPU {err}")
+                x = y
+            geo = ad.geometry({**batch, "image": x}, params, c,
+                              bool(rot_gate), rot_pick)
+            geo_cpu = ad.geometry({k: v.cpu() for k, v in
+                                   {**batch, "image": x}.items()}, pc, c,
+                                  bool(rot_gate), rot_pick)
+            same = all(torch.equal(geo[k].cpu(), geo_cpu[k]) for k in geo)
+            whole = ad.apply(batch, params, c)
+            same_apply = all(torch.equal(whole[k], geo[k]) for k in geo)
+            unit = "abs" if dtype == torch.float32 else "bf16 ulps"
+            print(f"augment {label} {str(dtype)[6:]}: card vs CPU per stage "
+                  + ", ".join(errs) + f" ({unit}); flips + rot90 bit-equal "
+                  f"{same}; apply = the stages {same_apply}")
+            if not (same and same_apply):
+                failures.append(f"augment {label} {dtype}: geometry "
+                                f"{same}, apply {same_apply}")
+            del batch, geo, geo_cpu, whole, x
+    # the augmentation's cost at batch n, draws and the host read included
+    augment = ad.make_device_augment(cfg)
+    batch = {**base, "image": base["image"].to(torch.bfloat16)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ms = median_ms(lambda: augment(batch, gen), reps=AUG_REPS)
+    wall, device = profiled_ms(lambda: augment(batch, gen), n=20)
+    forced = []
+    for t, kind in enumerate(ad.BLUR_TYPES):
+        params = forced_params(drawn, t)
+        f_ms = median_ms(lambda: ad.apply(batch, params, on), reps=3)
+        forced.append(f"{kind} {f_ms:.3f}")
+    print(f"augment batch {n} x {patch} bf16 at the defaults [{smi}]: "
+          f"{ms:.3f} ms back to back (median of {AUG_REPS}), {device:.3f} "
+          f"ms device time and {wall:.3f} ms wall per call over 20 calls; "
+          "all stages on, per blur type (ms): " + ", ".join(forced))
+    print(f"phase 10 (augment): {time.perf_counter() - t_phase:.1f} s")
+    return device, failures
+
+
+def augmented_step_phase(dev, patch, steps, base, base_launches, aug_ms):
+    """Phase 11: the flagship training step (phase 5b's model, batch and
+    optimizer) with ``augment_fn=make_device_augment()`` drawing from a
+    generator on the card: two first steps from the same seed held
+    bit-equal, then ``steps`` steps with every launch counter zeroed before
+    and read after, printed beside phase 5b's figures (``base``) and 5c's
+    launches, and the step's device time by torch.profiler. Returns the
+    failures."""
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    from mt3d_resenc_unet_torch.data.augment_device import make_device_augment
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.train.losses import build_task_losses
+    from mt3d_resenc_unet_torch.train.step import (build_optimizer,
+                                                   cosine_epoch_schedule,
+                                                   make_train_step)
+    from mt3d_resenc_unet_torch.utils.flops import (H100_PEAK_BF16_TFLOPS,
+                                                     mfu, train_step_flops)
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    plan = plan_from_autoconfig(
+        patch, 1,
+        [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
+        model_name="flagship", use_pallas_conv=True)
+    model = ResEncUNet(plan, dtype=torch.bfloat16, seed=SEED).to(dev)
+    batch = flagship_batch(dev, patch, 2)
+    n = batch["image"].shape[0]
+    augment = make_device_augment()
+    if not step_repeatability(model, batch, FLAGSHIP_LOSSES, augment):
+        failures.append("augmented step: two first steps differ")
+    torch.cuda.empty_cache()
+    _build.clear_counts()
+    metrics, ms, peak, _ = train_path(model, batch, steps,
+                                      "augmented flagship kernels bf16",
+                                      FLAGSHIP_LOSSES, augment)
+    launches = dict(_build.LAUNCHES)
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            failures.append(f"augmented step {i}: non-finite {m}")
+    for name in CONV_KERNELS:
+        if launches.get(name, 0) <= 0:
+            failures.append(f"augmented step: kernel {name} was never "
+                            "launched")
+    flops = train_step_flops(plan, patch)
+    tflops, frac = mfu(n / (ms / 1e3), flops)
+    b_tflops, b_frac = mfu(base["rate"], flops)
+    print(f"augmented flagship train step kernels bf16 [{smi}]: {ms:.1f} ms "
+          f"median, {n / (ms / 1e3):.3f} patches/s, {tflops:.2f} model "
+          f"TFLOP/s, MFU {frac:.4f} of {H100_PEAK_BF16_TFLOPS} TFLOP/s bf16, "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; without augmentation "
+          f"(phase 5b) {base['ms']:.1f} ms, {base['rate']:.3f} patches/s, "
+          f"MFU {b_frac:.4f}, peak memory {base['peak'] / 2 ** 30:.2f} GiB")
+    per_step = {k: launches.get(k, 0) / steps for k in CONV_KERNELS}
+    before = {k: base_launches.get(k, 0) / steps for k in CONV_KERNELS}
+    print(f"augmented flagship launches per step {per_step}; without "
+          f"augmentation (phase 5c) {before}: "
+          f"{'equal' if per_step == before else 'they differ'}")
+    # device time of the augmented step and the augmentation's share of it
+    opt = build_optimizer(model.parameters(), "AdamW",
+                          cosine_epoch_schedule(1e-3, 500, 250),
+                          weight_decay=1e-4, grad_clip_norm=3.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    step = make_train_step(model, build_task_losses(FLAGSHIP_LOSSES),
+                           {t: 1.0 for t in FLAGSHIP_LOSSES}, generator=gen,
+                           augment_fn=augment)
+    wall, device = profiled_ms(lambda: step(opt, batch), n=2)
+    if device > 0 and aug_ms > 0:
+        print(f"augmented flagship step profiled [{smi}]: {wall:.1f} ms "
+              f"wall, {device:.1f} ms device time (busy {device / wall:.1%});"
+              f" the augmentation's device time {aug_ms:.3f} ms (phase 10) "
+              f"is {aug_ms / device:.2%} of it")
+    else:
+        print(f"augmented flagship step profiled [{smi}]: {wall:.1f} ms "
+              "wall; device time not measured (the profiler saw no kernel)")
+    del opt, step, model, batch
+    print(f"phase 11 (augmented step): {time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+def optimizer_phase(dev, patch):
+    """Phase 13: every name of ``train/optimizers.py::create_optimizer`` on
+    the flagship's parameters on the card (lr OPT_LR, lars OPT_LARS_LR,
+    weight decay 1e-4, no clip: a clip's global norm would differ between
+    the model and the held tensors), 2 updates from one fixed gradient set
+    made on the card from the seed; the same rule on the CPU on copies of
+    the largest conv kernel, a 512x512 one (adafactor's tie), a bias and a seg-head kernel
+    with their gradients. Each held tensor's largest difference within
+    OPT_TOL of its largest move on the card. Prints each rule's ms per
+    update on the card (the first update, which builds the state, and the
+    second). Returns the failures."""
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.train.optimizers import (NAMES,
+                                                         create_optimizer)
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    plan = plan_from_autoconfig(
+        patch, 1,
+        [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
+        model_name="flagship", use_pallas_conv=True)
+    model = ResEncUNet(plan, dtype=torch.bfloat16, seed=SEED).to(dev)
+    params = dict(model.named_parameters())
+    largest = max(params, key=lambda k: params[k].numel())
+    tie = max((k for k, v in params.items()
+               if v.dim() == 5 and v.shape[-2] == v.shape[-1] >= 128),
+              key=lambda k: params[k].numel())
+    bias = next(k for k, v in params.items() if k.endswith("bias"))
+    seg = next(k for k, v in params.items() if ".seg" in k
+               and k.endswith("kernel"))
+    held = (largest, tie, bias, seg)
+    print(f"optimizers: {len(params)} tensors, "
+          f"{sum(v.numel() for v in params.values())} parameters; held on "
+          "the CPU: " + ", ".join(f"{k} {tuple(params[k].shape)}"
+                                  for k in held))
+    init = {k: v.detach().clone() for k, v in params.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    grads = {k: torch.randn(v.shape, generator=gen, device=dev)
+             * OPT_GRAD_SCALE for k, v in params.items()}
+    for name in NAMES:
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(init[k])
+        lr = OPT_LARS_LR if name == "lars" else OPT_LR
+        opt = create_optimizer(params.values(), name, lr, weight_decay=1e-4)
+        cpu = {k: torch.nn.Parameter(init[k].cpu().clone()) for k in held}
+        opt_cpu = create_optimizer(cpu.values(), name, lr, weight_decay=1e-4)
+        times = []
+        for _ in range(2):
+            for k, v in params.items():
+                v.grad = grads[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for k, v in cpu.items():
+                v.grad = grads[k].cpu()
+            opt_cpu.step()
+        errs = []
+        for k in held:
+            got = params[k].detach()
+            move = float((got - init[k]).abs().max())
+            diff = float((got.cpu() - cpu[k].detach()).abs().max())
+            err = diff / move if move > 0 else math.inf
+            errs.append(err)
+            if not (err <= OPT_TOL and bool(torch.isfinite(got).all())):
+                failures.append(f"optimizer {name}: {k} card vs CPU "
+                                f"{diff} of a move {move}")
+        print(f"optimizer {name} [{smi}]: {times[0]:.2f} ms first update, "
+              f"{times[1]:.2f} ms second; card vs CPU over the move "
+              + ", ".join(f"{e:.2e}" for e in errs)
+              + f" (limit {OPT_TOL})")
+        del opt, opt_cpu, cpu
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    del model, params, init, grads
+    print(f"phase 13 (optimizers): {time.perf_counter() - t_phase:.1f} s")
     return failures
 
 

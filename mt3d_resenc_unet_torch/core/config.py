@@ -10,8 +10,8 @@ the same defaults, so one config file drives both packages. Differences:
   given (``resolve_device``: the card unless the caller names the CPU):
   the hand-written CUDA kernels on the card, their plain versions on the
   CPU;
-* ``augment_on_device: true`` raises ``NotImplementedError``: the device
-  augmentation is not ported yet (ROADMAP.md queue 1 #7);
+* ``augment_on_device: true`` runs ``data/augment_device.py`` inside the
+  port's training step, as the JAX package runs its own;
 * the TPU-only keys (``mesh_shape``, ``dp_axis``, ``donate_state``,
   ``remat``) are read as the JAX package reads them; the port's trainer
   ignores them (``remat``: the flagship step at batch 2 fits the H100).
@@ -148,13 +148,9 @@ class ConfigManager:
         # on the device by the step — 2-4x fewer H2D bytes, bit-identical
         # decode (data/dataset.py wire mode + train/step.py decode_wire)
         self.wire_format: bool = bool(c.get("wire_format", True))
-        # the JAX package's device augmentation inside the step; the port
-        # augments on the host only (data/augment.py)
+        # the stochastic sample pipeline inside the step on the device
+        # (data/augment_device.py) instead of on the host (data/augment.py)
         self.augment_on_device: bool = bool(c.get("augment_on_device", False))
-        if self.augment_on_device:
-            raise NotImplementedError(
-                "tr_config.augment_on_device: the port has no device "
-                "augmentation yet (ROADMAP.md queue 1 #7); set it to false")
 
         # ---- dataset_config -------------------------------------------
         d = self.dataset_config

@@ -20,6 +20,8 @@ import torch
 from .losses import Loss, MaskedCosineLoss
 
 Schedule = Callable[[int], float]
+AugmentFn = Callable[[Dict[str, torch.Tensor], torch.Generator],
+                     Dict[str, torch.Tensor]]
 
 
 def cosine_epoch_schedule(initial_lr: float, max_epoch: int,
@@ -154,7 +156,8 @@ def multitask_loss(outputs: Mapping[str, object],
 def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
                     task_weights: Mapping[str, float],
                     grad_accum_steps: int = 1,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    augment_fn: Optional[AugmentFn] = None):
     """Build ``train_step(optimizer, batch) -> metrics``.
 
     The batch holds 'image' plus one entry per task, each with leading
@@ -165,7 +168,17 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
     sync): the per-task losses, ``total_loss`` and ``grad_norm`` (the global
     norm before the clip). ``generator``: the ``torch.Generator`` on the
     model's device from which dropout and DropPath draw (the JAX step's
-    ``TrainState.rng``); a plan without them needs none."""
+    ``TrainState.rng``); a plan without them needs none.
+
+    ``augment_fn(batch, generator) -> batch`` (e.g.
+    ``data/augment_device.py::make_device_augment``) runs on each
+    microbatch right after its wire decode and before the forward, drawing
+    from ``generator``, which it then requires: each microbatch draws its
+    own parameters, as the JAX step folds the microbatch index into its
+    rng."""
+    if augment_fn is not None and generator is None:
+        raise ValueError("augment_fn draws from the step's generator; "
+                         "pass generator=")
     loss_fns = dict(loss_fns)
     task_weights = dict(task_weights)
     normal_keys = tuple(k for k in loss_fns if k.lower() == "normals")
@@ -180,6 +193,8 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
         for k in range(accum):
             micro = decode_wire({key: v[k::accum] for key, v in batch.items()},
                                 normal_keys)
+            if augment_fn is not None:
+                micro = augment_fn(micro, generator)
             outputs = model(micro["image"], generator=generator)
             targets = {key: v for key, v in micro.items() if key != "image"}
             total, per_task = multitask_loss(outputs, targets, loss_fns,

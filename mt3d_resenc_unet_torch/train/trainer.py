@@ -35,6 +35,7 @@ import torch
 
 from ..core.config import ConfigManager, resolve_device, set_precision
 from ..core.plan import NetworkPlan
+from ..data import augment_device
 from ..data.dataset import ZarrPatchDataset
 from ..data.pipeline import batch_iterator, device_prefetch, train_val_split
 from ..models.network import ResEncUNet, count_params
@@ -102,8 +103,11 @@ class Trainer:
                           seed=self.mgr.seed)
 
     def _configure_dataset(self) -> ZarrPatchDataset:
+        # with device augmentation the host ships unaugmented wire bytes and
+        # the step applies the pipeline (data/augment_device.py)
         return ZarrPatchDataset(self.mgr, seed=self.mgr.seed,
-                                wire=self.mgr.wire_format, augment=True)
+                                wire=self.mgr.wire_format,
+                                augment=not self.mgr.augment_on_device)
 
     def _build_loss(self):
         return build_task_losses(self.mgr.tasks, self.mgr.ignore_label,
@@ -171,13 +175,20 @@ class Trainer:
             print(f"[trainer] auto-resumed from epoch {start_epoch}")
         self.start_epoch = start_epoch
 
-        # dropout and DropPath draw from this generator, seeded as the JAX
-        # trainer seeds its TrainState.rng (seed + 1)
+        # dropout, DropPath and the device augmentation draw from this
+        # generator, seeded as the JAX trainer seeds its TrainState.rng
+        # (seed + 1)
         generator = torch.Generator(device=self.device).manual_seed(
             mgr.seed + 1)
+        augment_fn = None
+        if mgr.augment_on_device:
+            augment_fn = augment_device.make_device_augment(
+                augment_device.DeviceAugConfig(normal_keys=tuple(
+                    k for k in mgr.tasks if k.lower() == "normals")))
         train_step = make_train_step(model, loss_fns, task_weights,
                                      grad_accum_steps=accum,
-                                     generator=generator)
+                                     generator=generator,
+                                     augment_fn=augment_fn)
         eval_step = make_eval_step(model, loss_fns)
         predict_step = make_predict_step(model)
 

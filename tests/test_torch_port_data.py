@@ -82,8 +82,10 @@ def test_config_dict_needs_no_yaml_and_device_augment_raises(monkeypatch):
     assert ConfigManager(config_dict=cfg).train_patch_size
     with pytest.raises(ImportError, match="pyyaml"):
         ConfigManager(TASKS[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConfigManager(config_dict=_cfg_dict(augment_on_device=True))
+    # device augmentation is ported: the flag is read, nothing raises
+    assert ConfigManager(
+        config_dict=_cfg_dict(augment_on_device=True)).augment_on_device
+    assert not ConfigManager(config_dict=cfg).augment_on_device
 
 
 # --------------------------------------------------------------------- zio

@@ -48,7 +48,7 @@ from mt3d_resenc_unet_torch.models.network import ResEncUNet
 from mt3d_resenc_unet_torch.tools.from_jax import params_from_jax
 from mt3d_resenc_unet_torch.train import losses as tl
 from mt3d_resenc_unet_torch.train import step as ts
-from mt3d_resenc_unet_torch.train.optimizers import create_optimizer
+from mt3d_resenc_unet_torch.train.optimizers import NAMES, create_optimizer
 
 FN_TOL = 1e-4
 JAX_TOL = 0.1
@@ -205,21 +205,22 @@ def test_clip_and_update_match_optax(name):
     assert opt.count == 3
 
 
-def test_create_optimizer_builds_the_torch_optimizers():
+@pytest.mark.parametrize("name", NAMES)
+def test_create_optimizer_builds_the_torch_optimizers(name):
     p = [torch.nn.Parameter(torch.ones(3))]
     sched = ts.cosine_epoch_schedule(1e-2, 10, 1)
-    sgd = create_optimizer(p, "SGD", sched, weight_decay=1e-4,
-                           grad_clip_norm=3.0)
-    assert isinstance(sgd.opt, torch.optim.SGD)
-    assert sgd.opt.defaults["nesterov"] and sgd.opt.defaults["momentum"] == 0.9
-    assert isinstance(create_optimizer(p, "adamw", sched).opt,
-                      torch.optim.AdamW)
+    opt = create_optimizer(p, name.upper(), 1e-2 if name == "sm3" else sched,
+                           weight_decay=1e-4, grad_clip_norm=3.0)
+    if name == "sgd":
+        assert isinstance(opt.opt, torch.optim.SGD)
+        assert opt.opt.defaults["nesterov"]
+        assert opt.opt.defaults["momentum"] == 0.9
+    if name == "adamw":
+        assert isinstance(opt.opt, torch.optim.AdamW)
     p[0].grad = torch.full((3,), 4.0)
-    norm = sgd.step()                      # clipped to 3, then the update
+    norm = opt.step()                      # clipped to 3, then the update
     np.testing.assert_allclose(float(norm), float(np.sqrt(48.0)), 1e-6)
-    assert sgd.count == 1 and float(p[0].detach()[0]) < 1.0
-    with pytest.raises(NotImplementedError):
-        create_optimizer(p, "lion", sched)
+    assert opt.count == 1 and float(p[0].detach()[0]) < 1.0
     with pytest.raises(ValueError):
         create_optimizer(p, "no-such-optimizer", sched)
 
