@@ -11,10 +11,15 @@ dataset, serves a zarr volume through the port's inference engine in each
 of its model passes, runs ``tasks/ink.yaml``'s 5-stage plan at its
 non-cubic patch through the kernels against the plain path, holds the
 device augmentation and every optimizer of the factory on the card
-against the CPU, and runs the training step and the trainer with the
-augmentation on the card.
+against the CPU, runs the training step and the trainer with the
+augmentation on the card, runs the training step and the engine's tiled
+pass in several processes over ``torch.distributed``, and runs the
+data-prep tools.
 
     python3 chip_smoke.py
+
+(``chip_smoke.py --worker MODE ...`` is one rank of phase 14b or 15, as
+the script itself starts them.)
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
@@ -145,7 +150,32 @@ Phases (any failure exits non-zero and prints no result line):
      flagship's 235.5 M parameters: 2 updates from one gradient set made
      on the card, held against the same rule on the CPU on copies of the
      largest conv kernel, a 512x512 one, a bias and a seg-head kernel
-     (OPT_TOL of the move); each rule's ms per update on the card.
+     (OPT_TOL of the move); each rule's ms per update on the card;
+ 14. the flagship step over ``torch.distributed`` (``parallel/``): (a) in
+     this process, an NCCL group of one: DIST_STEPS steps at batch 2 from
+     seeded weights bit-equal (metrics and parameters) to the same steps
+     without a group, ms a step beside each other; (b) two worker
+     processes on the one card over gloo (NCCL refuses two ranks on one
+     device), each on one sample of the global batch of 2, so rows 1-9 run
+     at N=1: the first step against (a)'s step without a group by
+     TRAIN_LOSS_TOL and TRAIN_GNORM_TOL, the parameters by DIST_PARAM_TOL
+     (relative L2) and DIST_PARAM_ATOL (elementwise), the first-step
+     gradients by DIST_MIN_COS per module, both ranks' parameters and
+     metrics bit-equal, all nine conv and upsample kernels launched; ms a
+     step for each rank, the gradient all-reduce's ms and share, launches
+     a step at N=1;
+ 15. phase 8's volume through the engine's tiled pass at
+     ENGINE_MP_BUDGET_GB, whose y-band is not a multiple of the stores'
+     chunks: one process, then two worker processes over gloo sharing the
+     store (round-robin tiles): ``*_sum``, ``*_count`` and ``*_final``
+     bit-equal, the ranks' tile sets disjoint and non-empty, both
+     watermarks present; patches/s for each process;
+ 16. host only and tiny: PNG slices -> ``tools/tiff_to_zarr.py`` ->
+     ``tools/zarr_crop.py`` -> the port's dataset, ``normals_slices`` and
+     ``mesh_rasterize`` once each, on this machine's packages.
+Two processes time-sharing one card measure correctness, not scaling.
+Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
+run.
 Then one JSON line of the thirteen kernels (launches, error, and ms,
 plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
 last, the device line.
@@ -610,7 +640,7 @@ def main() -> int:
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
              ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
-    print(f"phases 2-13: {time.perf_counter() - t0:.1f} s",
+    print(f"phases 2-16: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     return rc
 
@@ -626,7 +656,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-13 and the result lines; the case lists and sizes are
+    """Phases 2-16 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -762,6 +792,18 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 13. every optimizer of the factory on the flagship's parameters
     failures += optimizer_phase(dev, patch)
+    torch.cuda.empty_cache()
+
+    # 14. the flagship step over torch.distributed
+    failures += dist_step_phase(dev, patch, DIST_STEPS)
+    torch.cuda.empty_cache()
+
+    # 15. the engine's tiled pass in two processes over one store
+    failures += dist_engine_phase(patch, engine_volume)
+    torch.cuda.empty_cache()
+
+    # 16. the data-prep tools on this machine's packages
+    failures += tools_phase()
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -2213,5 +2255,577 @@ def optimizer_phase(dev, patch):
     return failures
 
 
+
+# ---------------------------------------------------------------------------
+# phases 14-16: multi-process training and inference, the data-prep tools
+# ---------------------------------------------------------------------------
+
+# phase 14: the flagship step over torch.distributed. (a) one process in an
+# NCCL group of one, two steps bit-equal to the step without a group; (b)
+# two processes on the one card over gloo (NCCL refuses two ranks on one
+# device), one sample each of the global batch of 2, held against the
+# single-process step at batch 2 by TRAIN_LOSS_TOL / TRAIN_GNORM_TOL and by
+# DIST_PARAM_TOL on the parameters' relative L2; both ranks bit-equal
+DIST_STEPS = 3
+DIST_PROFILED = 3          # (a): steps a turn under torch.profiler
+DIST_WORKER_STEPS = 4      # (b): the held first step, then three timed
+# the first AdamW update moves an element by about lr (1e-3) whatever its
+# gradient's size, so a gradient element that rounding moves across 0
+# moves its parameter by 2 lr: the parameters are held by DIST_PARAM_ATOL
+# elementwise and DIST_PARAM_TOL in relative L2 (5.7e-2 in a CPU rehearsal
+# at 32^3, bf16; 5.8e-2 on the card), the gradients by their cosine per
+# module with phase 5b's limit: bf16 rounding that differs between N=1 and
+# N=2 moves LeakyReLU inputs across 0 in the 4^3 stage, as it does between
+# the kernels and plain fp32 (the encoder's 0.990 on the card)
+DIST_PARAM_TOL = 0.1
+DIST_PARAM_ATOL = 2.1e-3
+DIST_MIN_COS = TRAIN_MIN_COS
+DIST_TIMEOUT_S = 300       # a worker process's limit
+# phase 15: phase 8's volume through the tiled pass at a budget whose
+# y-band (192 rows: 0.5625 GiB / (6 planes x 4 B x 256 x 512)) is 1.5 of
+# the stores' 128-row chunks, so two ranks' adjacent tiles share chunks
+ENGINE_MP_BUDGET_GB = 0.5625
+
+
+def _flagship_plan(patch):
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    return plan_from_autoconfig(
+        patch, 1,
+        [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
+        model_name="flagship", use_pallas_conv=True)
+
+
+def dist_steps(model, batch, steps):
+    """``steps`` flagship training steps (train_path's optimizer and
+    losses) from the model's weights; returns (per-step metrics, per-step
+    ms, the parameters after the first step and after the last, the first
+    step's clipped gradients, all fp32 copies on the card, and the
+    optimizer)."""
+    from mt3d_resenc_unet_torch.train.losses import build_task_losses
+    from mt3d_resenc_unet_torch.train.step import (build_optimizer,
+                                                   cosine_epoch_schedule,
+                                                   make_train_step)
+    opt = build_optimizer(model.parameters(), "AdamW",
+                          cosine_epoch_schedule(1e-3, 500, 250),
+                          weight_decay=1e-4, grad_clip_norm=3.0)
+    step = make_train_step(model, build_task_losses(FLAGSHIP_LOSSES),
+                           {task: 1.0 for task in FLAGSHIP_LOSSES})
+    metrics, times, first, grads = [], [], None, None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+            grads = {k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()
+                     if p.grad is not None}
+    last = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return metrics, times, first, last, grads, opt
+
+
+def module_cosines(got, want):
+    """The cosine of two gradient sets per top-level module."""
+    modules = collections.defaultdict(list)
+    for name in want:
+        modules[name.split(".")[0]].append(name)
+    return {mod: float(torch.nn.functional.cosine_similarity(
+        torch.cat([got[k].double().flatten() for k in names]),
+        torch.cat([want[k].double().flatten() for k in names]), dim=0))
+        for mod, names in modules.items()}
+
+
+def _rel_l2(got, want, base=None):
+    """Relative L2 over every tensor of two state dicts (of the moves from
+    ``base``, given one)."""
+    num = den = 0.0
+    for k, w in want.items():
+        g = got[k].float()
+        w = w.float()
+        if base is not None:
+            g, w = g - base[k].float(), w - base[k].float()
+        num += float((g - w).double().square().sum())
+        den += float(w.double().square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _workers(mode, world, work, extra=()):
+    """Runs ``chip_smoke.py --worker mode`` as ``world`` processes (ranks
+    of one gloo group) and returns each rank's JSON result; a worker that
+    fails or outlives DIST_TIMEOUT_S fails the phase, and every worker is
+    ended."""
+    import os
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(work / f"{mode}_r{rank}.log", "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", mode,
+             str(rank), str(world), str(port), str(work), *extra],
+            stdout=log, stderr=subprocess.STDOUT))
+    failed = []
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank} timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [x for x in text.splitlines() if x.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            failed.append(f"rank {rank} rc {p.returncode}")
+            print(f"--- {mode} rank {rank} log (last 3000 chars) ---\n"
+                  f"{text[-3000:]}")
+            continue
+        results.append(json.loads(lines[-1][len("RESULT "):]))
+    return results, failed
+
+
+def dist_step_phase(dev, patch, steps):
+    """Phase 14. Returns the failures."""
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.parallel import distributed
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        model = ResEncUNet(_flagship_plan(patch), dtype=torch.bfloat16,
+                           seed=SEED).to(dev)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        batch = flagship_batch(dev, patch, 2)
+        # (a) a warm-up step, then the steps without a group, then in an
+        # NCCL group of one, each from the same weights
+        dist_steps(model, batch, 1)
+        model.load_state_dict(init)
+        alone = dist_steps(model, batch, steps)
+        model.load_state_dict(init)
+        distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                               backend="nccl")
+        try:
+            grouped = dist_steps(model, batch, steps)
+        finally:
+            distributed.shutdown()
+        same_m = alone[0] == grouped[0]
+        same_p = all(torch.equal(alone[3][k], grouped[3][k]) for k in init)
+        print(f"phase 14a [{smi}]: {steps} steps at batch 2 in an NCCL "
+              f"group of one, metrics bit-equal to no group {same_m}, "
+              f"parameters bit-equal {same_p}; ms a step "
+              + ", ".join(f"{t:.1f}" for t in grouped[1])
+              + f" (median {statistics.median(grouped[1]):.1f}) against "
+              + ", ".join(f"{t:.1f}" for t in alone[1])
+              + f" (median {statistics.median(alone[1]):.1f}) without a "
+              "group, after a warm-up step")
+        if not (same_m and same_p):
+            failures.append(f"phase 14a: metrics equal {same_m}, "
+                            f"parameters equal {same_p}")
+        ref_metrics, ref_first, ref_grads = alone[0][0], alone[2], alone[4]
+        del grouped, alone
+        # the group's cost in device time, which the host-bound wall
+        # hides: torch.profiler over DIST_PROFILED steps, in turns
+        costs = collections.defaultdict(list)
+        for mode in ("none", "group", "group", "none"):
+            if mode == "group":
+                distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                                       backend="nccl")
+            try:
+                costs[mode].append(group_step_ms(model, batch))
+            finally:
+                distributed.shutdown()
+        print(f"phase 14a [{smi}]: (wall, device) ms a step under "
+              "torch.profiler, in turns: " + "; ".join(
+                  f"{mode} " + ", ".join(f"({w:.1f}, {d:.2f})" for w, d in v)
+                  for mode, v in costs.items())
+              + "; the group's device-time cost "
+              f"{_mean_device(costs['group']) - _mean_device(costs['none']):.2f}"
+              " ms")
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) two processes on the one card, one sample each
+        torch.save(init, work / "init.pt")
+        results, failed = _workers("step", 2, work, (
+            str(DIST_WORKER_STEPS), ",".join(map(str, patch))))
+        failures += [f"phase 14b: {f}" for f in failed]
+        if len(results) == 2:
+            r0, r1 = sorted(results, key=lambda r: r["rank"])
+            saved = torch.load(work / "first_r0.pt", map_location=dev)
+            got = saved["params"]
+            m = r0["metrics"][0]
+            loss_diff = abs(m["total_loss"] - ref_metrics["total_loss"]) / \
+                abs(ref_metrics["total_loss"])
+            gn_diff = abs(m["grad_norm"] - ref_metrics["grad_norm"]) / \
+                ref_metrics["grad_norm"]
+            p_err = _rel_l2(got, ref_first)
+            u_err = _rel_l2(got, ref_first, init)
+            p_max = max(float((got[k] - ref_first[k]).abs().max())
+                        for k in ref_first)
+            cos = module_cosines(saved["grads"], ref_grads)
+            same = r0["digest"] == r1["digest"] and \
+                r0["metrics"] == r1["metrics"]
+            print(f"phase 14b [{smi}]: 2 processes on one card over gloo, "
+                  "1 sample each of the global batch of 2, first step "
+                  f"against one process at batch 2: total loss rel diff "
+                  f"{loss_diff:.3e} (limit {TRAIN_LOSS_TOL}), grad_norm rel "
+                  f"diff {gn_diff:.3e} (limit {TRAIN_GNORM_TOL}), parameters "
+                  f"rel L2 {p_err:.3e} (limit {DIST_PARAM_TOL}) and max "
+                  f"abs diff {p_max:.3e} (limit {DIST_PARAM_ATOL}), the "
+                  f"update's rel L2 {u_err:.3e}; first-step gradient "
+                  "cosine per module " + ", ".join(
+                      f"{k} {v:.6f}" for k, v in cos.items())
+                  + f" (limit {DIST_MIN_COS}); ranks bit-equal {same}")
+            for r in (r0, r1):
+                print(f"  rank {r['rank']}: ms a step "
+                      + ", ".join(f"{t:.1f}" for t in r["ms"])
+                      + f"; the gradient all-reduce alone "
+                      f"{r['allreduce_ms']:.1f} ms, "
+                      f"{r['allreduce_ms'] / r['step_ms']:.1%} of the "
+                      f"median {r['step_ms']:.1f} ms step; peak "
+                      f"{r['peak'] / 2 ** 30:.2f} GiB; launches a step "
+                      f"at N=1 {r['launches']}")
+            print("  (two processes time-share one card: these times say "
+                  "nothing of scaling across cards)")
+            if not (loss_diff <= TRAIN_LOSS_TOL and gn_diff <=
+                    TRAIN_GNORM_TOL and p_err <= DIST_PARAM_TOL
+                    and p_max <= DIST_PARAM_ATOL and same
+                    and min(cos.values()) >= DIST_MIN_COS):
+                failures.append(
+                    f"phase 14b: loss {loss_diff} grad_norm {gn_diff} "
+                    f"params {p_err} / {p_max} cosines {cos} ranks equal "
+                    f"{same}")
+            for name in CONV_KERNELS:
+                if r0["launches"].get(name, 0) <= 0:
+                    failures.append(f"phase 14b: kernel {name} was never "
+                                    "launched at N=1")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 14 (distributed step): {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return failures
+
+
+def _mean_device(runs):
+    return statistics.mean(device for _, device in runs)
+
+
+def group_step_ms(model, batch):
+    """(wall, device) ms of a flagship training step (dist_steps'
+    optimizer and losses) under torch.profiler, over DIST_PROFILED steps
+    after one untraced."""
+    from mt3d_resenc_unet_torch.train.losses import build_task_losses
+    from mt3d_resenc_unet_torch.train.step import (build_optimizer,
+                                                   cosine_epoch_schedule,
+                                                   make_train_step)
+    opt = build_optimizer(model.parameters(), "AdamW",
+                          cosine_epoch_schedule(1e-3, 500, 250),
+                          weight_decay=1e-4, grad_clip_norm=3.0)
+    step = make_train_step(model, build_task_losses(FLAGSHIP_LOSSES),
+                           {task: 1.0 for task in FLAGSHIP_LOSSES})
+    return profiled_ms(lambda: step(opt, batch), n=DIST_PROFILED)
+
+
+def step_worker(rank, world, port, work, steps, patch):
+    """A rank of phase 14b: the flagship's first ``steps`` steps on its
+    sample of the global batch; rank 0 saves its parameters after the
+    first."""
+    import hashlib
+    from mt3d_resenc_unet_torch.core.config import resolve_device
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.parallel import distributed
+    # gloo: the two ranks share the one card, which NCCL refuses
+    distributed.initialize(f"localhost:{port}", world, rank,
+                           backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    dev = resolve_device(None)
+    patch = tuple(int(p) for p in patch.split(","))
+    model = ResEncUNet(_flagship_plan(patch), dtype=torch.bfloat16,
+                       seed=SEED).to(dev)
+    model.load_state_dict(torch.load(work / "init.pt", map_location=dev))
+    batch = flagship_batch(dev, patch, 2)
+    sl = distributed.process_batch_slice(2)
+    batch = {k: v[sl].contiguous() for k, v in batch.items()}
+    _build.clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, first, _, grads, opt = dist_steps(model, batch,
+                                                      int(steps))
+    launches = {k: v // int(steps) for k, v in _build.LAUNCHES.items()}
+    digest = hashlib.sha256()
+    for k, v in first.items():
+        digest.update(k.encode())
+        digest.update(v.float().cpu().numpy().tobytes())
+    if rank == 0:
+        torch.save({"params": first, "grads": grads}, work / "first_r0.pt")
+    params = [p for g in opt.opt.param_groups for p in g["params"]]
+    ar = []
+    for _ in range(3):
+        distributed.sync_global_devices("allreduce timing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        distributed.all_reduce_grads(params)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    return {"metrics": metrics, "ms": times,
+            "step_ms": statistics.median(times[1:]),
+            "allreduce_ms": statistics.median(ar),
+            "digest": digest.hexdigest(), "launches": launches,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def dist_engine_phase(patch, volume):
+    """Phase 15. Returns the failures."""
+    import os
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.train.checkpoint import save_params
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "dist_engine"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        plan = _flagship_plan(patch)
+        save_params(work / "flagship.pt",
+                    ResEncUNet(plan, seed=SEED).state_dict())
+        vol = np.random.default_rng(SEED).integers(0, 256, volume,
+                                                   dtype=np.uint8)
+        create_zarr(str(work / "image.zarr"), volume, np.uint8, patch,
+                    compressor=None)[...] = vol
+        del vol
+        t0 = time.perf_counter()
+        one = ZarrInferenceEngine(config_dict=engine_config(
+            work / "flagship.pt", work / "image.zarr", work / "one", patch,
+            False, host_ram_budget_gb=ENGINE_MP_BUDGET_GB), device=None)
+        store_one = one.infer()
+        n_one = _tile_patches(store_one, patch, volume,
+                              ".model_pass_progress.json")
+        stepped = one.last_phases.get("first_step", 0.0) + \
+            one.last_phases.get("loop", 0.0)
+        print(f"phase 15 [{smi}]: one process, pass {one.last_mode}, "
+              f"{n_one} patch forwards in {time.perf_counter() - t0:.2f} s "
+              f"wall, {n_one / stepped:.3f} patches/s over first_step + "
+              "loop")
+        if one.last_mode != "tiled":
+            failures.append(f"phase 15: one process ran {one.last_mode}")
+        del one
+        torch.cuda.empty_cache()
+        results, failed = _workers("engine", 2, work, (
+            ",".join(map(str, patch)), str(ENGINE_MP_BUDGET_GB)))
+        failures += [f"phase 15: {f}" for f in failed]
+        if len(results) == 2:
+            store_two = results[0]["store"]
+            tiles = []
+            for r in sorted(results, key=lambda r: r["rank"]):
+                name = f".model_pass_progress.p{r['rank']}.json"
+                path = os.path.join(store_two, name)
+                with open(path) as f:
+                    tiles.append({tuple(t) for t in
+                                  json.load(f)["tiles_done"]})
+                n = _tile_patches(store_two, patch, volume, name)
+                print(f"  rank {r['rank']}: pass {r['mode']}, "
+                      f"{len(tiles[-1])} tiles, {n} patch forwards, "
+                      f"{n / r['stepped']:.3f} patches/s over first_step + "
+                      f"loop, {r['wall']:.2f} s wall")
+                if r["mode"] != "tiled":
+                    failures.append(f"phase 15: rank {r['rank']} ran "
+                                    f"{r['mode']}")
+            disjoint = not (tiles[0] & tiles[1]) and all(tiles)
+            same = {}
+            for name in ("sheet_sum", "sheet_count", "sheet_final",
+                         "normals_sum", "normals_count", "normals_final"):
+                same[name] = np.array_equal(
+                    open_zarr(os.path.join(store_one, name)).read_all(),
+                    open_zarr(os.path.join(store_two, name)).read_all())
+            print(f"phase 15: tiles disjoint and non-empty {disjoint}; "
+                  "two processes bit-equal to one: " + ", ".join(
+                      f"{k} {v}" for k, v in same.items())
+                  + " (two processes time-share one card: no scaling)")
+            if not (disjoint and all(same.values())):
+                failures.append(f"phase 15: disjoint {disjoint}, "
+                                f"bit-equal {same}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 15 (distributed engine): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+def _tile_patches(store, patch, volume, watermark):
+    """Patch forwards of the tiles a watermark lists (a patch runs once
+    for each tile it touches)."""
+    import os
+    from mt3d_resenc_unet_torch.data.positions import sliding_window_grid
+    with open(os.path.join(store, watermark)) as f:
+        tiles = json.load(f)["tiles_done"]
+    grid = sliding_window_grid(volume, patch, 0.25)
+    return sum(1 for z0, z1, y0, y1 in tiles for z, y, _ in grid
+               if z < z1 and z + patch[0] > z0 and y < y1
+               and y + patch[1] > y0)
+
+
+def engine_worker(rank, world, port, work, patch, budget_gb):
+    """A rank of phase 15: the engine's tiled pass over the shared
+    volume."""
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.parallel import distributed
+    distributed.initialize(f"localhost:{port}", world, rank,
+                           backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    patch = tuple(int(p) for p in patch.split(","))
+    t0 = time.perf_counter()
+    engine = ZarrInferenceEngine(config_dict=engine_config(
+        work / "flagship.pt", work / "image.zarr", work / "two", patch,
+        False, host_ram_budget_gb=float(budget_gb)), device=None)
+    store = engine.infer()
+    return {"store": store, "mode": engine.last_mode,
+            "wall": time.perf_counter() - t0,
+            "stepped": engine.last_phases.get("first_step", 0.0)
+            + engine.last_phases.get("loop", 0.0)}
+
+
+def tools_phase():
+    """Phase 16, host only and tiny: PNG slices -> ``tiff_to_zarr`` ->
+    ``zarr_crop`` -> the port's dataset; ``normals_slices`` and
+    ``mesh_rasterize`` once each. Returns the failures."""
+    import os
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.tools import mesh_rasterize
+    from mt3d_resenc_unet_torch.tools.images import read_image, write_image
+    from mt3d_resenc_unet_torch.tools.normals_slices import (
+        write_normals_slices)
+    from mt3d_resenc_unet_torch.tools.tiff_to_zarr import stack_images_to_zarr
+    from mt3d_resenc_unet_torch.tools.zarr_crop import cut_zarr_bounding_box
+    failures = []
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        seg = work / "seg"
+        (seg / "layers").mkdir(parents=True)
+        (seg / "inklabels").mkdir()
+        rng = np.random.default_rng(SEED)
+        layers = rng.integers(0, 65536, (24, 48, 48), dtype=np.uint16)
+        ink = np.zeros((24, 48, 48), np.uint8)
+        ink[:, 8:40, 8:40] = 255
+        for z in range(24):
+            write_image(str(seg / "layers" / f"{z:02d}.png"), layers[z])
+            write_image(str(seg / "inklabels" / f"{z:02d}.png"), ink[z])
+        group = stack_images_to_zarr(str(seg), 0, 23, chunks=(8, 16, 16))
+        crops = {}
+        for name in ("layers", "inklabels"):
+            crops[name] = cut_zarr_bounding_box(
+                os.path.join(group, f"{name}.zarr"),
+                str(work / f"{name}_crop.zarr"), 4, 20, 8, 40, 8, 40)
+        got = open_zarr(crops["layers"]).read_all()
+        ok_crop = np.array_equal(got, (layers // 257).astype(np.uint8)
+                                 [4:20, 8:40, 8:40])
+        cfg = {
+            "tr_setup": {"model_name": "tools", "autoconfigure": False},
+            "tr_config": {"patch_size": [16, 16, 16], "batch_size": 1},
+            "model_config": {},
+            "dataset_config": {
+                "min_bbox_percent": 0.5, "min_labeled_ratio": 0.1,
+                "use_cache": False, "in_channels": 1,
+                "volume_paths": [{"input": crops["layers"],
+                                  "ink": crops["inklabels"],
+                                  "ref_label": "ink"}],
+                "targets": {"ink": {"channels": 1, "activation": "sigmoid",
+                                    "loss_fn": "BCEWithLogitsLoss"}}},
+            "inference_config": {}}
+        dataset = ZarrPatchDataset(ConfigManager(config_dict=cfg,
+                                                 verbose=False), seed=SEED)
+        sample = dataset[0]
+        shapes = {k: tuple(np.asarray(v).shape) for k, v in sample.items()}
+        ok_data = len(dataset) > 0 and all(
+            np.isfinite(np.asarray(v, np.float32)).all()
+            for v in sample.values())
+        with open(os.path.join(crops["layers"], ".zarray")) as f:
+            compressor = json.load(f)["compressor"]
+        print(f"phase 16: 24 PNG slices -> tiff_to_zarr -> zarr_crop "
+              f"(16, 32, 32) equal {ok_crop}, compressor {compressor} -> "
+              f"dataset of {len(dataset)} patches, sample {shapes}")
+        normals = create_zarr(str(work / "normals.zarr"), (3, 4, 16, 16),
+                              np.uint16, (3, 4, 16, 16), compressor=None)
+        normals[...] = rng.integers(0, 65536, (3, 4, 16, 16),
+                                    dtype=np.uint16)
+        n = write_normals_slices(str(work / "normals.zarr"),
+                                 str(work / "normals_png"), use_16bit=True)
+        ok_normals = n == 4 and np.array_equal(
+            read_image(str(work / "normals_png" / "normals_z0001.png")),
+            np.transpose(normals[:, 1], (1, 2, 0)))
+        obj = work / "plane.obj"
+        obj.write_text("v 1 1 3\nv 14 1 3\nv 14 14 3\nv 1 14 3\n"
+                       + "vn 0 0 1\n" * 4 + "f 1//1 2//2 3//3\n"
+                       "f 1//1 3//3 4//4\n")
+        mesh_rasterize.write_face_normals([str(obj)], str(work / "mesh"),
+                                          (2, 5), 16, 16, num_threads=2)
+        hit = read_image(str(work / "mesh" / "00003.png"))
+        ok_mesh = bool(hit.any()) and not read_image(
+            str(work / "mesh" / "00002.png")).any()
+        print(f"phase 16: normals_slices wrote {n} slices, equal {ok_normals};"
+              f" mesh_rasterize hit the plane at z 3 only {ok_mesh} "
+              f"({time.perf_counter() - t_phase:.1f} s)")
+        if not (ok_crop and ok_data and ok_normals and ok_mesh):
+            failures.append(f"phase 16: crop {ok_crop} dataset {ok_data} "
+                            f"normals {ok_normals} mesh {ok_mesh}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return failures
+
+
+def worker_main(argv) -> int:
+    """``chip_smoke.py --worker MODE RANK WORLD PORT WORK [ARG]``: one rank
+    of phase 14b (``step``) or 15 (``engine``); prints its result as a
+    ``RESULT {json}`` line."""
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.config import set_precision
+    from mt3d_resenc_unet_torch.parallel import distributed
+    mode, rank, world, port, work, *extra = argv
+    set_precision()
+    fn = {"step": step_worker, "engine": engine_worker}[mode]
+    try:
+        result = fn(int(rank), int(world), int(port), Path(work), *extra)
+        result["rank"] = int(rank)
+        print("RESULT " + json.dumps(result), flush=True)
+        distributed.sync_global_devices("done")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(sys.argv[2:]))
     sys.exit(main())

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..parallel.distributed import local_device_index
 from .plan import NetworkPlan, TaskHead, plan_from_autoconfig, plan_from_manual_config
 
 _SECTIONS = ("tr_setup", "tr_config", "model_config", "dataset_config", "inference_config")
@@ -32,9 +33,11 @@ _SECTIONS = ("tr_setup", "tr_config", "model_config", "dataset_config", "inferen
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point of the port runs on. ``None`` or
-    ``"cuda"`` is the first CUDA card, and raises ``RuntimeError`` where
-    there is none: the port never falls back to the CPU on its own.
-    ``"cpu"`` (or a ``torch.device``) is taken as the caller names it."""
+    ``"cuda"`` is this rank's CUDA card (``cuda:{LOCAL_RANK %
+    device_count}``, the first card single-process), and raises
+    ``RuntimeError`` where there is none: the port never falls back to the
+    CPU on its own. ``"cpu"`` (or a ``torch.device``) is taken as the
+    caller names it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -42,7 +45,7 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device: the port runs on the card; pass "
                 "device='cpu' (--device cpu) to run on the CPU")
         if dev.index is None:
-            dev = torch.device("cuda", 0)
+            dev = torch.device("cuda", local_device_index())
     return dev
 
 

@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import global_rows
 from .augment import (ADVANCED_BLUR_SIGMA, BRIGHTNESS_LIMIT, CONTRAST_LIMIT,
                       DEFOCUS_RADIUS, GAUSS_NOISE_STD,
                       ILLUMINATION_INTENSITY, MULT_NOISE_RANGE,
@@ -103,6 +104,13 @@ class AugParams:
     def to(self, device) -> "AugParams":
         return AugParams(**{f.name: getattr(self, f.name).to(device)
                             for f in dataclasses.fields(self)})
+
+    def rows(self, rows: slice) -> "AugParams":
+        """These samples' draws: the per-sample fields sliced, the per-call
+        ones kept."""
+        return AugParams(**{f.name: (v[rows] if v.dim() else v)
+                            for f in dataclasses.fields(self)
+                            for v in (getattr(self, f.name),)})
 
 
 # ----------------------------------------------------------------------
@@ -475,7 +483,8 @@ def make_device_augment(cfg: Optional[DeviceAugConfig] = None
                                       Dict[str, torch.Tensor]]:
     """Returns ``augment(batch, generator) -> batch``: :func:`apply` after
     :func:`draw_params` from ``generator``, for ``make_train_step``'s
-    ``augment_fn``."""
+    ``augment_fn``. In a multi-process step it draws for the global batch
+    and applies this rank's rows, so N processes draw what one does."""
     cfg = cfg or DeviceAugConfig()
 
     def augment(batch: Dict[str, torch.Tensor],
@@ -483,8 +492,9 @@ def make_device_augment(cfg: Optional[DeviceAugConfig] = None
         img = batch["image"]
         if img.dim() != 5:
             return batch
-        params = draw_params(generator, img.shape[0], tuple(img.shape[1:4]),
-                             cfg, channels=img.shape[-1])
-        return apply(batch, params, cfg)
+        n, rows = global_rows(img.shape[0])
+        params = draw_params(generator, n, tuple(img.shape[1:4]), cfg,
+                             channels=img.shape[-1])
+        return apply(batch, params.rows(rows), cfg)
 
     return augment

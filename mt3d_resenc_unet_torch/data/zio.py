@@ -16,16 +16,21 @@ and the same decode arithmetic. Two backends behind ``Volume``:
   without it, opening one raises an ``ImportError`` naming the package and
   the store.
 
-The numpy backend writes a chunk by read-modify-write of its file, so two
-writers of one chunk at once must not overlap; the reads are thread-safe.
+The numpy backend writes a chunk that a region covers whole by replacing
+its file, and a chunk that it covers in part by read-modify-write under an
+exclusive ``fcntl.flock`` of the chunk's lock file (``.{key}.lock`` beside
+it): writers of disjoint parts of one chunk, in threads or processes,
+take turns and lose no update. The reads are thread-safe.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -161,17 +166,31 @@ class _RawZarr:
         value = np.broadcast_to(np.asarray(value, self.dtype),
                                 kept).reshape(full)
         for key, in_chunk, in_out in self._overlaps(ranges):
-            whole = all(s.stop - s.start == c
-                        for s, c in zip(in_chunk, self.chunks))
-            chunk = (np.full(self.chunks, self.fill_value, self.dtype)
-                     if whole else self._read_chunk(key).copy())
-            chunk[in_chunk] = value[in_out]
             path = self._chunk_file(key)
             if self.sep == "/":
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            np.ascontiguousarray(chunk).tofile(tmp)
-            os.replace(tmp, path)
+            if all(s.stop - s.start == c
+                   for s, c in zip(in_chunk, self.chunks)):
+                chunk = np.full(self.chunks, self.fill_value, self.dtype)
+                chunk[in_chunk] = value[in_out]
+                self._replace_chunk(path, chunk)
+                continue
+            lock = os.path.join(os.path.dirname(path),
+                                f".{os.path.basename(path)}.lock")
+            fd = os.open(lock, os.O_RDWR | os.O_CREAT, 0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX)
+                chunk = self._read_chunk(key).copy()
+                chunk[in_chunk] = value[in_out]
+                self._replace_chunk(path, chunk)
+            finally:
+                os.close(fd)   # releases the lock
+
+    @staticmethod
+    def _replace_chunk(path: str, chunk: np.ndarray) -> None:
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        np.ascontiguousarray(chunk).tofile(tmp)
+        os.replace(tmp, path)
 
 
 class _TsStore:

@@ -1,12 +1,17 @@
 """Inference CLI of the port (the flags of the JAX package's inference.py):
 
     python -m mt3d_resenc_unet_torch.infer --config_path tasks/X.yaml \
-        [--write_layers] [--postprocess_only] [--resume] [--device {cuda,cpu}]
+        [--write_layers] [--postprocess_only] [--resume] [--device {cuda,cpu}] \
+        [--dist_backend {nccl,gloo}]
 
-It runs on the card (``--device cuda``, the default) and raises where there
-is none; ``--device cpu`` runs it on the CPU. Reading a YAML file needs
-pyyaml; where it is missing, build ``ZarrInferenceEngine(config_dict=...)``
-from Python instead.
+It runs on the card (``--device cuda``, the default) and raises where
+there is none; ``--device cpu`` runs it on the CPU. Several processes
+(torchrun, or JAX's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID``) form one process group first
+(``parallel.distributed.initialize``: NCCL on the card, gloo on the CPU
+or with ``--dist_backend gloo``, which two ranks sharing one card need).
+Reading a YAML file needs pyyaml; where it is missing, build
+``ZarrInferenceEngine(config_dict=...)`` from Python instead.
 """
 
 import argparse
@@ -31,7 +36,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                              "existing store.")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where to run (default: the CUDA card).")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="Process-group backend of a multi-process "
+                             "run (default: nccl on the card, gloo on "
+                             "the CPU).")
     args = parser.parse_args(argv)
+
+    from ..parallel.distributed import initialize
+    initialize(backend=args.dist_backend
+               or ("gloo" if args.device == "cpu" else None))
 
     from .engine import ZarrInferenceEngine
     engine = ZarrInferenceEngine(

@@ -18,13 +18,23 @@ inference.py:14-308), zarr in, zarr out:
   codec for normals) and per-Z JPEG export, also runnable on an existing
   store (``tools/standalone_finalize.py``, ``--postprocess_only``).
 
+Multi-process (a process group from ``parallel.distributed.initialize``,
+one device a rank), as the JAX engine: the model pass is always tiled,
+rank r takes the tiles ``tiles[r::n]`` and keeps its own watermark
+(``.model_pass_progress.p{r}.json``); every rank checks the overwrite
+guard, then rank 0 alone creates the stores between two barriers and the
+others open them; after the pass, a barrier, rank 0 finalizes, quantizes
+and exports, and a last barrier. Adjacent tiles of two ranks may share a
+store chunk: ``data/zio.py`` locks a chunk around the read-modify-write
+of a partial write, so no update is lost.
+
 Differences from the JAX engine: every store it creates is a local zarr v2
 array with ``compressor: null`` (the card's machine has no tensorstore;
-the values are the JAX engine's, the bytes on disk are not Blosc); the
-forward runs on one device in one process, so the JAX engine's mesh
-sharding and its multi-process barriers are gone (this process is rank 0
-of 1); the last batch is not padded to a static shape. ``predict_volume``
-blends over a volume held in memory and returns the blend.
+the values are the JAX engine's, the bytes on disk are not Blosc); each
+rank's forward runs on its one device, with no mesh sharding inside a
+process; the last batch is not padded to a static shape.
+``predict_volume`` blends over a volume held in memory and returns the
+blend.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from ..data.positions import sliding_window_grid
 from ..data.zio import (Volume, create_zarr, normalize_to_unit, open_zarr,
                         zarr_exists)
 from ..models.network import ResEncUNet
+from ..parallel.distributed import (is_main_process, process_count,
+                                    process_index, sync_global_devices)
 from ..train.checkpoint import load_params_any, merge_params_nonstrict
 from ..utils import native
 from .gaussian import gaussian_map, uniform_map
@@ -465,17 +477,20 @@ class ZarrInferenceEngine:
         if not self.postprocess_only:
             postprocess_done = bool(self._run_model_pass(store_path, targets))
 
-        # one process, rank 0 of 1: the JAX engine's barriers before and
-        # after the postprocess have no one to wait for
-        if not postprocess_done:  # device-accum mode already wrote finals
-            t = time.perf_counter()
-            finalize_overlaps(store_path, targets)
-            self.last_phases["finalize"] = time.perf_counter() - t
-            t = time.perf_counter()
-            quantize_final(store_path, targets)
-            self.last_phases["fetch_write"] = time.perf_counter() - t
-        if self.write_layers:
-            export_z_slices(store_path, targets, mgr.infer_output_path)
+        # every process must have written its tiles before postprocessing;
+        # one writer finalizes (the sums are a single shared store)
+        sync_global_devices("infer_model_pass_done")
+        if is_main_process():
+            if not postprocess_done:  # device-accum mode wrote finals
+                t = time.perf_counter()
+                finalize_overlaps(store_path, targets)
+                self.last_phases["finalize"] = time.perf_counter() - t
+                t = time.perf_counter()
+                quantize_final(store_path, targets)
+                self.last_phases["fetch_write"] = time.perf_counter() - t
+            if self.write_layers:
+                export_z_slices(store_path, targets, mgr.infer_output_path)
+        sync_global_devices("infer_postprocess_done")
         return store_path
 
     # ------------------------------------------------------------------
@@ -571,10 +586,11 @@ class ZarrInferenceEngine:
         input_vol = open_zarr(mgr.infer_input_path)
         in_shape = input_vol.shape[-3:]
         patch = tuple(mgr.infer_patch_size)
-        # the engine runs one process on one device
+        # each process drives one device
         dev_ok = should_device_accumulate(
             mgr.infer_device_accumulate, resume=self.resume,
-            process_count=1, n_local_devices=1, backend=self.device.type,
+            process_count=process_count(), n_local_devices=1,
+            backend=self.device.type,
             accum_bytes=self._device_accum_bytes(targets, in_shape),
             budget_bytes=int(mgr.infer_device_accum_budget_gb * 2 ** 30))
         if dev_ok:
@@ -585,7 +601,9 @@ class ZarrInferenceEngine:
                 print(f"[infer] device accumulation out of memory ({e}); "
                       "falling back to host accumulation")
             torch.cuda.empty_cache()
-        needs_tiles = (self.resume or
+        # multi-process runs always tile: tiles partition cleanly across
+        # processes, while the rolling z-sweep is inherently sequential
+        needs_tiles = (self.resume or process_count() > 1 or
                        self._rolling_slab_bytes(targets, in_shape, patch,
                                                 mgr.infer_overlap) > budget)
         if needs_tiles:
@@ -816,8 +834,8 @@ class ZarrInferenceEngine:
 
         Patches whose extent crosses a tile boundary are re-run for each tile
         they touch (only their intersecting slice is accumulated); tiles are
-        sized >> patch so the duplicated forward fraction stays small. One
-        process owns every tile (the JAX engine's rank 0 of 1)."""
+        sized >> patch so the duplicated forward fraction stays small.
+        Rank r of n owns the tiles ``tiles[r::n]`` and its own watermark."""
         t0 = time.perf_counter()
         phase = {"read_wait": 0.0}
         self.last_phases = phase
@@ -836,7 +854,13 @@ class ZarrInferenceEngine:
         tiles = [(z0, min(z0 + tz, zmax), y0, min(y0 + band, ymax))
                  for z0 in range(0, zmax, tz)
                  for y0 in range(0, ymax, band)]
-        progress_name = ".model_pass_progress.json"
+        # each process owns a disjoint round-robin subset of the tiles; a
+        # band that is not a chunk multiple shares chunks between ranks,
+        # which the store's chunk lock keeps whole
+        rank, n_proc = process_index(), process_count()
+        my_tiles = tiles[rank::n_proc]
+        progress_name = (".model_pass_progress.json" if n_proc == 1
+                         else f".model_pass_progress.p{rank}.json")
         progress_path = os.path.join(store_path, progress_name)
 
         done_tiles = set()
@@ -849,7 +873,7 @@ class ZarrInferenceEngine:
                     "--resume: existing progress file was written for a "
                     "different volume/patch/overlap configuration")
             done_tiles = {tuple(t) for t in prog.get("tiles_done", [])}
-            print(f"[infer] resuming: {len(done_tiles)}/{len(tiles)} "
+            print(f"[infer] resuming: {len(done_tiles)}/{len(my_tiles)} "
                   f"tiles already complete")
         elif self.resume and os.path.isdir(store_path):
             # rolling-mode runs leave no progress file; resuming them would
@@ -865,10 +889,22 @@ class ZarrInferenceEngine:
                 "Aborting to prevent overwrite (pass --resume to continue "
                 "an interrupted tiled run).")
 
-        vols = {name: _create_sum_count(store_path, name,
-                                        int(info["channels"]), in_shape,
-                                        patch, open_existing=self.resume)
-                for name, info in targets.items()}
+        # every process has checked the store as it was; a barrier BEFORE
+        # creation, or a slow process would see rank 0's fresh store and
+        # take it for an overwrite. One writer creates the stores, the
+        # others open them after a second barrier.
+        sync_global_devices("infer_guard_checked")
+        if rank == 0:
+            vols = {name: _create_sum_count(store_path, name,
+                                            int(info["channels"]), in_shape,
+                                            patch, open_existing=self.resume)
+                    for name, info in targets.items()}
+        sync_global_devices("infer_stores_created")
+        if rank != 0:
+            vols = {name: _create_sum_count(store_path, name,
+                                            int(info["channels"]), in_shape,
+                                            patch, open_existing=True)
+                    for name, info in targets.items()}
 
         def _write_progress():
             tmp = progress_path + ".tmp"
@@ -882,7 +918,7 @@ class ZarrInferenceEngine:
         pool = ThreadPoolExecutor(
             max_workers=max(1, mgr.infer_num_dataloader_workers))
         try:
-            for tile in tiles:
+            for tile in my_tiles:
                 tz0, tz1, ty0, ty1 = tile
                 if tile in done_tiles:
                     continue
@@ -954,7 +990,7 @@ class ZarrInferenceEngine:
                 _write_progress()
                 print(f"[infer] tile z[{tz0}:{tz1}] y[{ty0}:{ty1}]: "
                       f"{len(tile_pos)} patches "
-                      f"({len(done_tiles)}/{len(tiles)} tiles)")
+                      f"({len(done_tiles)}/{len(my_tiles)} tiles)")
                 if self.tile_callback is not None:
                     self.tile_callback(tile)
         finally:

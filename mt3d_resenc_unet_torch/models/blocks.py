@@ -63,6 +63,7 @@ from ..ops.conv3d import (Conv3dK3Fn, Conv3dK3PairFn, conv3d_k3_plain,
                           conv_s1_supported, conv_s2_supported)
 from ..ops.instance_norm import (Vectors, instance_stats, norm_apply,
                                  pre_vector, stats_to_scale_shift)
+from ..parallel.distributed import global_rows
 
 Conv3 = Tuple[int, ...]
 
@@ -122,10 +123,13 @@ def _generator(generator: Optional[torch.Generator],
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: each element kept with probability 1 - p and
-    scaled by 1 / (1 - p), the draw from ``generator``."""
+    scaled by 1 / (1 - p), the draw from ``generator`` (for the global
+    batch in a multi-process step, keeping this rank's rows)."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=_generator(generator, "dropout"),
-                      device=x.device) < keep
+    n, rows = global_rows(x.shape[0])
+    mask = torch.rand((n,) + tuple(x.shape[1:]),
+                      generator=_generator(generator, "dropout"),
+                      device=x.device)[rows] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -133,11 +137,12 @@ def drop_path(x: torch.Tensor, p: float,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Stochastic depth (JAX blocks.py:465-473): the residual branch of
     each sample zeroed with probability p, kept ones scaled by 1 / (1 - p),
-    the draw from ``generator``."""
+    the draw from ``generator`` (for the global batch, as dropout)."""
     keep = 1.0 - p
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    n, rows = global_rows(x.shape[0])
+    shape = (n,) + (1,) * (x.dim() - 1)
     mask = torch.rand(shape, generator=_generator(generator, "DropPath"),
-                      device=x.device) < keep
+                      device=x.device)[rows] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

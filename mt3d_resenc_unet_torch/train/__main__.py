@@ -1,12 +1,17 @@
 """Training CLI of the port (the flags of the JAX package's train.py):
 
     python -m mt3d_resenc_unet_torch.train --config_path tasks/X.yaml \
-        [--debug_dataloader] [--verbose] [--device {cuda,cpu}]
+        [--debug_dataloader] [--verbose] [--device {cuda,cpu}] \
+        [--dist_backend {nccl,gloo}]
 
 It trains on the card (``--device cuda``, the default) and raises where
-there is none; ``--device cpu`` runs it on the CPU. Reading a YAML file
-needs pyyaml; where it is missing, build ``Trainer(config_dict=...)`` from
-Python instead.
+there is none; ``--device cpu`` runs it on the CPU. Several processes
+(torchrun, or JAX's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID``) form one process group first
+(``parallel.distributed.initialize``: NCCL on the card, gloo on the CPU
+or with ``--dist_backend gloo``, which two ranks sharing one card need).
+Reading a YAML file needs pyyaml; where it is missing, build
+``Trainer(config_dict=...)`` from Python instead.
 """
 
 import argparse
@@ -23,7 +28,16 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Where to train (default: the CUDA card).")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="Process-group backend of a multi-process "
+                             "run (default: nccl on the card, gloo on "
+                             "the CPU).")
     args = parser.parse_args(argv)
+
+    from ..parallel.distributed import initialize
+    initialize(backend=args.dist_backend
+               or ("gloo" if args.device == "cpu" else None))
 
     from .trainer import Trainer
     trainer = Trainer(args.config_path, verbose=args.verbose,

@@ -30,6 +30,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 STATE_FILE = "state.pt"
+# marks an optimizer state keyed by parameter name (tools/from_jax.py)
+OPT_STATE_BY_NAME = "by_name"
 
 
 def _save(obj: Any, path: Path) -> None:
@@ -152,3 +154,21 @@ def merge_params_nonstrict(fresh: Mapping[str, torch.Tensor],
             out[key] = fval
             stats["kept_fresh" if lval is None else "shape_mismatch"] += 1
     return out, stats
+
+
+def opt_state_by_index(opt_state: Mapping[str, Any],
+                       model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """A name-keyed optimizer state (``tools/from_jax.py::state_from_jax``)
+    -> the ``state_dict`` of ``optimizer``, built over
+    ``model.parameters()``; an index-keyed one passes through."""
+    if not opt_state.get(OPT_STATE_BY_NAME):
+        return dict(opt_state)
+    names = [n for n, _ in model.named_parameters()]
+    missing = set(names) - set(opt_state["state"])
+    if missing:
+        raise KeyError(f"optimizer state lacks {sorted(missing)[:5]}")
+    fresh = optimizer.state_dict()
+    return {"state": {i: dict(opt_state["state"][n])
+                      for i, n in enumerate(names)},
+            "param_groups": fresh["param_groups"]}

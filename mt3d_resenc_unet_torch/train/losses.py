@@ -10,7 +10,11 @@ train.py:47-56) for NDHWC tensors:
   wrappers.
 
 All reductions run in fp32 whatever the input dtype. Every loss is a plain
-callable ``loss(pred, target) -> scalar`` that autograd differentiates. The
+callable ``loss(pred, target) -> scalar`` that autograd differentiates.
+Each reduces over the batch through sums (a mean is a sum over a count):
+inside ``parallel.distributed.global_batch`` those sums are taken over
+every rank's samples, so a multi-process step computes the loss of the
+global batch, as the jitted JAX step does over its sharded batch. The
 epsilons and defaults are the JAX package's (``_EPS_DICE``, the 0.1 label
 smoothing inside ``BCEDiceLoss``, ``MaskedCosineLoss.mag_threshold``);
 ``BCEDiceLoss`` has working defaults (alpha=beta=0.5) where the reference
@@ -25,6 +29,8 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.distributed import batch_shards, global_sum
+
 Loss = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _EPS_DICE = 1e-6
@@ -35,7 +41,11 @@ def _f32(*xs):
 
 
 def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
-    return loss.mean() if reduction == "mean" else loss.sum()
+    """The sum or the mean over the (global) batch of an elementwise loss."""
+    total = global_sum(loss.sum())
+    if reduction == "mean":
+        return total / (loss.numel() * batch_shards())
+    return total
 
 
 def label_smooth(target: torch.Tensor, smooth_factor: float) -> torch.Tensor:
@@ -73,10 +83,11 @@ def compute_per_channel_dice(probs: torch.Tensor, target: torch.Tensor,
     probs, target = _f32(probs, target)
     p = _flatten_channels_first(probs)
     t = _flatten_channels_first(target)
-    intersect = (p * t).sum(dim=-1)
+    intersect, pp, tt = global_sum(torch.stack(
+        [(p * t).sum(dim=-1), (p * p).sum(dim=-1), (t * t).sum(dim=-1)]))
     if weight is not None:
         intersect = weight * intersect
-    denominator = (p * p).sum(dim=-1) + (t * t).sum(dim=-1)
+    denominator = pp + tt
     return 2.0 * intersect / torch.clamp(denominator, min=epsilon)
 
 
@@ -114,10 +125,11 @@ class GeneralizedDiceLoss:
         if p.shape[0] == 1:
             p = torch.cat([p, 1.0 - p], dim=0)
             t = torch.cat([t, 1.0 - t], dim=0)
-        w = t.sum(dim=-1)
+        w, intersect, both = global_sum(torch.stack(
+            [t.sum(dim=-1), (p * t).sum(dim=-1), (p + t).sum(dim=-1)]))
         w = (1.0 / torch.clamp(w * w, min=self.epsilon)).detach()
-        intersect = (p * t).sum(dim=-1) * w
-        denominator = torch.clamp((p + t).sum(dim=-1) * w, min=self.epsilon)
+        intersect = intersect * w
+        denominator = torch.clamp(both * w, min=self.epsilon)
         return 1.0 - 2.0 * intersect.sum() / denominator.sum()
 
 
@@ -246,8 +258,9 @@ class MaskedCosineLoss:
         # cosine_similarity(pred_unit, target): both magnitudes clamped
         tgt_mag = torch.clamp(target_mag, min=self.eps)
         cos = (pred_unit * target).sum(dim=-1) / tgt_mag
-        valid = mask.sum() + self.eps
-        return 1.0 - (cos * mask).sum() / valid
+        agree, count = global_sum(torch.stack([(cos * mask).sum(),
+                                               mask.sum()]))
+        return 1.0 - agree / (count + self.eps)
 
 
 @dataclasses.dataclass(frozen=True)

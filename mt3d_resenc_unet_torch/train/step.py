@@ -8,6 +8,14 @@ Mixed precision is the model's: bf16 activations over fp32 parameters (the
 model casts its weights at each call), so gradients and the optimizer state
 are fp32 and no GradScaler is needed. Left out, as XLA-only devices: the
 packed ``_vec`` metric, the strong-int32 step and buffer donation.
+
+Multi-process (``parallel/distributed.py``), each rank holds its shard of
+the global batch, and the step computes what the JAX step jitted over the
+sharded global batch computes: the losses reduce over every rank's
+samples, the per-sample draws are the global batch's, and the gradients
+are summed over the ranks after the last microbatch's backward and before
+the clip. So every rank reports the global metrics and takes the same
+update; the parameters are broadcast from rank 0 when the step is built.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 
+from ..parallel.distributed import (all_reduce_grads, broadcast_params,
+                                    global_batch, global_sum)
 from .losses import Loss, MaskedCosineLoss
 
 Schedule = Callable[[int], float]
@@ -175,7 +185,11 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
     microbatch right after its wire decode and before the forward, drawing
     from ``generator``, which it then requires: each microbatch draws its
     own parameters, as the JAX step folds the microbatch index into its
-    rng."""
+    rng.
+
+    In a process group every rank calls the step on its equal shard of
+    each global batch (``parallel.distributed.process_batch_slice``), and
+    building the step broadcasts rank 0's parameters."""
     if augment_fn is not None and generator is None:
         raise ValueError("augment_fn draws from the step's generator; "
                          "pass generator=")
@@ -183,6 +197,7 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
     task_weights = dict(task_weights)
     normal_keys = tuple(k for k in loss_fns if k.lower() == "normals")
     accum = grad_accum_steps
+    broadcast_params(model)
 
     def train_step(optimizer: Optimizer,
                    batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -193,12 +208,14 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
         for k in range(accum):
             micro = decode_wire({key: v[k::accum] for key, v in batch.items()},
                                 normal_keys)
-            if augment_fn is not None:
-                micro = augment_fn(micro, generator)
-            outputs = model(micro["image"], generator=generator)
-            targets = {key: v for key, v in micro.items() if key != "image"}
-            total, per_task = multitask_loss(outputs, targets, loss_fns,
-                                             task_weights)
+            with global_batch():
+                if augment_fn is not None:
+                    micro = augment_fn(micro, generator)
+                outputs = model(micro["image"], generator=generator)
+                targets = {key: v for key, v in micro.items()
+                           if key != "image"}
+                total, per_task = multitask_loss(outputs, targets, loss_fns,
+                                                 task_weights)
             (total / accum).backward()
             total = total.detach()
             total_sum = total if total_sum is None else total_sum + total
@@ -206,6 +223,10 @@ def make_train_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss],
                 value = value.detach()
                 task_sums[name] = (value if name not in task_sums
                                    else task_sums[name] + value)
+        # each rank's gradients are its samples' share of the global
+        # batch's gradient: summed, before the clip
+        all_reduce_grads(p for group in optimizer.opt.param_groups
+                         for p in group["params"])
         metrics = {name: value / accum for name, value in task_sums.items()}
         metrics["total_loss"] = total_sum / accum
         metrics["grad_norm"] = optimizer.step()
@@ -223,6 +244,7 @@ def make_eval_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss]):
     normal_keys = tuple(k for k in loss_fns if k.lower() == "normals")
 
     @torch.no_grad()
+    @global_batch()
     def eval_step(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
         batch = decode_wire(batch, normal_keys)
@@ -242,8 +264,10 @@ def make_eval_step(model: torch.nn.Module, loss_fns: Mapping[str, Loss]):
             elif out.shape[-1] == 1:
                 pred = (out > 0).float()   # sigmoid(x) > 0.5
                 t = (tgt > 0.5).float()
-                metrics[f"{name}_dice"] = 2.0 * (pred * t).sum() / torch.clamp(
-                    pred.sum() + t.sum(), min=1e-8)
+                both, pred_sum, t_sum = global_sum(torch.stack(
+                    [(pred * t).sum(), pred.sum(), t.sum()]))
+                metrics[f"{name}_dice"] = 2.0 * both / torch.clamp(
+                    pred_sum + t_sum, min=1e-8)
         metrics["total_loss"] = total
         return metrics
 
