@@ -4,17 +4,18 @@ port's CUDA kernels, holds each against its plain PyTorch version at the
 flagship's shapes, runs the full-width flagship forward against the plain
 fp32 path, serves a volume through ``predict_volume``, runs the full-width
 flagship training step through the kernels against the plain fp32 path,
-with and without squeeze-excitation, holds the fused instance-norm op
-against its plain version, trains ``tasks/sheet_normals.yaml``'s network
-(squeeze-excitation on) through the port's ``Trainer`` on a synthetic zarr
-dataset, serves a zarr volume through the port's inference engine in each
-of its model passes, runs ``tasks/ink.yaml``'s 5-stage plan at its
-non-cubic patch through the kernels against the plain path, holds the
-device augmentation and every optimizer of the factory on the card
-against the CPU, runs the training step and the trainer with the
-augmentation on the card, runs the training step and the engine's tiled
-pass in several processes over ``torch.distributed``, and runs the
-data-prep tools.
+with and without squeeze-excitation (its norm tail and unfused statistics
+on the norm-act kernels), holds the fused instance-norm op and the step
+modes of its kernels against their plain versions, trains
+``tasks/sheet_normals.yaml``'s network (squeeze-excitation on) through the
+port's ``Trainer`` on a synthetic zarr dataset, serves a zarr volume
+through the port's inference engine in each of its model passes, runs
+``tasks/ink.yaml``'s 5-stage plan at its non-cubic patch through the
+kernels against the plain path, holds the device augmentation and every
+optimizer of the factory on the card against the CPU, runs the training
+step and the trainer with the augmentation on the card, runs the training
+step and the engine's tiled pass in several processes over
+``torch.distributed``, and runs the data-prep tools.
 
     python3 chip_smoke.py
 
@@ -67,13 +68,18 @@ Phases (any failure exits non-zero and prints no result line):
      dense peak, and peak memory. (c) Every launch counter is zeroed before
      (b) and all nine kernels must have launched in it; its counts by shape
      and mode times the cases of 2 and 5a give each kernel's ms, library
-     ms and bound per training step. Before (b), two first steps through
-     the kernels from the same weights and batch are compared: whether
-     their losses and grad_norm are bit-equal is printed, not held. (d)
+     ms and bound per training step. The norm-act kernels' step modes (the
+     tail forward and backward, the raw statistics) must have launched as
+     often as ``models/network.py::norm_launches`` derives from the plan,
+     and the plain fp32 path must launch no kernel at all (counters zeroed
+     before it). Before (b), two first steps through the kernels from the
+     same weights and batch must be bit-equal (losses and grad_norm). (d)
      All nine conv and upsample kernels run twice on the same inputs at the
      flagship's shapes in the step's modes (dx at both strides with corr
-     and corr+post): every output, statistic and [sum du*x; sum du] must be
-     bit-equal (they sum in a fixed order, without atomics). (e) The
+     and corr+post), and the norm-act stats, raw-stats, bwd-stats, tail
+     and tail-backward kernels at the flagship's norm shapes: every output,
+     statistic and [sum du*x; sum du] must be bit-equal (they sum in a
+     fixed order, without floating-point atomics). (e) The
      flagship with ``squeeze_excitation=True`` (``tasks/sheet_normals.yaml``'s
      network), batch 2: the eval forward against plain fp32 with phase 3's
      limits, then TRAIN_STEPS steps as (b) with every counter zeroed before
@@ -86,9 +92,18 @@ Phases (any failure exits non-zero and prints no result line):
      and the flagship's normalization shapes (128^3 x 32 ... 4^3 x 512),
      act on and off and one affine case: forward and backward through
      ``NormActFn`` (the op path: its launches are counted) against the op
-     with every kernel replaced by its plain version. Printed per case: the
-     y, stats and dx errors, and per kernel the median ms of kernel and
-     plain and the kernel's GB/s;
+     with every kernel replaced by its plain version, each of its four
+     kernels against its plain version; then, at the same shapes, the
+     kernels' step modes against their plain versions: the raw statistics,
+     and the tail forward and backward with no residual, a residual and a
+     residual through ``residual_pre``, act on and off. Printed per case:
+     the errors, the median ms of kernel, plain and library call
+     (``torch.var_mean`` for the statistics; ``F.instance_norm`` on the
+     channels-last NCDHW view and its backward by ``torch.autograd.grad``
+     for rows 10 and 11, whose device kernels are listed once), the bound
+     and its share; per kernel the sums over the cases; and the step modes'
+     ms, plain ms and bound per training step (phase 5c's launches by shape
+     and mode times these cases);
   7. the trainer: a seeded synthetic sheet + normals dataset written as
      uncompressed zarr v2 (image u8 (256, 384, 384), sheet u8, normals u16)
      and ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
@@ -176,9 +191,11 @@ Phases (any failure exits non-zero and prints no result line):
 Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
-Then one JSON line of the thirteen kernels (launches, error, and ms,
-plain_ms, library_ms and bound_ms summed over each kernel's cases) and,
-last, the device line.
+Then one JSON line of the thirteen kernels and the three step modes of
+the norm-act kernels (launches, error, and ms, plain_ms, library_ms and
+bound_ms summed over each kernel's cases; the conv and upsample kernels'
+launches from phase 7's trainer, the norm-act op's from phase 6, the step
+modes' from phase 5c) and, last, the device line.
 
 Imports torch and the port only: nothing of JAX or of the JAX package.
 """
@@ -272,6 +289,10 @@ NORM_CASES = [(128, 32), (64, 64), (32, 128), (16, 256), (8, 512), (4, 512)]
 # norm-act kernel -> (fp32 operations per element, (N, 2, C) vectors moved)
 NORM_OPS = {"norm_act_stats": (3, 1), "norm_act_norm": (4, 1),
             "norm_act_bwd_stats": (6, 2), "norm_act_bwd_dx": (8, 2)}
+# the tail modes phase 6 runs at each NORM_CASES shape: (residual,
+# residual_pre) for no residual, a residual, and a residual through (a, b);
+# each with act on and off
+TAIL_MODES = ((False, False), (True, False), (True, True))
 # phase 7: the synthetic dataset and the trainer's cut of sheet_normals.yaml
 TRAIN_DATA = (256, 384, 384)
 TRAINER_EPOCHS = 2
@@ -289,6 +310,7 @@ ENGINE_TILE_BUDGET_GB = 0.75
 _PC = "mt3d_resenc_unet_tpu/ops/pallas_conv.py"
 _PU = "mt3d_resenc_unet_tpu/ops/pallas_upsample.py"
 _PN = "mt3d_resenc_unet_tpu/ops/pallas_norm_act.py"
+_IN = "mt3d_resenc_unet_tpu/ops/instance_norm.py"
 REPLACES = {
     "conv3d_k3_s1": f"{_PC}:381",
     "conv3d_k3_s2": f"{_PC}:1470",
@@ -303,9 +325,15 @@ REPLACES = {
     "norm_act_norm": f"{_PN}:63",
     "norm_act_bwd_stats": f"{_PN}:112",
     "norm_act_bwd_dx": f"{_PN}:138",
+    # the modes of the same kernels on the training step: the JAX package's
+    # XLA functions they stand for (not Pallas)
+    "norm_act_raw_stats": f"{_IN}:111",       # packed_stats_xla
+    "norm_act_tail": f"{_IN}:121",            # norm_apply_packed
+    "norm_act_tail_bwd": f"{_IN}:121",        # its backward (autodiff)
 }
 CONV_KERNELS = tuple(REPLACES)[:9]
-NORM_KERNELS = tuple(REPLACES)[9:]
+NORM_KERNELS = tuple(REPLACES)[9:13]
+TAIL_KERNELS = tuple(REPLACES)[13:]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 _CS = "mt3d_resenc_unet_torch/ops/csrc"
 SOURCES = {
@@ -318,7 +346,7 @@ SOURCES = {
     "conv3d_k3_dw_s2": f"{_CS}/conv3d_k3_dw_s2.cu",
     "upsample2x_dx": f"{_CS}/upsample2x_bwd.cu",
     "upsample2x_dw": f"{_CS}/upsample2x_bwd.cu",
-    **{name: f"{_CS}/norm_act.cu" for name in NORM_KERNELS},
+    **{name: f"{_CS}/norm_act.cu" for name in NORM_KERNELS + TAIL_KERNELS},
 }
 
 
@@ -733,12 +761,13 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
               f"  bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%})")
     failures += deterministic_cases(dev, gen, conv_cases, s2_cases,
-                                    up_cases)
+                                    up_cases, norm_cases)
     torch.cuda.empty_cache()
 
     # 5b, 5c. the flagship training step
     step_summary, step_launches, step_shapes, fails = training(
-        fast, plain, flagship_batch(dev, patch, 2), train_steps, "flagship")
+        fast, plain, flagship_batch(dev, patch, 2), train_steps, "flagship",
+        hold_repeat=True)
     failures += fails
     step_table(records, step_shapes, train_steps)
     del fast, plain
@@ -749,14 +778,30 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     failures += fails
     torch.cuda.empty_cache()
 
-    # 6. the fused instance norm + LeakyReLU op
-    norm, norm_launches, fails = norm_act_cases(dev, gen, norm_cases)
+    # 6. the fused instance norm + LeakyReLU op, and the step's modes of
+    # its kernels
+    norm, op_launches, fails = norm_act_cases(dev, gen, norm_cases)
     failures += fails
-    records += norm
-    for r in norm:
-        print(f"  {r['kernel']:18s} {r['case']:22s} err {r['max_abs_err']:.3e}"
-              f"  {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-              f"{r['gbs']:.0f} GB/s")
+    tail, fails = norm_tail_cases(dev, gen, norm_cases)
+    failures += fails
+    records += norm + tail
+    for r in norm + tail:
+        lib = ("" if r["library_ms"] is None
+               else f"  library {r['library_ms']:.3f} ms")
+        print(f"  {r['kernel']:18s} {r['case']:30s} err "
+              f"{r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
+              f"{r['plain_ms']:.3f} ms{lib}  bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%})")
+    for name in NORM_KERNELS + TAIL_KERNELS:
+        mine = [r for r in norm + tail if r["kernel"] == name]
+        ms = sum(r["ms"] for r in mine)
+        b_ms = sum(r["bound_ms"] for r in mine)
+        lib = [r["library_ms"] for r in mine if r["library_ms"] is not None]
+        print(f"{name} over phase 6's {len(mine)} cases [{card()}]: "
+              f"{ms:.3f} ms, plain {sum(r['plain_ms'] for r in mine):.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_ms / ms:.1%} of it)"
+              + (f", library {sum(lib):.3f} ms" if lib else ""))
+    norm_step_table(tail, step_shapes, train_steps)
     torch.cuda.empty_cache()
 
     # 7. the trainer on a synthetic zarr dataset
@@ -764,7 +809,8 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                                                         step_rate)
     failures += fails
     launches = {**{k: train_launches.get(k, 0) for k in CONV_KERNELS},
-                **{k: norm_launches.get(k, 0) for k in NORM_KERNELS}}
+                **{k: op_launches.get(k, 0) for k in NORM_KERNELS},
+                **{k: step_launches.get(k, 0) for k in TAIL_KERNELS}}
     failures += [f"kernels line: {k} has no launches"
                  for k, v in launches.items() if v <= 0]
 
@@ -970,14 +1016,18 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
     return records, failures
 
 
-def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
+def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases,
+                        norm_cases=()):
     """Phase 5d: all nine conv and upsample kernels twice each on the same
     inputs at the flagship's shapes, in the training step's modes (forward
     with stats, pre-op + stats and add-in + stats; dx with the correction,
     and with the pre-op backward too; dW with the correction, and with the
-    pre-op at stride 1; the upsample forward, dx and dW). Every
-    output, statistic and [sum du*x; sum du] must be bit-equal: the kernels
-    sum in a fixed order, without atomics. Returns the failures."""
+    pre-op at stride 1; the upsample forward, dx and dW), and the norm-act
+    kernels at the flagship's norm shapes (``norm_cases``): the stats
+    kernel in both modes, the bwd-stats kernel, and the tail forward and
+    backward with a residual through (a, b). Every output, statistic and
+    [sum du*x; sum du] must be bit-equal: the kernels sum in a fixed
+    order, without floating-point atomics. Returns the failures."""
     from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3, conv3d_k3_dw,
                                                    conv3d_k3_dx)
     from mt3d_resenc_unet_torch.ops.upsample import (upsample2x,
@@ -1031,6 +1081,23 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases):
         check("upsample2x_dx", shape, lambda: upsample2x_dx(gy, wf))
         check("upsample2x_dw", shape, lambda: upsample2x_dw(x, gy))
         del x, wf, gy
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    for extent, c in norm_cases:
+        x2, r2, g2 = (randn(n, extent ** 3, c).bfloat16() for _ in range(3))
+        inv, a = (torch.rand(n, c, generator=gen).to(dev) + 0.5
+                  for _ in range(2))
+        shift, b = randn(n, c), randn(n, c)
+        st = na.norm_act_stats(x2)
+        shape = f"{extent}^3 x {c}"
+        check("norm_act_stats", shape, lambda: na.norm_act_stats(x2))
+        check("norm_act_raw_stats", shape, lambda: na.raw_stats(x2))
+        check("norm_act_bwd_stats", shape,
+              lambda: na.norm_act_bwd_stats(x2, st, g2))
+        check("norm_act_tail", f"{shape} residual_pre_act",
+              lambda: na.norm_tail(x2, inv, shift, r2, a, b))
+        check("norm_act_tail_bwd", f"{shape} residual_pre_act",
+              lambda: na.norm_tail_bwd(x2, r2, inv, shift, a, b, g2))
+        del x2, r2, g2, st
     return failures
 
 
@@ -1140,8 +1207,23 @@ def training(fast, plain, batch, steps, label, losses=FLAGSHIP_LOSSES,
     launches = dict(_build.LAUNCHES)
     shapes = dict(_build.LAUNCH_SHAPES)
     torch.cuda.empty_cache()
+    _build.clear_counts()
     want = train_path(plain, batch, steps, f"{label} plain fp32", losses)
-    print(f"{label} training launches {launches}")
+    plain_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"{label} training launches {launches}; the fp32 plain path's "
+          f"{plain_launches}")
+    if plain_launches:
+        failures.append(f"{label}: the fp32 plain path launched "
+                        f"{plain_launches}")
+    from mt3d_resenc_unet_torch.models.network import norm_launches
+    implied = {k: v * steps for k, v in norm_launches(
+        fast.plan, tuple(batch["image"].shape[1:4]), n).items()}
+    got_tail = {k: launches.get(k, 0) for k in implied}
+    print(f"{label} norm-act modes launched in {steps} steps {got_tail}, "
+          f"as the plan implies {implied}: {got_tail == implied}")
+    if got_tail != implied:
+        failures.append(f"{label}: norm-act modes launched {got_tail}, the "
+                        f"plan implies {implied}")
     flops = train_step_flops(fast.plan, tuple(batch["image"].shape[1:4]))
     smi = card()
     for (metrics, ms, peak, _), path in ((got, "kernels bf16"),
@@ -1292,6 +1374,7 @@ def ink_phase(dev, gen, patch, n):
     failures += fails
     del fast, plain, batch
     torch.cuda.empty_cache()
+    shapes = {k: v for k, v in shapes.items() if k[0] in CONV_KERNELS}
     print("ink launches per step by shape and mode: " + ", ".join(
         f"{k} {ci}->{co} {_at((d, h, w))} {mode} {c / INK_STEPS:g}"
         for (k, (ci, co, d, h, w), mode), c in sorted(shapes.items())))
@@ -1397,6 +1480,187 @@ def _mean_inv_err(got, want):
                                ((got[:, 1] - inv).abs() / inv).max()))
 
 
+def library_norm_ms(x, act, slope, eps, show=False):
+    """The PyTorch calls rows 10-11 are held against, on the same bf16
+    data: ``torch.var_mean`` over the voxels (the stats kernel),
+    ``F.instance_norm`` (then ``F.leaky_relu`` when ``act``) on x's
+    channels-last NCDHW view (the norm, with its own statistics: row 10's
+    function) and its backward through ``torch.autograd.grad`` (row 11's:
+    the cotangent given). ``show``: print the device kernels each runs, so
+    the copies PyTorch makes for the channels-last view can be read.
+    Returns {kernel: ms} for the stats, norm and bwd_dx kernels (bwd_stats
+    has no call of its own)."""
+    import torch.nn.functional as F
+    n, c = x.shape[0], x.shape[-1]
+    x2 = x.reshape(n, -1, c)
+    xl = x.permute(0, 4, 1, 2, 3).detach().requires_grad_()
+    gl = torch.randn_like(x).permute(0, 4, 1, 2, 3)
+
+    def fwd():
+        y = F.instance_norm(xl, eps=eps)
+        return F.leaky_relu(y, slope) if act else y
+
+    y = fwd()
+
+    def bwd():
+        return torch.autograd.grad(y, xl, gl, retain_graph=True)
+
+    out = {"norm_act_stats": median_ms(lambda: torch.var_mean(x2, dim=1)),
+           "norm_act_norm": median_ms(fwd), "norm_act_bwd_dx": median_ms(bwd)}
+    if show:
+        for what, fn in (("F.instance_norm", fwd), ("its backward", bwd)):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.key[:90] for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            print(f"library {what} on the channels-last view "
+                  f"{tuple(x.shape)}: device kernels {names}")
+    del y
+    return out
+
+
+def sums_err(got, want):
+    """Error of (N, K, C) fp32 sums: each row k's max abs error against
+    that row's max abs (a channel's sum can cancel to near zero)."""
+    return max(float((got[:, k] - want[:, k]).abs().max()
+                     / want[:, k].abs().max().clamp_min(1e-30))
+               for k in range(want.shape[1]))
+
+
+def norm_tail_cases(dev, gen, cases):
+    """Phase 6, the step's modes: at each (extent, C) of ``cases``, N=2
+    bf16, the raw statistics (mode (a)), the tail forward (b) and the tail
+    backward (c) in each of TAIL_MODES with act on and off, each against
+    its plain version on the same inputs (errors: KERNEL_TOL on the
+    outputs and cotangents, STATS_TOL on the fp32 sums), timed against it
+    (``torch.var_mean`` the raw statistics' library call; the tail has no
+    one PyTorch call). Returns (records, failures); a record's ``shape``
+    and ``mode`` are those ``_build.LAUNCH_SHAPES`` records."""
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    slope, n = 1e-2, 2
+    records, failures = [], []
+    for extent, c in cases:
+        s = extent ** 3
+        x2 = (torch.randn(n, s, c, generator=gen) * 2 + 0.5).to(
+            dev).bfloat16()
+        r2, g2 = (torch.randn(n, s, c, generator=gen).to(dev).bfloat16()
+                  for _ in range(2))
+        inv, a = ((torch.rand(n, c, generator=gen) + 0.5).to(dev)
+                  for _ in range(2))
+        shift, b = (torch.randn(n, c, generator=gen).to(dev)
+                    for _ in range(2))
+        tensor = x2.numel() * x2.element_size()
+        vec = n * c * 4
+        at = f"{extent}^3 x {c}"
+        with torch.no_grad():
+            got, want = na.raw_stats(x2), na.raw_stats_plain(x2)
+            err = stats_err(got, want)
+            b_ms, b_by = bound(3 * x2.numel(), tensor + 2 * vec, PEAK_FP32)
+            records.append(dict(
+                kernel="norm_act_raw_stats", case=at, shape=(n, s, c),
+                mode="plain", max_abs_err=err,
+                ms=median_ms(lambda: na.raw_stats(x2)),
+                plain_ms=median_ms(lambda: na.raw_stats_plain(x2)),
+                library_ms=median_ms(lambda: torch.var_mean(x2, dim=1)),
+                bound_ms=b_ms, bound_by=b_by))
+            if not err <= STATS_TOL:
+                failures.append(f"norm_act_raw_stats {at}: err {err}")
+            for (res, pre), act in ((m, act) for m in TAIL_MODES
+                                    for act in (True, False)):
+                rr = r2 if res else None
+                aa, bb = (a, b) if pre else (None, None)
+                mode = _build.mode_name(residual=res, pre=pre, act=act)
+                label = f"{at} {mode}"
+                fwd = (lambda: na.norm_tail(x2, inv, shift, rr, aa, bb,
+                                            slope, act))
+                fwd0 = (lambda: na.norm_tail_plain(x2, inv, shift, slope,
+                                                   act, rr, aa, bb))
+                bwd = (lambda: na.norm_tail_bwd(x2, rr, inv, shift, aa, bb,
+                                                g2, slope, act))
+                bwd0 = (lambda: na.norm_tail_bwd_plain(x2, rr, inv, shift,
+                                                       aa, bb, g2, slope,
+                                                       act))
+                y, y0 = fwd(), fwd0()
+                (dy, dr, sm), (dy0, dr0, sm0) = bwd(), bwd0()
+                torch.cuda.synchronize()
+                e_fwd = rel_err(y, y0)
+                e_bwd = max([rel_err(dy, dy0)]
+                            + ([rel_err(dr, dr0)] if res else []))
+                e_sums = sums_err(sm, sm0)
+                print(f"norm tail {label}: out err {e_fwd:.3e} (bit-equal "
+                      f"{torch.equal(y, y0)}), dy/dr err {e_bwd:.3e} "
+                      f"(bit-equal {torch.equal(dy, dy0)}), sums err "
+                      f"{e_sums:.3e}")
+                if not (e_fwd <= KERNEL_TOL and e_bwd <= KERNEL_TOL
+                        and e_sums <= STATS_TOL):
+                    failures.append(f"norm tail {label}: out {e_fwd} "
+                                    f"dy/dr {e_bwd} sums {e_sums}")
+                k = 4 if pre else 2
+                ops = 2 + res + 3 * pre + act
+                reads = (2 + res) * tensor      # y, g (and the residual)
+                b_ms, b_by = bound(ops * x2.numel(), (1 + res) * tensor
+                                   + tensor + (2 + 2 * pre) * vec, PEAK_FP32)
+                records.append(dict(
+                    kernel="norm_act_tail", case=label, shape=(n, s, c),
+                    mode=mode, max_abs_err=e_fwd, ms=median_ms(fwd),
+                    plain_ms=median_ms(fwd0), library_ms=None,
+                    bound_ms=b_ms, bound_by=b_by))
+                b_ms, b_by = bound((ops + 5 + 5 * pre) * x2.numel(),
+                                   reads + (1 + res) * tensor
+                                   + (2 + 2 * pre) * vec + k * vec,
+                                   PEAK_FP32)
+                records.append(dict(
+                    kernel="norm_act_tail_bwd", case=label, shape=(n, s, c),
+                    mode=mode, max_abs_err=max(e_bwd, e_sums),
+                    ms=median_ms(bwd), plain_ms=median_ms(bwd0),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                del y, y0, dy, dr, sm, dy0, dr0, sm0
+        del x2, r2, g2
+        torch.cuda.empty_cache()
+    return records, failures
+
+
+def norm_step_table(records, shapes, steps):
+    """Rows 10-11's modes per training step: each kernel's launches per
+    step (phase 5c's counts by (N, S, C) and mode) times phase 6's case of
+    the same shape and mode: kernel ms, plain ms and bound per step.
+    Returns {kernel: (launches, ms, plain ms, bound ms)} per step."""
+    cases = {(r["kernel"], r["shape"], r["mode"]): r for r in records
+             if "shape" in r}
+    out = {}
+    print("rows 10-11's modes per training step (phase 5c launches x "
+          "phase 6 cases):")
+    for name in TAIL_KERNELS:
+        tot = collections.Counter()
+        for (kname, shape, mode), count in sorted(shapes.items()):
+            if kname != name:
+                continue
+            per = count / steps
+            tot["launches"] += per
+            r = cases.get((name, tuple(shape), mode))
+            if r is None:
+                tot["uncovered"] += per
+                continue
+            for k in ("ms", "plain_ms", "bound_ms"):
+                tot[k] += per * r[k]
+        mix = ", ".join(f"S={shape[1]} C={shape[2]} {mode} {c / steps:g}"
+                        for (kname, shape, mode), c in sorted(shapes.items())
+                        if kname == name)
+        print(f"  {name} launches per step by shape and mode: {mix}")
+        print(f"  {name:18s} {tot['launches']:5.1f} launches  kernel "
+              f"{tot['ms']:8.3f} ms  plain {tot['plain_ms']:8.3f} ms  bound "
+              f"{tot['bound_ms']:7.3f} ms (bytes)"
+              + (f"  uncovered {tot['uncovered']:.1f}" if tot["uncovered"]
+                 else ""))
+        out[name] = (tot["launches"], tot["ms"], tot["plain_ms"],
+                     tot["bound_ms"])
+    return out
+
+
 def norm_act_cases(dev, gen, cases):
     """Phase 6. Returns (per-kernel records, the op path's launch counts,
     failures)."""
@@ -1430,8 +1694,10 @@ def norm_act_cases(dev, gen, cases):
         y0, st0, dx0 = _norm_act_plain_op(x, scale, bias, act, gy, eps,
                                           slope)
         y_err, dx_err = rel_err(y.detach(), y0), rel_err(xg.grad, dx0)
-        # each kernel against its plain version on the same inputs
+        # each kernel against its plain version on the same inputs, and
+        # the library calls rows 10-11 are held against
         fuse = act and not affine
+        lib_ms = library_norm_ms(x, fuse, slope, eps, show=not records)
         x2, g2 = x.reshape(n, -1, c), gy.reshape(n, -1, c)
         with torch.no_grad():
             st = na.norm_act_stats(x2, eps)
@@ -1468,9 +1734,7 @@ def norm_act_cases(dev, gen, cases):
                                    PEAK_FP32)
                 records.append(dict(
                     kernel=name, case=label, max_abs_err=errs[name], ms=ms,
-                    plain_ms=plain_ms, library_ms=median_ms(
-                        lambda: torch.var_mean(x2, dim=1))
-                    if name == "norm_act_stats" else None,
+                    plain_ms=plain_ms, library_ms=lib_ms.get(name),
                     bound_ms=b_ms, bound_by=b_by,
                     gbs=tensors * x.numel() * x.element_size() / ms / 1e6))
         tol = {"norm_act_stats": STATS_TOL, "norm_act_bwd_stats": STATS_TOL}

@@ -13,7 +13,9 @@ so the numerics follow the same order:
 * the decoder's skip concat is a split-weight pair whose second conv adds
   the first one's output and takes the statistics of the sum;
 * one elementwise tail pass applies the last norm, the residual and the
-  LeakyReLU (ops/instance_norm.py ``norm_apply``).
+  LeakyReLU (ops/instance_norm.py ``norm_apply``); with ``use_kernels``
+  the tail, and the statistics of every producer that does not emit them,
+  run on the norm-act kernels (``NormTailFn``, ``RawStatsFn``).
 
 The JAX package runs this pipeline only where its Pallas kernels take the
 shape and the unfused conv -> norm -> act order elsewhere; both compute the
@@ -51,6 +53,7 @@ Semantics match the reference blocks (simple_conv_blocks.py, resblocks.py):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -191,7 +194,7 @@ class Conv(nn.Module):
         y, stats = self._conv(x, x2, pre)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-            stats = instance_stats(y)
+            stats = instance_stats(y, self.use_kernels)
         return y, stats
 
     def _pointwise(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -212,12 +215,16 @@ class Conv(nn.Module):
                 c1 = x.shape[-1]
                 y = (self._pointwise(x, w[..., :c1, :]).to(x.dtype)
                      + self._pointwise(x2, w[..., c1:, :]).to(x.dtype))
-            return y.to(x.dtype), instance_stats(y)
+            return y.to(x.dtype), instance_stats(y, self.use_kernels)
         k3 = (self.kernel_size == (3, 3, 3)
               and self.stride in ((1, 1, 1), (2, 2, 2)))
         stride = self.stride[0] if k3 else self.stride
-        conv = (conv3d_k3_plain if k3 and x.dtype == torch.float32
-                else lowp.conv)
+        if k3 and x.dtype == torch.float32:
+            # an fp32 model's 3x3x3 convs outside the conv kernels' class:
+            # the kernels' plain version, which emits its own statistics
+            conv = conv3d_k3_plain
+        else:
+            conv = functools.partial(lowp.conv, use_kernels=self.use_kernels)
         if x2 is None:
             pv = pre_vector(pre) if pre is not None else None
             if k3 and self._kernel_class(x, w):
@@ -240,13 +247,18 @@ class InstanceNorm(nn.Module):
     statistics, then optional residual add and LeakyReLU. ``affine``: the
     parameters ``scale`` (ones) and ``bias`` (zeros) of shape (C,), folded
     into the normalization vectors as JAX folds them; the reference default
-    is affine=False, which holds no parameters."""
+    is affine=False, which holds no parameters. ``use_kernels``: the
+    kernels' class of shapes goes to the norm-act kernels' tail mode
+    (ops/instance_norm.py ``norm_apply``), as ``Conv`` sends its class to
+    the conv kernels."""
 
     def __init__(self, c: int, eps: float = 1e-5,
-                 negative_slope: float = 1e-2, affine: bool = False):
+                 negative_slope: float = 1e-2, affine: bool = False,
+                 use_kernels: bool = False):
         super().__init__()
         self.eps = eps
         self.negative_slope = negative_slope
+        self.use_kernels = use_kernels
         self.scale = nn.Parameter(torch.ones(c)) if affine else None
         self.bias = nn.Parameter(torch.zeros(c)) if affine else None
 
@@ -261,7 +273,7 @@ class InstanceNorm(nn.Module):
         """Normalize ``y`` with its (N, 2, C) [sum; sumsq] ``stats``."""
         inv, shift = self.vectors(stats, voxel_count(y))
         return norm_apply(y, inv, shift, self.negative_slope, act,
-                          residual, residual_pre)
+                          residual, residual_pre, self.use_kernels)
 
 
 class ConvNormAct(nn.Module):
@@ -279,7 +291,8 @@ class ConvNormAct(nn.Module):
         super().__init__()
         self.conv = Conv(ci, co, kernel, stride, use_kernels, pre_pool,
                          negative_slope, conv_bias)
-        self.norm = InstanceNorm(co, eps, negative_slope, norm_affine)
+        self.norm = InstanceNorm(co, eps, negative_slope, norm_affine,
+                                 use_kernels)
         self.dropout_p = dropout_p
 
     def forward(self, x, x2=None, pre=None):
@@ -293,7 +306,7 @@ class ConvNormAct(nn.Module):
         y, stats = self.conv(x, x2)
         if self.training and self.dropout_p > 0.0:
             y = dropout(y, self.dropout_p, generator)
-            stats = instance_stats(y)
+            stats = instance_stats(y, self.conv.use_kernels)
         return self.norm(y, stats, act)
 
 
@@ -311,12 +324,14 @@ class _ResidualSkip(nn.Module):
     then takes the pair with split weights (JAX blocks.py:515-521)."""
 
     def __init__(self, ci: int, co: int, stride: Conv3, eps: float,
-                 negative_slope: float, norm_affine: bool = False):
+                 negative_slope: float, norm_affine: bool = False,
+                 use_kernels: bool = False):
         super().__init__()
         self.pool = tuple(stride) if any(s != 1 for s in stride) else ()
         ones = (1,) * len(stride)
-        self.proj = (ConvNormAct(ci, co, ones, ones, pre_pool=self.pool,
-                                 eps=eps, negative_slope=negative_slope,
+        self.proj = (ConvNormAct(ci, co, ones, ones, use_kernels,
+                                 pre_pool=self.pool, eps=eps,
+                                 negative_slope=negative_slope,
                                  norm_affine=norm_affine)
                      if ci != co else None)
 
@@ -422,7 +437,7 @@ class BasicBlockD(_Residual):
         self.conv2 = ConvNormAct(co, co, kernel, (1,) * len(stride),
                                  use_kernels, **opts)
         self.skip = (_ResidualSkip(ci, co, stride, eps, negative_slope,
-                                   norm_affine)
+                                   norm_affine, use_kernels)
                      if any(s != 1 for s in stride) or ci != co else None)
         self.fused = _fused(conv_bias, norm_affine, dropout_p)
 
@@ -473,7 +488,7 @@ class BottleneckD(_Residual):
         opts = dict(eps=eps, negative_slope=negative_slope,
                     conv_bias=conv_bias, norm_affine=norm_affine)
         self.skip = (_ResidualSkip(ci, co, stride, eps, negative_slope,
-                                   norm_affine)
+                                   norm_affine, use_kernels)
                      if any(s != 1 for s in stride) or ci != co else None)
         self.conv1 = ConvNormAct(ci, bottleneck, ones, ones, use_kernels,
                                  **opts)
@@ -506,6 +521,7 @@ class StackedResidualBlocks(nn.Module):
                  bottleneck_features: Optional[int] = None, **opts):
         super().__init__()
         self.negative_slope = negative_slope
+        self.use_kernels = use_kernels
         ones = (1,) * len(initial_stride)
         self.blocks = []
         for i in range(n_blocks):
@@ -527,7 +543,8 @@ class StackedResidualBlocks(nn.Module):
                                     and first.takes_pre()):
             # the first block cannot take the handoff (JAX blocks.py:771-794):
             # apply the producer's norm here
-            x = norm_apply(x, pre[0], pre[1], self.negative_slope, act=True)
+            x = norm_apply(x, pre[0], pre[1], self.negative_slope, act=True,
+                           use_kernels=self.use_kernels)
             pre = None
         for i, block in enumerate(self.blocks):
             if isinstance(block, BottleneckD):

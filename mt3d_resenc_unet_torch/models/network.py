@@ -272,3 +272,76 @@ def count_params(model: nn.Module) -> int:
     """Total learnable parameter count
     (reference: utils.py:8-9 get_number_of_learnable_parameters)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def norm_launches(plan: NetworkPlan, patch, n: int,
+                  dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """The norm-act kernel launches one forward of a kernel model
+    (``use_pallas_conv``) makes at ``patch`` and batch ``n``, as the plan
+    implies them: ``norm_act_tail`` once for each norm applied by a tail
+    pass (each residual block's, each skip projection's, each decoder
+    stage's, a handoff the first block cannot take), ``norm_act_raw_stats``
+    once for each conv whose statistics no conv kernel emits (the stem,
+    the convs outside the conv kernels' class, the 1x1 projections); the
+    backward launches ``norm_act_tail_bwd`` once for each tail. Derived
+    from the plan's stages and the conv kernels' shape classes, not from
+    the model, so that a run can hold its launch counts against it. For a
+    residual BasicBlockD encoder and a ConvBlock decoder without conv bias,
+    affine norm or dropout in 3-D (the flagship's and ``tasks/ink.yaml``'s
+    plans); raises on another plan."""
+    from ..ops.conv3d import conv_s1_supported, conv_s2_supported
+    p = plan
+    if not (p.basic_encoder_block == "BasicBlockD" and p.dim == 3
+            and p.basic_decoder_block == "ConvBlock" and p.do_stem
+            and not (p.conv_bias or p.norm_affine or p.dropout_p > 0.0)):
+        raise NotImplementedError("norm_launches: not a plan it counts")
+    vec = 8 if dtype == torch.bfloat16 else 4
+
+    def in_class(c: int) -> bool:
+        return c % vec == 0 and c // vec <= 256
+
+    def unfused(ext, ci, co, stride) -> bool:
+        """A 3x3x3 conv whose statistics the raw mode takes: outside the
+        conv kernels' class, in a 16-bit model (an fp32 model's run
+        conv3d_k3_plain, which emits its own)."""
+        if dtype == torch.float32 or not in_class(co):
+            return False
+        x, w = (n, *ext, ci), (3, 3, 3, ci, co)
+        if stride == (1, 1, 1):
+            return not conv_s1_supported(x, w)
+        return not (stride == (2, 2, 2) and conv_s2_supported(x, w))
+
+    if not p.use_pallas_conv:
+        return {"norm_act_tail": 0, "norm_act_raw_stats": 0,
+                "norm_act_tail_bwd": 0}
+    tails = raw = 0
+    ext, ci = tuple(patch), p.stem_width
+    raw += unfused(ext, p.in_channels, ci, (1, 1, 1))     # the stem
+    exts = []
+    for s in range(p.num_stages):
+        co, stride = p.features_per_stage[s], tuple(p.strides[s])
+        for b in range(p.n_blocks_per_stage[s]):
+            st = stride if b == 0 else (1, 1, 1)
+            cin = ci if b == 0 else co
+            out = tuple(e // t for e, t in zip(ext, st))
+            has_skip = st != (1, 1, 1) or cin != co
+            if s == 0 and b == 0 and (has_skip or p.squeeze_excitation
+                                      or p.stochastic_depth_p > 0.0):
+                tails += in_class(ci)                     # handoff applied
+            if cin != co:                                 # the projection
+                raw += in_class(co)
+                tails += in_class(co)
+            raw += unfused(ext, cin, co, st)
+            raw += unfused(out, co, co, (1, 1, 1))
+            tails += in_class(co)
+            ext = out
+        ci = co
+        exts.append(ext)
+    for _ in p.tasks:
+        for s in range(1, p.num_stages):
+            c, e = p.features_per_stage[-1 - s], exts[-1 - s]
+            raw += unfused(e, c, c, (1, 1, 1)) * p.n_conv_per_stage_decoder[
+                s - 1]                                    # the pair first
+            tails += in_class(c)
+    return {"norm_act_tail": tails, "norm_act_raw_stats": raw,
+            "norm_act_tail_bwd": tails}

@@ -43,13 +43,16 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 LAUNCH_SHAPES: Dict[tuple, int] = collections.Counter()
 
 
+def mode_name(**modes: bool) -> str:
+    """The names of the fusion ``modes`` that are on, joined by "_", or
+    "plain": the mode :func:`count` records."""
+    return "_".join(m for m, on in modes.items() if on) or "plain"
+
+
 def count(name: str, shape, **modes: bool) -> None:
-    """Count one launch of kernel ``name`` at ``shape``; its mode is the
-    names of the fusion ``modes`` that are on, joined by "_", or
-    "plain"."""
-    mode = "_".join(m for m, on in modes.items() if on) or "plain"
+    """Count one launch of kernel ``name`` at ``shape`` in ``modes``."""
     LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, tuple(shape), mode)] += 1
+    LAUNCH_SHAPES[(name, tuple(shape), mode_name(**modes))] += 1
 
 
 def clear_counts() -> None:

@@ -5,9 +5,17 @@ the next conv applies them as its pre-op or ``norm_apply`` does in one
 elementwise tail pass.
 
 These are XLA, not Pallas, in the JAX package
-(mt3d_resenc_unet_tpu/ops/instance_norm.py:89-145), so they are plain
-PyTorch elementwise ops here, computed in fp32 and stored in the input's
-dtype. No layout packing: every tensor is plain (N, D, H, W, C).
+(mt3d_resenc_unet_tpu/ops/instance_norm.py:89-145). No layout packing:
+every tensor is plain (N, D, H, W, C). With ``use_kernels`` (a kernel
+model's blocks pass theirs) ``norm_apply`` and ``instance_stats`` send the
+shapes of ``norm_act.kernel_class`` to the norm-act kernels' tail and
+raw-statistics modes (``norm_act.NormTailFn``, ``RawStatsFn``): every
+residual block's tail, the skip projections' norms, the decoder stages'
+last norm, the stem handoff where a stage applies it, and the statistics
+of the producers whose conv does not emit them (the stem, the plain-class
+convs, the 1x1 projections, a conv with a bias, dropout). Otherwise they
+are plain PyTorch elementwise ops, computed in fp32 and stored in the
+input's dtype: the fp32 reference model launches no norm kernel.
 """
 
 from __future__ import annotations
@@ -16,14 +24,20 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import norm_act
+
 Vectors = Tuple[torch.Tensor, torch.Tensor]
 
 
-def instance_stats(x: torch.Tensor) -> torch.Tensor:
+def instance_stats(x: torch.Tensor, use_kernels: bool = False
+                   ) -> torch.Tensor:
     """(N, *spatial, C) -> (N, 2, C) fp32 [sum; sumsq] over all voxels:
-    the statistics the conv kernels emit, for producers that do not."""
-    xf = x.float().flatten(1, -2)
-    return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
+    the statistics the conv kernels emit, for producers that do not; with
+    ``use_kernels`` and a shape of the kernels' class, the stats kernel's
+    raw mode (``norm_act.RawStatsFn``)."""
+    if use_kernels and norm_act.kernel_class(x):
+        return norm_act.RawStatsFn.apply(x)
+    return norm_act.raw_stats_plain(x)
 
 
 def stats_to_scale_shift(stats: torch.Tensor, count: int, eps: float,
@@ -49,36 +63,27 @@ def pre_vector(vectors: Vectors) -> torch.Tensor:
     return torch.stack(vectors, dim=1).float().contiguous()
 
 
-def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
-    return v.float().reshape(v.shape[0], *([1] * (ndim - 2)), v.shape[-1])
-
-
-def _leaky(u: torch.Tensor, negative_slope: float) -> torch.Tensor:
-    return torch.where(u >= 0, u, u * negative_slope)
-
-
 def norm_apply(y: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor,
                negative_slope: float, act: bool = True,
                residual: Optional[torch.Tensor] = None,
-               residual_pre: Optional[Vectors] = None) -> torch.Tensor:
+               residual_pre: Optional[Vectors] = None,
+               use_kernels: bool = False) -> torch.Tensor:
     """``leaky((y * inv - shift) [+ residual])``, elementwise, with
-    precomputed per-(sample, channel) vectors (N, C).
+    precomputed per-(sample, channel) vectors (N, C), in fp32, rounded once
+    to y's dtype.
 
     ``residual_pre``: (scale, shift) applied to the residual first,
     ``residual = leaky(residual * scale - shift)``: the stem handoff, where
     the block input is the raw stem conv output and the true residual is its
-    normalized form (JAX ``norm_apply_packed``)."""
-    nd = y.dim()
-    u = y.float() * _bcast(inv, nd) - _bcast(shift, nd)
-    if residual is not None:
-        r = residual.float()
-        if residual_pre is not None:
-            r = _leaky(r * _bcast(residual_pre[0], nd)
-                       - _bcast(residual_pre[1], nd), negative_slope)
-        u = u + r
-    if act:
-        u = _leaky(u, negative_slope)
-    return u.to(y.dtype)
+    normalized form (JAX ``norm_apply_packed``). ``use_kernels``: a shape of
+    the kernels' class goes to ``norm_act.NormTailFn`` (the norm kernel's
+    tail mode forward, the bwd-stats kernel's backward)."""
+    a, b = residual_pre if residual_pre is not None else (None, None)
+    if use_kernels and norm_act.kernel_class(y, residual):
+        return norm_act.NormTailFn.apply(y, inv, shift, residual, a, b,
+                                         negative_slope, act)
+    return norm_act.norm_tail_plain(y, inv, shift, negative_slope, act,
+                                    residual, a, b)
 
 
 def instance_norm_act(x: torch.Tensor, eps: float = 1e-5,

@@ -20,14 +20,15 @@ conv a bf16 activation. The functions here do the same for an input in a
   rounded to the input's dtype: the same products, summed in another order.
 
 A pre-op's normalized input is rounded to the input's dtype before the
-conv; statistics are fp32 sums of the rounded output. Everything is plain
-PyTorch differentiated by autograd, except the stem's weight gradient
-(:class:`StemConvFn`). ``conv3d.conv3d_k3_plain`` and ``upsample.
-upsample_plain`` stay the fp32 path of the kernels' shape classes (the fp32
-reference model, and the kernels' yardsticks); an fp32 input comes here
-only for what no kernel class covers (:func:`conv` of another kernel,
-stride or rank; the pointwise and matmul functions), and is computed in
-fp32.
+conv; statistics are fp32 sums of the rounded output (in a kernel model the
+stats kernel's raw mode takes them, ``instance_stats``). Everything else is
+plain PyTorch differentiated by autograd, except the stem's weight gradient
+(:class:`StemConvFn`). ``conv3d.conv3d_k3_plain`` and
+``upsample.upsample_plain`` stay the fp32 path of the kernels' shape
+classes (the fp32 reference model, and the kernels' yardsticks); an fp32
+input comes here only for what no kernel class covers (:func:`conv` of
+another kernel, stride or rank; the pointwise and matmul functions), and is
+computed in fp32.
 """
 
 from __future__ import annotations
@@ -131,14 +132,17 @@ def apply_pre(x: torch.Tensor, pre: torch.Tensor,
 def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
          pre: Optional[torch.Tensor] = None,
          add_to: Optional[torch.Tensor] = None,
-         emit_stats: bool = False, negative_slope: float = 1e-2):
+         emit_stats: bool = False, negative_slope: float = 1e-2,
+         use_kernels: bool = False):
     """The function of ``conv3d.conv3d_k3_plain`` in x's dtype, for any
     rank, kernel and stride: the pre-op (:func:`apply_pre`); the conv
     (:class:`StemConvFn` in the stem's class); ``add_to`` added in x's
     dtype (JAX adds the two halves' outputs so); ``emit_stats``: fp32
-    [sum; sumsq] of the result. Returns ``y`` or ``(y, stats)``. An fp32
-    input computes the same in fp32: the fp32 model's convs outside the
-    3x3x3 class (other kernels, anisotropic strides, 2-D plans)."""
+    [sum; sumsq] of the result (``instance_stats``: with ``use_kernels``
+    the stats kernel's raw mode where the shape is in its class). Returns
+    ``y`` or ``(y, stats)``. An fp32 input computes the same in fp32: the
+    fp32 model's convs outside the 3x3x3 class (other kernels, anisotropic
+    strides, 2-D plans)."""
     if pre is not None:
         x = apply_pre(x, pre, negative_slope)
     w = w.to(x.dtype)
@@ -148,7 +152,7 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
         y = _conv(x, w, stride)
     if add_to is not None:
         y = y + add_to
-    return (y, instance_stats(y)) if emit_stats else y
+    return (y, instance_stats(y, use_kernels)) if emit_stats else y
 
 
 def pool_proj(x: torch.Tensor, k: torch.Tensor,

@@ -7,13 +7,19 @@ Builds the flagship plan (128^3 patch, 6 stages, sheet + normals heads,
 torch-default weights from seed 0; with ``--squeeze-excitation`` the
 network of ``tasks/sheet_normals.yaml``) in bf16 through the kernels, runs two
 warm-up steps of the training step (batch 2, BCEDice + MaskedCosine, clip 3,
-AdamW), then traces ``--steps`` steps with ``torch.profiler`` and prints the
-device time per step in groups (the port's kernels by row of PERF.md's
-kernel table, stride 1 and 2 apart; cuDNN/GEMM of
-the plain classes, elementwise, reductions, the optimizer), the 25 kernels
-that take the most device time, and the device's busy share of the wall
-time. The precision is ``core.config.set_precision``'s, as the trainer and
-``chip_smoke.py`` set it; the plain-torch classes run in bf16 with fp32
+AdamW), then TIMED steps without the profiler (the median step's wall
+ms, patches/s and MFU, as ``chip_smoke.py`` phase 5b measures them, and the
+peak device memory), then traces ``--steps`` steps with ``torch.profiler``
+and prints the device time and launches per step in groups (the port's
+kernels by row of PERF.md's kernel table, stride 1 and 2 apart, the
+norm-act kernels' step modes apart from the op: the norm tail forward and
+backward and the raw statistics; cuDNN/GEMM of the plain classes,
+elementwise, reductions, the optimizer), the 25 kernels that take the
+most device time, and the device's busy share of the wall time. The
+script reads only the package's public entry points, so a copy of it
+profiles an older checkout of the package the same way. The precision is
+``core.config.set_precision``'s, as the trainer and ``chip_smoke.py`` set
+it; the plain-torch classes run in bf16 with fp32
 accumulation (ops/lowp.py), so the cuDNN / GEMM group should show no fp32
 convolution or GEMM. Needs a CUDA device; exits non-zero without one.
 """
@@ -23,11 +29,15 @@ from __future__ import annotations
 import argparse
 import collections
 import re
+import statistics
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+TIMED = 6   # steps timed without the profiler, after the warm-up
 
 # the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
@@ -40,6 +50,11 @@ GROUPS = (
     ("row 7 upsample2x", r"upsample2x_ndhwc"),
     ("row 8 upsample2x_dx", r"upsample2x_dx_ndhwc"),
     ("row 9 upsample2x_dw", r"upsample2x_dw_ndhwc"),
+    # the norm-act kernels' step modes apart from the op
+    ("row 11 mode c, tail backward: norm_act_tail_bwd", r"norm_act_tail_bwd"),
+    ("row 10 mode b, tail forward: norm_act_tail", r"norm_act_tail<"),
+    ("row 10 mode a, raw statistics: norm_act_raw_stats",
+     r"norm_act_raw_stats"),
     ("rows 10-11 norm_act", r"norm_act_"),
     ("optimizer (AdamW, clip)", r"multi_tensor|foreach|fused_adam"),
     ("cuDNN / GEMM (plain classes, 1x1, seg)",
@@ -72,6 +87,7 @@ def main(argv=None) -> int:
     from ..train.losses import build_task_losses
     from ..train.step import (build_optimizer, cosine_epoch_schedule,
                               make_train_step)
+    from ..utils.flops import mfu, train_step_flops
 
     set_precision()
     dev = torch.device("cuda", 0)
@@ -99,6 +115,23 @@ def main(argv=None) -> int:
     for _ in range(2):
         step(opt, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        step(opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0])
+    ms = statistics.median(times)
+    tflops, frac = mfu(n / (ms / 1e3), train_step_flops(plan, patch))
+    print(f"{TIMED} steps without the profiler: median {ms:.1f} ms wall ("
+          + ", ".join(f"{t:.1f}" for t in times) + f"), "
+          f"{n / (ms / 1e3):.3f} patches/s, {tflops:.2f} model TFLOP/s, "
+          f"MFU {frac:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -123,7 +156,7 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}: step {wall_ms:.1f} ms wall, "
           f"{total_ms:.1f} ms device time, busy {total_ms / wall_ms:.1%}")
     for label, ms in groups.most_common():
-        print(f"  {label:40s} {ms:8.2f} ms {ms / total_ms:6.1%} "
+        print(f"  {label:50s} {ms:8.2f} ms {ms / total_ms:6.1%} "
               f"{calls[label]:6d} launches")
     print("top kernels by device time per step:")
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:

@@ -503,6 +503,47 @@ def test_norm_act_kernels_match_plain(dev, extent, c, act):
                                              act)) <= 1e-2
 
 
+@pytest.mark.parametrize("extent,c", [(12, 32), (6, 64), (3, 512)])
+@pytest.mark.parametrize("res,pre", [(False, False), (True, False),
+                                     (True, True)])
+@pytest.mark.parametrize("act", [True, False])
+def test_norm_tail_and_raw_stats_match_plain(dev, extent, c, res, pre, act):
+    """The norm-act kernels' step modes against their plain versions: the
+    tail forward bit-equal (the same fp32 operations, one rounding), the
+    cotangents within one bf16 step, the fp32 sums 1e-3; twice bit-equal."""
+    from mt3d_resenc_unet_torch.ops import norm_act as na
+    g = torch.Generator().manual_seed(9)
+    x2, r2, g2 = (torch.randn(2, extent ** 3, c, generator=g).to(
+        dev).bfloat16() for _ in range(3))
+    inv, a = ((torch.rand(2, c, generator=g) + 0.5).to(dev)
+              for _ in range(2))
+    shift, b = (torch.randn(2, c, generator=g).to(dev) for _ in range(2))
+    rr = r2 if res else None
+    aa, bb = (a, b) if pre else (None, None)
+    names = ("norm_act_tail", "norm_act_tail_bwd", "norm_act_raw_stats")
+    before = {k: _build.LAUNCHES[k] for k in names}
+    y = na.norm_tail(x2, inv, shift, rr, aa, bb, 1e-2, act)
+    dy, dr, sums = na.norm_tail_bwd(x2, rr, inv, shift, aa, bb, g2, 1e-2,
+                                    act)
+    st = na.raw_stats(x2)
+    torch.cuda.synchronize()
+    assert all(_build.LAUNCHES[k] == v + 1 for k, v in before.items())
+    assert torch.equal(y, na.norm_tail_plain(x2, inv, shift, 1e-2, act, rr,
+                                             aa, bb))
+    dy0, dr0, sums0 = na.norm_tail_bwd_plain(x2, rr, inv, shift, aa, bb, g2,
+                                             1e-2, act)
+    assert _rel(dy, dy0) <= 1e-2
+    if res:
+        assert _rel(dr, dr0) <= 1e-2
+    for k in range(sums.shape[1]):
+        assert _rel(sums[:, k], sums0[:, k]) <= 1e-3, k
+    torch.testing.assert_close(st, na.raw_stats_plain(x2), rtol=1e-3,
+                               atol=1e-3)
+    again = na.norm_tail_bwd(x2, rr, inv, shift, aa, bb, g2, 1e-2, act)
+    assert all(torch.equal(u, v) for u, v in zip((dy, sums), again[::2]))
+    assert torch.equal(st, na.raw_stats(x2))
+
+
 def test_device_prefetch_copies_batches_to_the_card(dev):
     import numpy as np
     from mt3d_resenc_unet_torch.data.pipeline import device_prefetch
