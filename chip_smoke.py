@@ -15,7 +15,10 @@ kernels against the plain path, holds the device augmentation and every
 optimizer of the factory on the card against the CPU, runs the training
 step and the trainer with the augmentation on the card, runs the training
 step and the engine's tiled pass in several processes over
-``torch.distributed``, and runs the data-prep tools.
+``torch.distributed``, runs the data-prep tools, and holds the port's own
+zarr chunk codec against golden chunks that tensorstore and ``zstandard``
+wrote. Every zarr store it makes is Blosc zstd-5 bit shuffle, the
+system's own format, read and written by the port's codec.
 
     python3 chip_smoke.py
 
@@ -105,8 +108,10 @@ Phases (any failure exits non-zero and prints no result line):
      ms, plain ms and bound per training step (phase 5c's launches by shape
      and mode times these cases);
   7. the trainer: a seeded synthetic sheet + normals dataset written as
-     uncompressed zarr v2 (image u8 (256, 384, 384), sheet u8, normals u16)
-     and ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
+     Blosc zstd-5 bit shuffle zarr v2, as the reference writes it (image
+     u8 (256, 384, 384), sheet u8, normals u16), whose first 8 samples must
+     be bit-equal to those of an uncompressed copy of the same volumes, and
+     ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
      settings, squeeze-excitation included, for 2 epochs of 6 steps and 2
      validation steps, then resumed from its checkpoint to a 3rd epoch: the
      resume must start at epoch 3 with the optimizer count at 12 and the
@@ -119,20 +124,30 @@ Phases (any failure exits non-zero and prints no result line):
      with the flagship plan at full width (torch-default init from the
      seed, saved with ``save_params``), sheet + normals heads, patch 128^3,
      overlap 0.25, batch 2, ``standardize``, on a seeded u8 volume of
-     (256, 512, 512) written as uncompressed zarr with 128^3 chunks:
+     (256, 512, 512) written as Blosc zstd-5 bit shuffle zarr with 128^3
+     chunks, into the engine's default (Blosc) stores:
      (a) ``device_accumulate: "auto"``, which must take the device pass
-     (finals marked "finalized on device"), twice; (b) the rolling host
+     (finals marked "finalized on device"), then five more times, in turns
+     on an uncompressed copy of the input and on the Blosc input: every
+     run's finals bit-equal to the first run's, the median loop rate of
+     each input, and the input's decode cost (CPU seconds of every chunk
+     on one thread, the volume read on the pool, against the uncompressed
+     copy's read); (b) the rolling host
      pass; (c) the tiled pass at a budget of two y-bands, killed after its
      first tile and resumed, whose sums and counts must be bit-equal to an
      uninterrupted tiled run's; (d) ``postprocess_only`` twice on (b)'s
      store, which must skip the finalize and keep the finals' bits; (e) a
      uint16 copy of a (160, 256, 256) corner on the device pass against
-     the rolling pass. The finals of (b), (c) and (e) are held against the
+     the rolling pass; (f) the rolling and the uncut tiled pass again on the
+     uncompressed input into uncompressed stores, for their rates beside
+     (b)'s and (c)'s. The finals of (b), (c) and (e) are held against the
      device pass's with ``tests/test_infer_device.py``'s limits; every
      launch counter is zeroed before each run and the three forward
      kernels must be above zero after it. Printed per run, beside the
      card's name and power limit: patches/s and voxels/s (wall and loop),
-     ``last_phases``, peak device memory and the host slab's peak.
+     ``last_phases``, peak device memory and the host slab's peak; then the
+     bytes on disk of the inputs and of each pass's stores, beside their
+     raw size.
   9. ``tasks/ink.yaml``'s plan (5 stages, 32-512 channels, BasicBlockD,
      the ink head with BCEWithLogitsLossZSmooth) at its (64, 192, 192)
      patch and batch 3: the eval forward against plain fp32 (ink
@@ -179,15 +194,26 @@ Phases (any failure exits non-zero and prints no result line):
      metrics bit-equal, all nine conv and upsample kernels launched; ms a
      step for each rank, the gradient all-reduce's ms and share, launches
      a step at N=1;
- 15. phase 8's volume through the engine's tiled pass at
-     ENGINE_MP_BUDGET_GB, whose y-band is not a multiple of the stores'
+ 15. phase 8's volume (Blosc, as phase 8's) through the engine's tiled
+     pass at ENGINE_MP_BUDGET_GB, whose y-band is not a multiple of the
+     stores' chunks, so the two ranks write parts of the same compressed
      chunks: one process, then two worker processes over gloo sharing the
      store (round-robin tiles): ``*_sum``, ``*_count`` and ``*_final``
      bit-equal, the ranks' tile sets disjoint and non-empty, both
      watermarks present; patches/s for each process;
  16. host only and tiny: PNG slices -> ``tools/tiff_to_zarr.py`` ->
      ``tools/zarr_crop.py`` -> the port's dataset, ``normals_slices`` and
-     ``mesh_rasterize`` once each, on this machine's packages.
+     ``mesh_rasterize`` once each, on this machine's packages; the crop
+     must be Blosc zstd, the JAX tool's default;
+ 17. host only: the port's zarr chunk codec (``data/codec.py``, built by
+     g++ from ``data/csrc/zcodec.cpp``): every golden chunk of
+     ``tests/data/zarr_codec/`` decoded to its manifest's sha256 (the only
+     decode on this machine of bytes another encoder wrote), every
+     writable compressor round-tripped over a seeded u8, u16 and f4 128^3
+     chunk, decode and encode MB/s of raw bytes on one thread and on the
+     store's chunk pool and the compression ratio for Blosc zstd-5 bit
+     shuffle on a 128^3 u8 image chunk and a 128^3 fp32 sum chunk, and
+     ``ldd`` of the library (no codec library linked).
 Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
@@ -668,7 +694,7 @@ def main() -> int:
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
              ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
-    print(f"phases 2-16: {time.perf_counter() - t0:.1f} s",
+    print(f"phases 2-17: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     return rc
 
@@ -684,7 +710,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-16 and the result lines; the case lists and sizes are
+    """Phases 2-17 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -850,6 +876,9 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 16. the data-prep tools on this machine's packages
     failures += tools_phase()
+
+    # 17. the port's zarr chunk codec
+    failures += codec_phase()
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -1815,6 +1844,53 @@ def host_sample_cost(cfg, n=24):
         augment._HAS_CV2 = has_cv2
 
 
+def store_bytes(path) -> int:
+    """Bytes on disk of every file under ``path``."""
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+SAME_SAMPLES = 8
+
+
+def same_samples(work, paths, patch, train_data):
+    """Phase 7's check: the dataset's first SAME_SAMPLES samples (read,
+    augmented, wire format) from the Blosc volumes against those of an
+    uncompressed copy, bit for bit. Returns the failures."""
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
+    from mt3d_resenc_unet_torch.tools.synthetic_data import \
+        write_sheet_dataset
+    t0 = time.perf_counter()
+    raw_paths = write_sheet_dataset(work / "data_raw", train_data, seed=SEED,
+                                    compressor=None)
+    t_raw = time.perf_counter() - t0
+    samples = []
+    for label, vols in (("blosc", paths), ("raw", raw_paths)):
+        cfg = sheet_normals_config(work, vols, patch, 1)
+        cfg["dataset_config"]["use_cache"] = False
+        t0 = time.perf_counter()
+        ds = ZarrPatchDataset(ConfigManager(config_dict=cfg, verbose=False),
+                              seed=SEED, wire=True)
+        t_open = time.perf_counter() - t0
+        samples.append([ds[i] for i in range(min(SAME_SAMPLES, len(ds)))])
+        print(f"trainer data ({label}): dataset of {len(ds)} patches opened "
+              f"(volumes read into RAM, patches mined) in {t_open:.2f} s")
+    equal = len(samples[0]) == SAME_SAMPLES and len(samples[0]) == len(
+        samples[1]) and all(
+        a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a) for a, b in zip(*samples))
+    print(f"trainer data: first {SAME_SAMPLES} samples of the Blosc dataset "
+          f"bit-equal to the uncompressed copy's: {equal} (copy written in "
+          f"{t_raw:.1f} s, {store_bytes(work / 'data_raw')} bytes on disk)")
+    import shutil
+    shutil.rmtree(work / "data_raw", ignore_errors=True)
+    return [] if equal else ["trainer data: the Blosc dataset's samples "
+                             "differ from the uncompressed copy's"]
+
+
 def trainer_phase(patch, train_data, step_rate, device_augment=False,
                   host=None):
     """Phase 7 (and, with ``device_augment``, phase 12: the same runs with
@@ -1837,7 +1913,11 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
     t0 = time.perf_counter()
     paths = write_sheet_dataset(work / "data", train_data, seed=SEED)
     print(f"trainer data {train_data}: written in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{store_bytes(work / 'data')} bytes on disk (Blosc zstd-5 bit "
+          "shuffle)")
+    if not device_augment:
+        failures += same_samples(work, paths, patch, train_data)
     probe = {}
 
     class ResumeProbe(Trainer):
@@ -1996,6 +2076,37 @@ def engine_config(ckpt, img, out, patch, device_accumulate, **infer):
     }
 
 
+def input_decode_cost(img, img_raw, patch, volume):
+    """Phase 8's input read three ways: every chunk decoded on one thread
+    (the decode's CPU seconds), the whole volume on the store's pool, and
+    the uncompressed copy on the pool; per patch of the grid."""
+    import os
+    from mt3d_resenc_unet_torch.data import codec
+    from mt3d_resenc_unet_torch.data.positions import sliding_window_grid
+    from mt3d_resenc_unet_torch.data.zio import open_zarr
+    vol = open_zarr(str(img))
+    n = len(sliding_window_grid(volume, patch, 0.25))
+    files = [f for f in os.listdir(img) if not f.startswith(".")]
+    nbytes = int(np.prod(vol.chunks)) * vol.dtype.itemsize
+    cpu = 0.0
+    for name in files:
+        with open(os.path.join(img, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        codec.decode_chunk(vol.store.compressor, data, nbytes)
+        cpu += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vol.read_all()
+    pool = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    open_zarr(str(img_raw)).read_all()
+    raw = time.perf_counter() - t0
+    print(f"engine input decode [{_host_cpu()}]: {len(files)} Blosc chunks "
+          f"in {cpu:.3f} s on one thread ({1e3 * cpu / n:.2f} ms of CPU a "
+          f"patch over {n} patches); the volume read on the pool in "
+          f"{pool:.3f} s, uncompressed in {raw:.3f} s")
+
+
 class _KillAfterTile(Exception):
     """Raised by phase 8's tile callback to cut a tiled pass."""
 
@@ -2032,17 +2143,20 @@ def engine_phase(patch, volume, u16_volume):
         rng = np.random.default_rng(SEED)
         vol = rng.integers(0, 256, volume, dtype=np.uint8)
         img = work / "image.zarr"
-        create_zarr(str(img), volume, np.uint8, patch,
+        create_zarr(str(img), volume, np.uint8, patch)[...] = vol
+        img_raw = work / "image_raw.zarr"
+        create_zarr(str(img_raw), volume, np.uint8, patch,
                     compressor=None)[...] = vol
         d, h, w = u16_volume
         img16 = work / "image_u16.zarr"
-        create_zarr(str(img16), u16_volume, np.uint16, patch,
-                    compressor=None)[...] = vol[:d, :h, :w].astype(
-                        np.uint16) * 257
+        create_zarr(str(img16), u16_volume, np.uint16,
+                    patch)[...] = vol[:d, :h, :w].astype(np.uint16) * 257
         del vol
         print(f"engine: flagship checkpoint ({n_params} params), u8 volume "
-              f"{volume} and u16 volume {u16_volume} written in "
+              f"{volume} (Blosc and uncompressed) and u16 volume "
+              f"{u16_volume} written in "
               f"{time.perf_counter() - t_phase:.1f} s")
+        on_disk, rates = {}, {}
 
         def serve(label, out, want_mode, shape=volume, input_path=img,
                   device_accumulate=False, resume=False, **infer):
@@ -2081,6 +2195,7 @@ def engine_phase(patch, volume, u16_volume):
                       f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
                       f"GiB; max_slab_bytes {engine.max_slab_bytes}; "
                       f"launches {launches}")
+            rates[label] = (n / stepped if stepped else 0.0, n / dt)
             if engine.last_mode != want_mode:
                 failures.append(f"engine {label}: ran the "
                                 f"{engine.last_mode} pass, not {want_mode}")
@@ -2088,6 +2203,10 @@ def engine_phase(patch, volume, u16_volume):
                 if launches.get(name, 0) <= 0:
                     failures.append(f"engine {label}: kernel {name} was "
                                     "never launched")
+            on_disk[label] = {
+                name: store_bytes(os.path.join(store, name))
+                for name in sorted(os.listdir(store))
+                if os.path.isdir(os.path.join(store, name))}
             return store
 
         # (a) "auto" must take the device pass; run twice
@@ -2098,9 +2217,37 @@ def engine_phase(patch, volume, u16_volume):
         print(f"engine (a) marker: {marker!r}")
         if marker != "finalized on device":
             failures.append(f"engine (a): marker {marker!r}")
-        again = serve("(a) auto, second run", "auto_2", "device",
-                         device_accumulate="auto")
-        shutil.rmtree(again)
+        # the device pass in turns on the uncompressed copy and the Blosc
+        # input: three loop rates of each, and the finals bit-equal
+        finals_a = {n: open_zarr(os.path.join(store_a, f"{n}_final"))
+                    .read_all() for n in ("sheet", "normals")}
+        loops = {"blosc": [rates["(a) auto"][0]], "raw": []}
+        same = {"blosc": True, "raw": True}
+        for i in range(1, 6):
+            kind = "raw" if i % 2 else "blosc"
+            label = (f"(a) auto, uncompressed input, run {(i + 1) // 2}"
+                     if kind == "raw" else f"(a) auto, run {i // 2 + 1}")
+            again = serve(label, f"auto_turn_{i}", "device",
+                          device_accumulate="auto",
+                          input_path=img_raw if kind == "raw" else img)
+            loops[kind].append(rates[label][0])
+            same[kind] = same[kind] and all(np.array_equal(open_zarr(
+                os.path.join(again, f"{n}_final")).read_all(), v)
+                for n, v in finals_a.items())
+            shutil.rmtree(again)
+        del finals_a
+        med = {k: statistics.median(v) for k, v in loops.items()}
+        print(f"engine (a) device loop patches/s in turns [{smi}]: Blosc "
+              f"input {', '.join(f'{r:.3f}' for r in loops['blosc'])} "
+              f"(median {med['blosc']:.3f}), uncompressed "
+              f"{', '.join(f'{r:.3f}' for r in loops['raw'])} (median "
+              f"{med['raw']:.3f}): {med['blosc'] / med['raw'] - 1:+.1%}; "
+              f"finals bit-equal to the first run's: Blosc {same['blosc']}, "
+              f"uncompressed input {same['raw']}")
+        if not (same["raw"] and same["blosc"]):
+            failures.append(f"engine (a): finals differ from the first "
+                            f"run's: {same}")
+        input_decode_cost(img, img_raw, patch, volume)
 
         # (b) the rolling host pass
         store_b = serve("(b) rolling", "rolling", "rolling")
@@ -2171,6 +2318,28 @@ def engine_phase(patch, volume, u16_volume):
                             shape=u16_volume, input_path=img16)
         outputs_close(store_e2, store_e, "(e) u16 rolling vs device",
                       failures)
+
+        # (f) the host passes on the uncompressed input into uncompressed
+        # stores: their rates beside (b)'s and (c)'s
+        from mt3d_resenc_unet_torch.infer import engine as engine_mod
+        default = engine_mod.DEFAULT_COMPRESSOR
+        engine_mod.DEFAULT_COMPRESSOR = None
+        try:
+            serve("(f) rolling, uncompressed", "rolling_raw", "rolling",
+                  input_path=img_raw)
+            serve("(f) tiled, uncompressed", "tiled_raw", "tiled",
+                  input_path=img_raw, **tiled)
+        finally:
+            engine_mod.DEFAULT_COMPRESSOR = default
+        raw_in = int(np.prod(volume))
+        print(f"engine inputs on disk: u8 {volume} Blosc "
+              f"{store_bytes(img)} bytes, uncompressed "
+              f"{store_bytes(img_raw)} bytes ({raw_in} raw); u16 "
+              f"{u16_volume} Blosc {store_bytes(img16)} bytes "
+              f"({2 * int(np.prod(u16_volume))} raw)")
+        for label, arrays in on_disk.items():
+            print(f"engine stores on disk, {label}: " + ", ".join(
+                f"{k} {v}" for k, v in arrays.items()) + " bytes")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 8 (engine): {time.perf_counter() - t_phase:.1f} s")
@@ -2882,8 +3051,8 @@ def dist_engine_phase(patch, volume):
                     ResEncUNet(plan, seed=SEED).state_dict())
         vol = np.random.default_rng(SEED).integers(0, 256, volume,
                                                    dtype=np.uint8)
-        create_zarr(str(work / "image.zarr"), volume, np.uint8, patch,
-                    compressor=None)[...] = vol
+        create_zarr(str(work / "image.zarr"), volume, np.uint8,
+                    patch)[...] = vol
         del vol
         t0 = time.perf_counter()
         one = ZarrInferenceEngine(config_dict=engine_config(
@@ -2929,10 +3098,13 @@ def dist_engine_phase(patch, volume):
                 same[name] = np.array_equal(
                     open_zarr(os.path.join(store_one, name)).read_all(),
                     open_zarr(os.path.join(store_two, name)).read_all())
+            with open(os.path.join(store_two, "sheet_sum", ".zarray")) as f:
+                compressor = json.load(f)["compressor"]
             print(f"phase 15: tiles disjoint and non-empty {disjoint}; "
                   "two processes bit-equal to one: " + ", ".join(
                       f"{k} {v}" for k, v in same.items())
-                  + " (two processes time-share one card: no scaling)")
+                  + f" (stores' compressor {compressor}; two processes "
+                  "time-share one card: no scaling)")
             if not (disjoint and all(same.values())):
                 failures.append(f"phase 15: disjoint {disjoint}, "
                                 f"bit-equal {same}")
@@ -3041,7 +3213,7 @@ def tools_phase():
               f"(16, 32, 32) equal {ok_crop}, compressor {compressor} -> "
               f"dataset of {len(dataset)} patches, sample {shapes}")
         normals = create_zarr(str(work / "normals.zarr"), (3, 4, 16, 16),
-                              np.uint16, (3, 4, 16, 16), compressor=None)
+                              np.uint16, (3, 4, 16, 16))
         normals[...] = rng.integers(0, 65536, (3, 4, 16, 16),
                                     dtype=np.uint16)
         n = write_normals_slices(str(work / "normals.zarr"),
@@ -3061,11 +3233,173 @@ def tools_phase():
         print(f"phase 16: normals_slices wrote {n} slices, equal {ok_normals};"
               f" mesh_rasterize hit the plane at z 3 only {ok_mesh} "
               f"({time.perf_counter() - t_phase:.1f} s)")
+        ok_crop = ok_crop and compressor["cname"] == "zstd"
         if not (ok_crop and ok_data and ok_normals and ok_mesh):
             failures.append(f"phase 16: crop {ok_crop} dataset {ok_data} "
                             f"normals {ok_normals} mesh {ok_mesh}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return failures
+
+
+CODEC_CHUNK = (128, 128, 128)
+CODEC_POOL_CHUNKS = 16      # chunks decoded / encoded at once on the pool
+CODEC_REPS = 3              # best of, for the one-thread times
+
+
+def _host_cpu() -> str:
+    """The host CPU (``/proc/cpuinfo``: its model name, or where that is not
+    exposed its vendor, family, model and clock) and its CPU count."""
+    import os
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = (f"{fields.get('vendor_id', '?')} family "
+                 f"{fields.get('cpu family', '?')} model "
+                 f"{fields.get('model', '?')} at {fields.get('cpu mhz', '?')}"
+                 " MHz (model name not exposed)")
+    return f"{model}, {os.cpu_count()} CPUs"
+
+
+def codec_chunks():
+    """A 128^3 u8 image chunk (layers blurred by noise, as phase 7's
+    image) and a 128^3 fp32 sum chunk (a Gaussian-weighted blend of
+    smooth probabilities, as the engine's ``*_sum``), seeded."""
+    from mt3d_resenc_unet_torch.infer.gaussian import gaussian_map
+    rng = np.random.default_rng(SEED)
+    z, y, x = np.meshgrid(*(np.arange(n, dtype=np.float32)
+                            for n in CODEC_CHUNK), indexing="ij")
+    layers = (z + 4 * np.sin(y / 23) + 3 * np.sin(x / 17)) % 3 >= 1
+    image = np.clip(60 + 120 * layers + rng.normal(0, 30, CODEC_CHUNK),
+                    0, 255).astype(np.uint8)
+    prob = 1 / (1 + np.exp(-3 * (np.sin(z / 9) + np.cos(y / 13)
+                                 + np.sin(x / 11))))
+    sums = (prob * (gaussian_map(CODEC_CHUNK) + np.roll(
+        gaussian_map(CODEC_CHUNK), 48, axis=(0, 1, 2)))).astype(np.float32)
+    return image, sums
+
+
+def codec_phase():
+    """Phase 17, host only. Returns the failures."""
+    import hashlib
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.data import codec, zio
+    failures = []
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = codec.load()
+    path = codec.library_path()
+    print(f"phase 17: codec library {path.relative_to(codec._ROOT)} "
+          f"(g++ {' '.join(codec.GXX_FLAGS)} on "
+          f"{codec.SOURCE.relative_to(codec._ROOT)}, sha256 "
+          f"{hashlib.sha256(codec.SOURCE.read_bytes()).hexdigest()[:16]}),"
+          f" loaded in {time.perf_counter() - t0:.2f} s; host CPU "
+          f"{_host_cpu()}")
+    del lib
+    ldd = subprocess.run(["ldd", str(path)], capture_output=True, text=True)
+    linked = [line.split()[0] for line in ldd.stdout.splitlines()
+              if line.strip()]
+    codecs = [name for name in linked if any(
+        k in name for k in ("zstd", "lz4", "libz.", "blosc", "snappy"))]
+    print(f"phase 17: ldd: {', '.join(linked)}; codec libraries: "
+          f"{codecs or 'none'}")
+    if ldd.returncode != 0 or codecs:
+        failures.append(f"phase 17: ldd rc {ldd.returncode}, codec "
+                        f"libraries {codecs}")
+
+    # golden chunks another encoder wrote
+    root = Path(__file__).resolve().parent / "tests" / "data" / "zarr_codec"
+    manifest = json.loads((root / "manifest.json").read_text())
+    bad = []
+    for e in manifest:
+        nbytes = int(np.prod(e["shape"])) * np.dtype(e["dtype"]).itemsize
+        try:
+            raw = codec.decode_chunk(e["compressor"],
+                                     (root / e["file"]).read_bytes(), nbytes)
+            if hashlib.sha256(raw).hexdigest() != e["sha256"]:
+                bad.append(e["file"])
+        except ValueError as exc:
+            bad.append(f"{e['file']} ({exc})")
+    print(f"phase 17: {len(manifest) - len(bad)} of {len(manifest)} golden "
+          "chunks (tensorstore's Blosc zstd/lz4/lz4hc/blosclz/zlib x "
+          "shuffle 0/1/2 x u1/u2/f4, zstandard's frames) decoded to their "
+          f"sha256{': failed ' + ', '.join(bad) if bad else ''}")
+    if bad:
+        failures.append(f"phase 17: golden chunks failed: {bad}")
+
+    # every writable compressor over seeded 128^3 chunks
+    rng = np.random.default_rng(SEED)
+    image, sums = codec_chunks()
+    chunks = {"u8": image,
+              "u16": (image.astype(np.uint16) * 251
+                      + rng.integers(0, 8, CODEC_CHUNK).astype(np.uint16)),
+              "f4": sums}
+    comps = [{"id": "blosc", "cname": c, "clevel": 5, "shuffle": sh}
+             for c in ("zstd", "lz4", "lz4hc", "blosclz", "zlib")
+             for sh in (0, 1, 2)] + [
+        {"id": "zstd", "level": 1}, {"id": "zstd", "level": 5},
+        {"id": "zlib", "level": 1}, {"id": "gzip", "level": 1},
+        {"id": "bz2", "level": 1}]
+    jobs = [(c, k) for c in comps for k in chunks]
+
+    def round_trip(job):
+        comp, key = job
+        raw = chunks[key].tobytes()
+        stored = codec.encode_chunk(comp, raw, chunks[key].itemsize)
+        return len(stored), codec.decode_chunk(comp, stored,
+                                               len(raw)) == raw
+
+    t0 = time.perf_counter()
+    results = list(zio._pool("chunks").map(round_trip, jobs))
+    wrong = [f"{c} {k}" for (c, k), (_, ok) in zip(jobs, results) if not ok]
+    print(f"phase 17: {len(jobs) - len(wrong)} of {len(jobs)} round trips "
+          f"(every writable compressor x u8/u16/f4 128^3) bit-equal in "
+          f"{time.perf_counter() - t0:.1f} s on the pool; ratios " + ", ".join(
+              f"{c.get('cname', c['id'])}/{c.get('shuffle', '-')}/{k} "
+              f"{chunks[k].nbytes / n:.3f}"
+              for (c, k), (n, _) in zip(jobs, results)))
+    if wrong:
+        failures.append(f"phase 17: round trips differ: {wrong}")
+
+    # the default compressor's rates, one thread and the pool
+    comp = dict(zio.DEFAULT_COMPRESSOR)
+    workers = zio._pool("chunks")._max_workers
+    for label, arr in (("u8 image", image), ("fp32 sum", sums)):
+        raw = arr.tobytes()
+        enc_s, dec_s = [], []
+        for _ in range(CODEC_REPS):
+            t0 = time.perf_counter()
+            stored = codec.encode_chunk(comp, raw, arr.itemsize)
+            enc_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            codec.decode_chunk(comp, stored, len(raw))
+            dec_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        many = list(zio._pool("chunks").map(
+            lambda _: codec.encode_chunk(comp, raw, arr.itemsize),
+            range(CODEC_POOL_CHUNKS)))
+        enc_pool = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        list(zio._pool("chunks").map(
+            lambda b: codec.decode_chunk(comp, b, len(raw)), many))
+        dec_pool = time.perf_counter() - t0
+        mb = len(raw) / 1e6
+        print(f"phase 17 [{_host_cpu()}]: Blosc zstd-5 bit shuffle, 128^3 "
+              f"{label}: ratio {len(raw) / len(stored):.3f} "
+              f"({len(stored)} of {len(raw)} bytes); one thread: decode "
+              f"{mb / min(dec_s):.1f} MB/s, encode {mb / min(enc_s):.1f} "
+              f"MB/s; the pool ({workers} threads, {CODEC_POOL_CHUNKS} "
+              f"chunks): decode {CODEC_POOL_CHUNKS * mb / dec_pool:.1f} "
+              f"MB/s, encode {CODEC_POOL_CHUNKS * mb / enc_pool:.1f} MB/s "
+              "(MB of raw bytes)")
+    print(f"phase 17 (codec): {time.perf_counter() - t_phase:.1f} s")
     return failures
 
 

@@ -5,22 +5,29 @@ The port of ``mt3d_resenc_unet_tpu/data/zio.py``, with the same API
 ``create_zarr``, ``zarr_exists``, ``normalize_to_unit``, the normals codec)
 and the same decode arithmetic. Two backends behind ``Volume``:
 
-* a local zarr v2 array with ``compressor: null`` is read and written by
-  numpy alone: one ``.zarray`` JSON plus one raw C-order file per chunk,
-  named ``i.j.k`` (or ``i/j/k`` with ``dimension_separator: "/"``), edge
-  chunks stored at full size, a missing chunk reading as the fill value.
-  That needs nothing installed, and round-trips with the JAX package's
-  ``create_zarr(..., compressor=None)`` and ``open_zarr``;
-* any other store (Blosc or zstd chunks, http(s)/s3/gs URLs, ``memory://``)
-  goes through tensorstore when it is importable, as in the JAX package;
-  without it, opening one raises an ``ImportError`` naming the package and
-  the store.
+* a local zarr v2 array (C order, no filters) whose compressor
+  ``data/codec.py`` handles -- none, Blosc (zstd, lz4, lz4hc, blosclz and
+  zlib streams, any shuffle), zstd, zlib, gzip or bz2 -- is read and written
+  by this module and the port's own C++ codec: one ``.zarray`` JSON plus one
+  file per chunk, named ``i.j.k`` (or ``i/j/k`` with
+  ``dimension_separator: "/"``), edge chunks stored at full size, a missing
+  chunk reading as the fill value. Its stores and the JAX package's
+  (tensorstore's) read each other bit for bit, and ``create_zarr`` writes
+  the ``.zarray`` tensorstore writes for the same arguments (the default
+  compressor, Blosc zstd-5 bit shuffle, included);
+* any other store (http(s)/s3/gs URLs, ``memory://``, Blosc snappy, other
+  codecs or filters) goes through tensorstore when it is importable, as in
+  the JAX package; without it, opening one raises an ``ImportError`` naming
+  the package and the store.
 
-The numpy backend writes a chunk that a region covers whole by replacing
+The local backend decodes or encodes the chunks of one read or write in
+parallel on a thread pool (the codec releases the GIL), and
+``Volume.read_async`` / ``write_async`` return futures of a second pool, as
+tensorstore's do. It writes a chunk that a region covers whole by replacing
 its file, and a chunk that it covers in part by read-modify-write under an
 exclusive ``fcntl.flock`` of the chunk's lock file (``.{key}.lock`` beside
-it): writers of disjoint parts of one chunk, in threads or processes,
-take turns and lose no update. The reads are thread-safe.
+it): writers of disjoint parts of one chunk, in threads or processes, take
+turns and lose no update. The reads are thread-safe.
 """
 
 from __future__ import annotations
@@ -28,13 +35,17 @@ from __future__ import annotations
 import dataclasses
 import fcntl
 import json
+import math
 import os
 import shutil
 import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import codec
 
 # Blosc zstd level 5 with bitshuffle — the reference's compressor for all
 # prediction stores (reference: inference.py:92).
@@ -52,6 +63,12 @@ _DTYPE_TO_ZARR = {
     np.dtype("float64"): "<f8",
 }
 _REMOTE = ("http://", "https://", "s3://", "gs://", "memory://")
+# The keys tensorstore fills in when it writes a compressor to .zarray.
+_COMPRESSOR_DEFAULTS = {
+    "blosc": {"blocksize": 0, "clevel": 5, "cname": "lz4", "shuffle": -1},
+    "zstd": {"level": 1}, "zlib": {"level": 1}, "gzip": {"level": 1},
+    "bz2": {"level": 1},
+}
 
 
 def _kvstore_spec(path: str) -> Dict[str, Any]:
@@ -75,12 +92,50 @@ def _tensorstore(path: str, why: str):
     except ImportError as exc:
         raise ImportError(
             f"zarr store {path!r} ({why}) needs the tensorstore package; "
-            "without it only local uncompressed zarr v2 arrays "
-            "(compressor: null) can be read and written") from exc
+            "without it only local zarr v2 arrays whose compressor is none, "
+            f"{', '.join(codec.COMPRESSOR_IDS)} (Blosc without snappy) and "
+            "that have no filters can be read and written") from exc
     return ts
 
 
-# ------------------------------------------------------ numpy zarr v2 store
+# ------------------------------------------------------------ thread pools
+
+_pools: Dict[str, ThreadPoolExecutor] = {}
+_pools_lock = threading.Lock()
+
+
+def _pool(name: str) -> ThreadPoolExecutor:
+    """``chunks`` decodes / encodes the chunks of one read or write; ``io``
+    runs ``read_async`` / ``write_async`` (whose reads then use
+    ``chunks``: a task of one pool never waits on its own pool)."""
+    with _pools_lock:
+        pool = _pools.get(name)
+        if pool is None:
+            pool = ThreadPoolExecutor(min(16, os.cpu_count() or 4),
+                                      thread_name_prefix=f"zio-{name}")
+            _pools[name] = pool
+        return pool
+
+
+def _forget_pools() -> None:
+    """A forked child has none of its parent's pool threads."""
+    global _pools_lock
+    _pools.clear()
+    _pools_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pools)
+
+
+def _each(fn: Callable, items: list) -> None:
+    if len(items) > 1:
+        for _ in _pool("chunks").map(fn, items):
+            pass
+    elif items:
+        fn(items[0])
+
+
+# ------------------------------------------------------ local zarr v2 store
 
 def _ranges(idx, shape) -> Tuple[list, list]:
     """A basic index (ints, unit-step slices, one Ellipsis) -> per-axis
@@ -112,29 +167,81 @@ def _ranges(idx, shape) -> Tuple[list, list]:
     return ranges, dropped
 
 
-class _RawZarr:
-    """A local zarr v2 array with uncompressed chunks, by numpy."""
+def _fill_value(value, dtype: np.dtype):
+    """A ``.zarray`` fill value as tensorstore writes it (floats as floats,
+    non-finite ones as strings)."""
+    if value is None:
+        return None
+    if dtype.kind == "f":
+        value = float(value)
+        if math.isnan(value):
+            return "NaN"
+        if math.isinf(value):
+            return "Infinity" if value > 0 else "-Infinity"
+        return value
+    return int(value)
+
+
+def _parse_fill(value, dtype: np.dtype):
+    if value is None:
+        return 0
+    if isinstance(value, str):
+        return {"NaN": np.nan, "Infinity": np.inf,
+                "-Infinity": -np.inf}[value]
+    return np.asarray(value).astype(dtype)
+
+
+def _normalize_compressor(compressor):
+    """The compressor as tensorstore writes it to ``.zarray``."""
+    if compressor is None:
+        return None
+    defaults = _COMPRESSOR_DEFAULTS.get(compressor.get("id"), {})
+    return {**defaults, **compressor}
+
+
+def _local_codec(meta: Dict[str, Any]) -> bool:
+    """Whether this module reads and writes the array itself."""
+    return (meta.get("order", "C") == "C" and not meta.get("filters")
+            and codec.supported(meta.get("compressor")))
+
+
+class _LocalZarr:
+    """A local zarr v2 array, by numpy and the port's codec."""
 
     def __init__(self, path: str, meta: Dict[str, Any]):
         self.path = path
         self.shape = tuple(int(s) for s in meta["shape"])
         self.chunks = tuple(int(c) for c in meta["chunks"])
         self.dtype = np.dtype(meta["dtype"])
-        self.fill_value = meta.get("fill_value") or 0
+        self.compressor = meta.get("compressor")
+        self.fill_value = _parse_fill(meta.get("fill_value"), self.dtype)
         self.sep = meta.get("dimension_separator") or "."
-        if meta.get("order", "C") != "C" or meta.get("filters"):
+        if not _local_codec(meta):
             raise ValueError(f"{path}: only C-order zarr arrays without "
-                             "filters are read without tensorstore")
+                             "filters, with a compressor data/codec.py "
+                             "handles, are read without tensorstore")
 
     def _chunk_file(self, key) -> str:
         return os.path.join(self.path, self.sep.join(str(k) for k in key))
 
     def _read_chunk(self, key) -> np.ndarray:
+        """The chunk's values; read-only where they are the file's bytes
+        (no compressor), to spare a copy."""
+        path = self._chunk_file(key)
         try:
-            flat = np.fromfile(self._chunk_file(key), dtype=self.dtype)
+            with open(path, "rb") as f:
+                data = f.read()
         except FileNotFoundError:
             return np.full(self.chunks, self.fill_value, self.dtype)
-        return flat.reshape(self.chunks)
+        if self.compressor is None and len(data) == np.prod(
+                self.chunks) * self.dtype.itemsize:
+            return np.frombuffer(data, self.dtype).reshape(self.chunks)
+        chunk = np.empty(self.chunks, self.dtype)
+        try:
+            codec.decode_chunk_into(self.compressor, data, chunk)
+        except ValueError as exc:
+            raise ValueError(f"{path}: {exc}") from exc
+        return chunk
 
     def _overlaps(self, ranges):
         """(chunk key, slice in the chunk, slice in the region) of every
@@ -153,9 +260,13 @@ class _RawZarr:
     def read(self, idx) -> np.ndarray:
         ranges, dropped = _ranges(idx, self.shape)
         out = np.empty([b - a for a, b in ranges], self.dtype)
+
+        def one(part):
+            key, in_chunk, in_out = part
+            out[in_out] = self._read_chunk(key)[in_chunk]
+
         if out.size:
-            for key, in_chunk, in_out in self._overlaps(ranges):
-                out[in_out] = self._read_chunk(key)[in_chunk]
+            _each(one, list(self._overlaps(ranges)))
         return out.reshape([n for ax, n in enumerate(out.shape)
                             if ax not in dropped])
 
@@ -165,7 +276,9 @@ class _RawZarr:
         kept = [n for ax, n in enumerate(full) if ax not in dropped]
         value = np.broadcast_to(np.asarray(value, self.dtype),
                                 kept).reshape(full)
-        for key, in_chunk, in_out in self._overlaps(ranges):
+
+        def one(part):
+            key, in_chunk, in_out = part
             path = self._chunk_file(key)
             if self.sep == "/":
                 os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -174,27 +287,34 @@ class _RawZarr:
                 chunk = np.full(self.chunks, self.fill_value, self.dtype)
                 chunk[in_chunk] = value[in_out]
                 self._replace_chunk(path, chunk)
-                continue
+                return
             lock = os.path.join(os.path.dirname(path),
                                 f".{os.path.basename(path)}.lock")
             fd = os.open(lock, os.O_RDWR | os.O_CREAT, 0o644)
             try:
                 fcntl.flock(fd, fcntl.LOCK_EX)
-                chunk = self._read_chunk(key).copy()
+                chunk = self._read_chunk(key)
+                if not chunk.flags.writeable:
+                    chunk = chunk.copy()
                 chunk[in_chunk] = value[in_out]
                 self._replace_chunk(path, chunk)
             finally:
                 os.close(fd)   # releases the lock
 
-    @staticmethod
-    def _replace_chunk(path: str, chunk: np.ndarray) -> None:
+        _each(one, list(self._overlaps(ranges)))
+
+    def _replace_chunk(self, path: str, chunk: np.ndarray) -> None:
+        data = codec.encode_chunk_array(self.compressor,
+                                        np.ascontiguousarray(chunk),
+                                        self.dtype.itemsize)
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-        np.ascontiguousarray(chunk).tofile(tmp)
+        with open(tmp, "wb") as f:
+            f.write(data)
         os.replace(tmp, path)
 
 
 class _TsStore:
-    """A tensorstore handle with the interface of :class:`_RawZarr`."""
+    """A tensorstore handle with the interface of :class:`_LocalZarr`."""
 
     def __init__(self, store, path: str):
         self.store, self.path = store, path
@@ -210,7 +330,7 @@ class _TsStore:
 
 
 class _ReadyFuture:
-    """A finished future, for the synchronous numpy backend."""
+    """A finished future, for ``RamVolume``."""
 
     __slots__ = ("_value",)
 
@@ -243,20 +363,21 @@ class Volume:
     def __getitem__(self, idx) -> np.ndarray:
         return self.store.read(idx)
 
-    def read_async(self, idx):
+    def read_async(self, idx) -> Future:
         """Begin a read; returns a future with .result()."""
         if isinstance(self.store, _TsStore):
             return self.store.store[idx].read()
-        return _ReadyFuture(self.store.read(idx))
+        return _pool("io").submit(self.store.read, idx)
 
     def __setitem__(self, idx, value) -> None:
         self.store.write(idx, value)
 
-    def write_async(self, idx, value):
+    def write_async(self, idx, value) -> Future:
+        """Begin a write; ``value`` must not change until the future is
+        done."""
         if isinstance(self.store, _TsStore):
             return self.store.store[idx].write(value)
-        self.store.write(idx, value)
-        return _ReadyFuture()
+        return _pool("io").submit(self.store.write, idx, value)
 
     def read_all(self) -> np.ndarray:
         return self.store.read(...)
@@ -329,10 +450,11 @@ def open_zarr(path: str, *, component: Optional[str] = None,
     full = path if component is None else os.path.join(path, component)
     meta = _local_meta(full)
     if meta is not None:
-        if meta.get("compressor") is None:
-            return Volume(store=_RawZarr(full, meta), path=full)
-        return _open_ts(full, writable,
-                        f"compressor {meta['compressor'].get('id')}")
+        if _local_codec(meta):
+            return Volume(store=_LocalZarr(full, meta), path=full)
+        return _open_ts(full, writable, "compressor "
+                        f"{meta.get('compressor')}, filters "
+                        f"{meta.get('filters')}")
     if component is None and _local_meta(os.path.join(path, "0")) is not None:
         return open_zarr(path, component="0", writable=writable)
     if not full.startswith(_REMOTE):
@@ -359,7 +481,8 @@ def create_zarr(
     allow_existing: bool = False,
 ) -> Volume:
     """Create a zarr v2 array (bit-compatible with the reference's stores).
-    ``compressor=None`` on a local path needs no package."""
+    A local path with a compressor ``data/codec.py`` handles needs no
+    package; its ``.zarray`` is the one tensorstore writes."""
     dt = np.dtype(dtype)
     metadata = {
         "shape": list(shape),
@@ -368,8 +491,9 @@ def create_zarr(
         "compressor": compressor,
         "fill_value": fill_value,
     }
-    if compressor is not None or path.startswith(_REMOTE):
-        ts = _tensorstore(path, "compressed or remote")
+    if path.startswith(_REMOTE) or not codec.supported(compressor):
+        ts = _tensorstore(path, f"compressor {compressor}"
+                          if not path.startswith(_REMOTE) else "remote store")
         spec = {"driver": "zarr", "kvstore": _kvstore_spec(path),
                 "metadata": metadata}
         store = ts.open(spec, create=True, delete_existing=delete_existing,
@@ -384,10 +508,11 @@ def create_zarr(
         else:
             raise FileExistsError(f"zarr array exists at {path}")
     root.mkdir(parents=True)
-    metadata.update(zarr_format=2, order="C", filters=None,
-                    dimension_separator=".")
-    (root / ".zarray").write_text(json.dumps(metadata, indent=2))
-    return Volume(store=_RawZarr(path, metadata), path=path)
+    metadata.update(compressor=_normalize_compressor(compressor),
+                    fill_value=_fill_value(fill_value, dt), zarr_format=2,
+                    order="C", filters=None, dimension_separator=".")
+    (root / ".zarray").write_text(json.dumps(metadata, sort_keys=True))
+    return Volume(store=_LocalZarr(path, metadata), path=path)
 
 
 def zarr_exists(path: str) -> bool:

@@ -28,10 +28,10 @@ and exports, and a last barrier. Adjacent tiles of two ranks may share a
 store chunk: ``data/zio.py`` locks a chunk around the read-modify-write
 of a partial write, so no update is lost.
 
-Differences from the JAX engine: every store it creates is a local zarr v2
-array with ``compressor: null`` (the card's machine has no tensorstore;
-the values are the JAX engine's, the bytes on disk are not Blosc); each
-rank's forward runs on its one device, with no mesh sharding inside a
+Every store it creates is Blosc zstd-5 bit shuffle (``DEFAULT_COMPRESSOR``),
+as the JAX engine's, written by ``data/zio.py`` with the port's own codec
+(the card's machine has no tensorstore). Differences from the JAX engine:
+each rank's forward runs on its one device, with no mesh sharding inside a
 process; the last batch is not padded to a static shape.
 ``predict_volume`` blends over a volume held in memory and returns the
 blend.
@@ -50,8 +50,8 @@ import torch
 
 from ..core.config import ConfigManager, resolve_device, set_precision
 from ..data.positions import sliding_window_grid
-from ..data.zio import (Volume, create_zarr, normalize_to_unit, open_zarr,
-                        zarr_exists)
+from ..data.zio import (DEFAULT_COMPRESSOR, Volume, create_zarr,
+                        normalize_to_unit, open_zarr, zarr_exists)
 from ..models.network import ResEncUNet
 from ..parallel.distributed import (is_main_process, process_count,
                                     process_index, sync_global_devices)
@@ -255,9 +255,9 @@ def _create_sum_count(store_path: str, name: str, channels: int,
         return (open_zarr(sum_path, writable=True),
                 open_zarr(cnt_path, writable=True))
     sum_vol = create_zarr(sum_path, out_shape, np.float32, chunks,
-                          compressor=None)
+                          compressor=DEFAULT_COMPRESSOR)
     cnt_vol = create_zarr(cnt_path, tuple(in_shape), np.float32, tuple(patch),
-                          compressor=None)
+                          compressor=DEFAULT_COMPRESSOR)
     return sum_vol, cnt_vol
 
 
@@ -727,7 +727,8 @@ class ZarrInferenceEngine:
             chunk = (c,) + patch if c > 1 else patch
             final_vol = create_zarr(
                 os.path.join(store_path, f"{name}_final"), out_shape,
-                host_q.dtype, chunk, compressor=None, delete_existing=True)
+                host_q.dtype, chunk, compressor=DEFAULT_COMPRESSOR,
+                delete_existing=True)
             final_vol[...] = host_q
             # mark finalized so --postprocess_only / standalone finalize
             # treat the store as already averaged
@@ -774,8 +775,9 @@ class ZarrInferenceEngine:
         # host pipeline: loader threads read/normalize the next batches and
         # the host accumulates batch b-1 while the device runs batch b (the
         # reference used DataLoader workers, inference.py:55-63). Every
-        # store write happens on this thread: the numpy zarr backend
-        # rewrites whole chunks, so two writers of one chunk would race.
+        # store write is issued from this thread, in z order; the writes run
+        # on data/zio.py's pool, where two partial writes of one chunk take
+        # the chunk's lock in turn.
         done = 0
         t1 = time.perf_counter()
         with ThreadPoolExecutor(
@@ -1084,7 +1086,7 @@ def quantize_final(store_path: str, targets: Dict[str, Dict]) -> None:
         # inference.py:159-161, 225-233)
         final_vol = create_zarr(
             os.path.join(store_path, f"{name}_final"), sum_vol.shape,
-            final_dtype, sum_vol.chunks, compressor=None,
+            final_dtype, sum_vol.chunks, compressor=DEFAULT_COMPRESSOR,
             delete_existing=True)
         z = sum_vol.shape[-3]
         cz = sum_vol.chunks[-3]

@@ -1,11 +1,12 @@
-"""A seeded synthetic sheet + normals dataset as uncompressed zarr v2.
+"""A seeded synthetic sheet + normals dataset as zarr v2.
 
     paths = write_sheet_dataset(root, (256, 384, 384), seed=0)
 
 writes ``image.zarr`` (uint8), ``sheet.zarr`` (uint8 in {0, 255}) and
 ``normals.zarr`` (uint16 (Z, Y, X, 3) from ``encode_normals_u16``) under
-``root`` with the port's numpy zarr writer, and returns their paths in the
-``dataset_config.volume_paths`` form. The sheets are wavy layers
+``root`` with the port's zarr writer (``compressor``: the JAX package's
+default, Blosc zstd-5 bit shuffle, unless given), and returns their paths in
+the ``dataset_config.volume_paths`` form. The sheets are wavy layers
 ``(z + h(y, x)) mod 3 != 0``: two voxels of every three are labelled, and
 every labelled slab spans whole patches in y and x, so the patch miner
 finds every patch inside the volume at ``min_bbox_percent`` 0.97 and
@@ -16,16 +17,18 @@ finds every patch inside the volume at ``min_bbox_percent`` 0.97 and
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from ..data.zio import create_zarr, encode_normals_u16
+from ..data.zio import DEFAULT_COMPRESSOR, create_zarr, encode_normals_u16
 
 
-def write_sheet_dataset(root, shape: Sequence[int], seed: int = 0,
-                        chunks: Sequence[int] = (64, 64, 64)
-                        ) -> Dict[str, str]:
+def write_sheet_dataset(
+        root, shape: Sequence[int], seed: int = 0,
+        chunks: Sequence[int] = (64, 64, 64),
+        compressor: Optional[Dict[str, Any]] = DEFAULT_COMPRESSOR,
+) -> Dict[str, str]:
     d, h, w = (int(s) for s in shape)
     root = Path(root)
     rng = np.random.default_rng(seed)
@@ -47,11 +50,11 @@ def write_sheet_dataset(root, shape: Sequence[int], seed: int = 0,
     paths = {name: str(root / f"{name}.zarr")
              for name in ("image", "sheet", "normals")}
     image = create_zarr(paths["image"], (d, h, w), np.uint8, chunks,
-                        compressor=None)
+                        compressor=compressor)
     sheet = create_zarr(paths["sheet"], (d, h, w), np.uint8, chunks,
-                        compressor=None)
+                        compressor=compressor)
     normals = create_zarr(paths["normals"], (d, h, w, 3), np.uint16,
-                          tuple(chunks) + (3,), compressor=None)
+                          tuple(chunks) + (3,), compressor=compressor)
     for z0 in range(0, d, chunks[0]):
         zs = np.arange(z0, min(d, z0 + chunks[0]))[:, None, None]
         mask = (zs + offset[None]) % 3 != 0

@@ -11,11 +11,10 @@ Capability parity with the reference converters:
   reference's process pool — cv2/PIL decoding releases the GIL).
 
 A copy of ``mt3d_resenc_unet_tpu/tools/tiff_to_zarr.py`` onto the port's
-``data/zio.py``: the arrays are written with ``compressor: null``, which
-needs no package, so data prepared on a machine without tensorstore is
-read there (the JAX tool writes Blosc; the values are the same). Each
-image is one z-slice of its chunks; the store's chunk lock lets the
-threads write slices of one chunk at once.
+``data/zio.py``: the arrays are written Blosc zstd-5 bit shuffle, the JAX
+tool's default, by the port's own codec (no package needed). Each image is
+one z-slice of its chunks; the store's chunk lock lets the threads write
+slices of one chunk at once.
 """
 
 from __future__ import annotations
@@ -122,7 +121,7 @@ def stack_images_to_zarr(
     chunks = (min(chunks[0], num_slices), min(chunks[1], h), min(chunks[2], w))
     layers_arr = create_zarr(os.path.join(group_path, "layers.zarr"),
                              (num_slices, h, w), np.uint8, chunks,
-                             compressor=None, delete_existing=True)
+                             delete_existing=True)
 
     def write_layer(i):
         idx = start + i
@@ -143,7 +142,7 @@ def stack_images_to_zarr(
             raise ValueError(f"No inklabels found in {input_folder}/inklabels")
         ink_arr = create_zarr(os.path.join(group_path, "inklabels.zarr"),
                               (num_slices, h, w), np.uint8, chunks,
-                              compressor=None, delete_existing=True)
+                              delete_existing=True)
 
         def write_ink(i):
             if start + i >= len(ink_files):
@@ -196,7 +195,7 @@ def slices_to_zarr(
         if len(shape) == 4:
             chunks = chunks + (shape[3],)
     arr = create_zarr(output_zarr, shape, out_dtype, chunks,
-                      compressor=None, delete_existing=True)
+                      delete_existing=True)
 
     def write(i):
         img = read(files[i]).astype(out_dtype)

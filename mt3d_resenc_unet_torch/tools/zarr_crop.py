@@ -2,9 +2,8 @@
 
 A copy of ``mt3d_resenc_unet_tpu/tools/zarr_crop.py`` (reference:
 scripts/zarr_bbox_to_zarr.py:7-162) onto the port's ``data/zio.py``. The
-crop is written with ``compressor: null`` by default, so it needs no
-package; a compressed input or output goes through tensorstore, as in the
-JAX package.
+crop is written Blosc zstd-5 bit shuffle by default, as the JAX tool's;
+local stores need no package.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..data.zio import create_zarr, open_zarr
+from ..data.zio import DEFAULT_COMPRESSOR, create_zarr, open_zarr
 
 
 def cut_zarr_bounding_box(
@@ -23,7 +22,7 @@ def cut_zarr_bounding_box(
     y_start: int, y_stop: int,
     x_start: int, x_stop: int,
     chunks: Optional[Tuple[int, int, int]] = None,
-    compressor=None,
+    compressor=DEFAULT_COMPRESSOR,
     max_in_flight: int = 16,
 ) -> str:
     src = open_zarr(input_path)

@@ -119,12 +119,19 @@ def test_port_written_store_reads_in_jax_and_back(tmp_path):
 
 
 def test_compressed_store_needs_tensorstore(tmp_path, monkeypatch):
+    """A Blosc store opens without tensorstore (the port's codec); a codec
+    the port lacks (Blosc snappy) still needs it and says so."""
     path = str(tmp_path / "c.zarr")
     jzio.create_zarr(path, (8, 8, 8), np.uint8, (4, 4, 4))[...] = 3
     assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
+    snappy = str(tmp_path / "s.zarr")
+    jzio.create_zarr(snappy, (8, 8, 8), np.uint8, (4, 4, 4),
+                     compressor={"id": "blosc", "cname": "snappy"})
     monkeypatch.setitem(sys.modules, "tensorstore", None)
-    with pytest.raises(ImportError, match="tensorstore.*blosc|blosc.*tensorstore"):
-        tzio.open_zarr(path)
+    assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
+    with pytest.raises(ImportError,
+                       match="tensorstore.*snappy|snappy.*tensorstore"):
+        tzio.open_zarr(snappy)
 
 
 def test_unit_tables_and_normals_codec_bit_for_bit():
