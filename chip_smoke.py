@@ -15,10 +15,12 @@ kernels against the plain path, holds the device augmentation and every
 optimizer of the factory on the card against the CPU, runs the training
 step and the trainer with the augmentation on the card, runs the training
 step and the engine's tiled pass in several processes over
-``torch.distributed``, runs the data-prep tools, and holds the port's own
+``torch.distributed``, runs the data-prep tools, holds the port's own
 zarr chunk codec against golden chunks that tensorstore and ``zstandard``
-wrote. Every zarr store it makes is Blosc zstd-5 bit shuffle, the
-system's own format, read and written by the port's codec.
+wrote, and runs every dtype the trainer and the engine take (compute
+float32 and float16 with the kernels left on, ``param_dtype`` bfloat16).
+Every zarr store it makes is Blosc zstd-5 bit shuffle, the system's own
+format, read and written by the port's codec, also over HTTP.
 
     python3 chip_smoke.py
 
@@ -110,7 +112,10 @@ Phases (any failure exits non-zero and prints no result line):
   7. the trainer: a seeded synthetic sheet + normals dataset written as
      Blosc zstd-5 bit shuffle zarr v2, as the reference writes it (image
      u8 (256, 384, 384), sheet u8, normals u16), whose first 8 samples must
-     be bit-equal to those of an uncompressed copy of the same volumes, and
+     be bit-equal to those of an uncompressed copy of the same volumes and
+     to those of the same volumes read over HTTP (``http_root``: a local
+     ``http.server`` in a child process; the image's read rate over
+     HTTP printed beside the local one, ``read_rates``), and
      ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
      settings, squeeze-excitation included, for 2 epochs of 6 steps and 2
      validation steps, then resumed from its checkpoint to a 3rd epoch: the
@@ -140,7 +145,10 @@ Phases (any failure exits non-zero and prints no result line):
      uint16 copy of a (160, 256, 256) corner on the device pass against
      the rolling pass; (f) the rolling and the uncut tiled pass again on the
      uncompressed input into uncompressed stores, for their rates beside
-     (b)'s and (c)'s. The finals of (b), (c) and (e) are held against the
+     (b)'s and (c)'s; (g) the device pass with its input read over HTTP
+     (``http_root``), whose finals must be bit-equal to (a)'s, its loop
+     rate and the input's read rate printed beside the local ones. The
+     finals of (b), (c) and (e) are held against the
      device pass's with ``tests/test_infer_device.py``'s limits; every
      launch counter is zeroed before each run and the three forward
      kernels must be above zero after it. Printed per run, beside the
@@ -213,7 +221,22 @@ Phases (any failure exits non-zero and prints no result line):
      chunk, decode and encode MB/s of raw bytes on one thread and on the
      store's chunk pool and the compression ratio for Blosc zstd-5 bit
      shuffle on a 128^3 u8 image chunk and a 128^3 fp32 sum chunk, and
-     ``ldd`` of the library (no codec library linked).
+     ``ldd`` of the library (no codec library linked);
+ 18. the flagship step at compute dtype float32 and float16, the plan
+     from the config with ``use_pallas_conv`` unset (the kernels on for
+     the card), TRAIN_STEPS steps each with every counter zeroed before:
+     rows 1-9 (bf16 only) must launch nothing, the norm-act modes exactly
+     as ``norm_launches`` derives for the dtype (fp32 the kernels, fp16
+     none), the losses finite, the first step's loss and grad_norm within
+     DTYPE_LIMITS of the plain fp32 path's; median ms beside plain's;
+ 19. the flagship step with ``param_dtype`` bfloat16 and bf16 compute:
+     two first steps bit-equal, TRAIN_STEPS steps with every counter
+     zeroed before, all nine conv and upsample kernels launched and the
+     norm-act modes as ``norm_launches`` derives; ms and peak memory
+     beside phase 5b's;
+ 20. the engine's device pass at compute dtype float32 (rows 1-9 launch
+     nothing) and bfloat16 on a seeded (160, 256, 256) u8 Blosc volume
+     from one checkpoint, the finals held by ENGINE_DTYPE_LIMITS.
 Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
@@ -227,8 +250,10 @@ Imports torch and the port only: nothing of JAX or of the JAX package.
 """
 
 import collections
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -694,7 +719,7 @@ def main() -> int:
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
              ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
-    print(f"phases 2-17: {time.perf_counter() - t0:.1f} s",
+    print(f"phases 2-20: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     return rc
 
@@ -710,7 +735,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-17 and the result lines; the case lists and sizes are
+    """Phases 2-20 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -879,6 +904,18 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 17. the port's zarr chunk codec
     failures += codec_phase()
+
+    # 18. the flagship step at compute dtype float32 and float16
+    failures += dtype_phase(dev, patch)
+    torch.cuda.empty_cache()
+
+    # 19. the flagship step with param_dtype bfloat16
+    failures += param_dtype_phase(dev, patch, step_summary)
+    torch.cuda.empty_cache()
+
+    # 20. the engine's device pass at compute dtype float32
+    failures += engine_dtype_phase(patch, volume)
+    torch.cuda.empty_cache()
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures))
@@ -1867,7 +1904,8 @@ def same_samples(work, paths, patch, train_data):
                                     compressor=None)
     t_raw = time.perf_counter() - t0
     samples = []
-    for label, vols in (("blosc", paths), ("raw", raw_paths)):
+
+    def first_samples(label, vols):
         cfg = sheet_normals_config(work, vols, patch, 1)
         cfg["dataset_config"]["use_cache"] = False
         t0 = time.perf_counter()
@@ -1877,18 +1915,34 @@ def same_samples(work, paths, patch, train_data):
         samples.append([ds[i] for i in range(min(SAME_SAMPLES, len(ds)))])
         print(f"trainer data ({label}): dataset of {len(ds)} patches opened "
               f"(volumes read into RAM, patches mined) in {t_open:.2f} s")
-    equal = len(samples[0]) == SAME_SAMPLES and len(samples[0]) == len(
-        samples[1]) and all(
-        a.keys() == b.keys() and all(
-            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
-            for k in a) for a, b in zip(*samples))
+
+    def equal(a, b):
+        return len(a) == SAME_SAMPLES and len(a) == len(b) and all(
+            x.keys() == y.keys() and all(
+                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                for k in x) for x, y in zip(a, b))
+
+    first_samples("blosc", paths)
+    first_samples("raw", raw_paths)
+    # the remote reads: the same Blosc volumes over a local HTTP server
+    with http_root(work) as url:
+        first_samples("blosc over http", {
+            k: v if k == "ref_label" else v.replace(str(work), url)
+            for k, v in paths.items()})
+        read_same = read_rates(paths["input"], paths["input"].replace(
+            str(work), url), f"phase 7 image {train_data}")
+    raw_equal = equal(samples[0], samples[1])
+    http_equal = equal(samples[0], samples[2]) and read_same
     print(f"trainer data: first {SAME_SAMPLES} samples of the Blosc dataset "
-          f"bit-equal to the uncompressed copy's: {equal} (copy written in "
-          f"{t_raw:.1f} s, {store_bytes(work / 'data_raw')} bytes on disk)")
+          f"bit-equal to the uncompressed copy's: {raw_equal} (copy written "
+          f"in {t_raw:.1f} s, {store_bytes(work / 'data_raw')} bytes on "
+          f"disk); to the same dataset's over http: {http_equal}")
     import shutil
     shutil.rmtree(work / "data_raw", ignore_errors=True)
-    return [] if equal else ["trainer data: the Blosc dataset's samples "
-                             "differ from the uncompressed copy's"]
+    return ([] if raw_equal else ["trainer data: the Blosc dataset's samples "
+                                  "differ from the uncompressed copy's"]) + (
+        [] if http_equal else ["trainer data: the dataset's samples over "
+                               "http differ from the local ones"])
 
 
 def trainer_phase(patch, train_data, step_rate, device_augment=False,
@@ -2022,12 +2076,16 @@ FINALS_SHEET_MEDIAN = 1
 FINALS_SHEET_OVER3 = 5e-3
 FINALS_NORMALS_MEAN = 1e-3
 FINALS_NORMALS_OVER = 5e-3
+FINALS_LIMITS = (FINALS_SHEET_MEDIAN, FINALS_SHEET_OVER3, FINALS_NORMALS_MEAN,
+                 FINALS_NORMALS_OVER)
 
 
-def outputs_close(store_a, store_b, label, failures):
+def outputs_close(store_a, store_b, label, failures, limits=FINALS_LIMITS):
     """``tests/test_infer_device.py::_assert_outputs_close`` on two stores'
     finals: the two passes sum in another order and the bf16 forward
-    amplifies input ulps, so they agree to arithmetic noise."""
+    amplifies input ulps, so they agree to arithmetic noise (``limits``:
+    sheet median, sheet share > 3, normals mean, normals share > 3e-2)."""
+    sheet_median, sheet_over3, normals_mean, normals_over = limits
     import os
     from mt3d_resenc_unet_torch.data.zio import open_zarr
     fa = open_zarr(os.path.join(store_a, "sheet_final")).read_all()
@@ -2043,37 +2101,26 @@ def outputs_close(store_a, store_b, label, failures):
                          - nb.astype(np.float32) / 32767.5, axis=0)
     mean, over = float(err.mean()), float((err > 3e-2).mean())
     print(f"engine finals {label}: sheet median diff {median} (limit "
-          f"{FINALS_SHEET_MEDIAN}), share > 3 {over3:.3e} (limit "
-          f"{FINALS_SHEET_OVER3}); normals mean err {mean:.3e} (limit "
-          f"{FINALS_NORMALS_MEAN}), share > 3e-2 {over:.3e} (limit "
-          f"{FINALS_NORMALS_OVER})")
-    if not (ok and median <= FINALS_SHEET_MEDIAN
-            and over3 < FINALS_SHEET_OVER3 and mean < FINALS_NORMALS_MEAN
-            and over < FINALS_NORMALS_OVER):
+          f"{sheet_median}), share > 3 {over3:.3e} (limit {sheet_over3}); "
+          f"normals mean err {mean:.3e} (limit {normals_mean}), share > "
+          f"3e-2 {over:.3e} (limit {normals_over})")
+    if not (ok and median <= sheet_median and over3 < sheet_over3
+            and mean < normals_mean and over < normals_over):
         failures.append(f"engine finals {label}: sheet median {median} "
                         f"over3 {over3}, normals mean {mean} over {over}")
 
 
 def engine_config(ckpt, img, out, patch, device_accumulate, **infer):
-    """The flagship (autoconfigured at ``patch``, sheet + normals heads,
-    bf16) served from ``ckpt`` over ``img`` into ``out``."""
-    return {
-        "tr_setup": {"model_name": "flagship", "autoconfigure": True,
-                     "seed": SEED},
-        "tr_config": {"patch_size": list(patch), "batch_size": 2,
-                      "compute_dtype": "bfloat16"},
-        "model_config": {},
-        "dataset_config": {
-            "in_channels": 1, "volume_paths": [],
-            "targets": {"sheet": {"channels": 1, "activation": "sigmoid"},
-                        "normals": {"channels": 3, "activation": "none"}}},
-        "inference_config": {
-            "checkpoint_path": str(ckpt), "input_path": str(img),
-            "output_path": str(out), "patch_size": list(patch),
-            "overlap": 0.25, "batch_size": 2,
-            "normalization": "standardize", "gaussian_blend": True,
-            "device_accumulate": device_accumulate, **infer},
-    }
+    """The flagship (``flagship_config``, bf16) served from ``ckpt`` over
+    ``img`` into ``out``."""
+    cfg = flagship_config(patch)
+    cfg["inference_config"] = {
+        "checkpoint_path": str(ckpt), "input_path": str(img),
+        "output_path": str(out), "patch_size": list(patch),
+        "overlap": 0.25, "batch_size": 2,
+        "normalization": "standardize", "gaussian_blend": True,
+        "device_accumulate": device_accumulate, **infer}
+    return cfg
 
 
 def input_decode_cost(img, img_raw, patch, volume):
@@ -2237,6 +2284,27 @@ def engine_phase(patch, volume, u16_volume):
             shutil.rmtree(again)
         del finals_a
         med = {k: statistics.median(v) for k, v in loops.items()}
+        # (g) the device pass with its input over HTTP: the port's remote
+        # store, served from this directory by a child process
+        with http_root(work) as url:
+            remote = f"{url}/{img.name}"
+            store_g = serve("(g) auto, input over http", "auto_http",
+                            "device", device_accumulate="auto",
+                            input_path=remote)
+            read_same = read_rates(str(img), remote,
+                                   f"phase 8 input {volume}")
+        same_g = all(np.array_equal(
+            open_zarr(os.path.join(store_g, f"{n}_final")).read_all(),
+            open_zarr(os.path.join(store_a, f"{n}_final")).read_all())
+            for n in ("sheet", "normals"))
+        print(f"engine (g) input over http [{smi}]: loop "
+              f"{rates['(g) auto, input over http'][0]:.3f} patches/s "
+              f"against {med['blosc']:.3f} (median of (a) on the local "
+              f"Blosc input); finals bit-equal to (a)'s: {same_g}")
+        if not (same_g and read_same):
+            failures.append(f"engine (g): over http finals equal {same_g}, "
+                            f"input read equal {read_same}")
+        shutil.rmtree(store_g)
         print(f"engine (a) device loop patches/s in turns [{smi}]: Blosc "
               f"input {', '.join(f'{r:.3f}' for r in loops['blosc'])} "
               f"(median {med['blosc']:.3f}), uncompressed "
@@ -3403,6 +3471,299 @@ def codec_phase():
     return failures
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: every dtype the trainer and the engine take; the remote
+# reads run inside phases 7 and 8, where their data are
+# ---------------------------------------------------------------------------
+
+# phase 18: the flagship's first step at compute dtype float32 and float16
+# with the kernels left on (``use_pallas_conv`` auto), against the plain
+# fp32 path from the same weights and batch: relative differences of the
+# total loss and of grad_norm, 5x the values measured on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W) at seed 0: fp32 0 and 6.9e-7 (the same convs; the
+# loss's floor 1e-6), fp16 3.3e-6 and 4.0e-2 (no loss scaler, as in the
+# JAX step: the per-voxel cotangents of a mean over 4 M voxels, ~2e-7,
+# are fp16 subnormals)
+DTYPE_LIMITS = {"float32": (1e-6, 5e-6), "float16": (2e-5, 0.2)}
+# phase 20: the engine's fp32 finals against its bf16 ones (sheet median
+# code difference, share > 3; normals mean vector error, share > 3e-2):
+# measured 0, 0, 7.3e-3 and 1.45e-2 on the H100 at seed 0 + 1, limits 5x
+# (the sheet's at phase 8's)
+ENGINE_DTYPE_LIMITS = (FINALS_SHEET_MEDIAN, FINALS_SHEET_OVER3, 4e-2, 7.5e-2)
+
+
+def flagship_config(patch, compute_dtype="bfloat16", **tr_config):
+    """The flagship as the config system builds it (autoconfigured at
+    ``patch``, sheet + normals heads, ``use_pallas_conv`` unset: the
+    kernels on for the card) at ``compute_dtype``."""
+    return {
+        "tr_setup": {"model_name": "flagship", "autoconfigure": True,
+                     "seed": SEED},
+        "tr_config": {"patch_size": list(patch), "batch_size": 2,
+                      "compute_dtype": compute_dtype, **tr_config},
+        "model_config": {},
+        "dataset_config": {
+            "in_channels": 1, "volume_paths": [],
+            "targets": {"sheet": {"channels": 1, "activation": "sigmoid"},
+                        "normals": {"channels": 3, "activation": "none"}}},
+        "inference_config": {},
+    }
+
+
+def dtype_phase(dev, patch):
+    """Phase 18: TRAIN_STEPS flagship steps at batch 2 for each of compute
+    dtype float32 and float16, the plan from the config with
+    ``use_pallas_conv`` unset (the kernels on), every counter zeroed
+    before: no conv or upsample kernel may launch (rows 1-9 take bf16
+    only), the norm-act modes exactly as ``norm_launches`` derives for the
+    dtype (fp32: the norm-act kernels; fp16: none), finite losses, and the
+    first step's loss and grad_norm within DTYPE_LIMITS of the plain fp32
+    path's from the same weights and batch; median ms of each beside the
+    plain path's. Returns the failures."""
+    import dataclasses
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet, norm_launches
+    from mt3d_resenc_unet_torch.ops import _build
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    plan = ConfigManager(config_dict=flagship_config(patch),
+                         verbose=False).build_plan(dev)
+    print(f"phase 18: the config's plan has use_pallas_conv "
+          f"{plan.use_pallas_conv} on {dev}")
+    if not plan.use_pallas_conv:
+        failures.append("phase 18: use_pallas_conv auto is off on the card")
+    batch = flagship_batch(dev, patch, 2)
+    plain = ResEncUNet(dataclasses.replace(plan, use_pallas_conv=False),
+                       dtype=torch.float32, seed=SEED).to(dev)
+    want, plain_ms, _, _ = train_path(plain, batch, TRAIN_STEPS,
+                                      "phase 18 plain fp32", FLAGSHIP_LOSSES)
+    want = want[0]
+    del plain
+    torch.cuda.empty_cache()
+    for name, (loss_tol, gnorm_tol) in DTYPE_LIMITS.items():
+        model = ResEncUNet(plan, dtype=getattr(torch, name), seed=SEED).to(dev)
+        _build.clear_counts()
+        metrics, ms, peak, _ = train_path(
+            model, batch, TRAIN_STEPS, f"phase 18 {name} (kernels on)",
+            FLAGSHIP_LOSSES)
+        launches = dict(_build.LAUNCHES)
+        del model
+        torch.cuda.empty_cache()
+        m = metrics[0]
+        conv = {k: launches.get(k, 0) for k in CONV_KERNELS}
+        implied = {k: v * TRAIN_STEPS for k, v in norm_launches(
+            plan, patch, 2, getattr(torch, name)).items()}
+        modes = {k: launches.get(k, 0) for k in implied}
+        loss_diff = abs(m["total_loss"] - want["total_loss"]) / abs(
+            want["total_loss"])
+        gn_diff = abs(m["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+        finite = all(np.isfinite(v) for s in metrics for v in s.values())
+        print(f"phase 18 {name} step [{smi}]: {ms:.1f} ms median (plain "
+              f"fp32 {plain_ms:.1f} ms), peak "
+              f"{peak / 2 ** 30:.2f} GiB; conv/upsample launches {conv}; "
+              f"norm-act modes {modes}, norm_launches {implied}; against "
+              f"plain fp32: total loss rel diff {loss_diff:.3e} (limit "
+              f"{loss_tol}), grad_norm rel diff {gn_diff:.3e} (limit "
+              f"{gnorm_tol}); finite {finite}")
+        if any(conv.values()):
+            failures.append(f"phase 18 {name}: conv kernels launched {conv}")
+        if modes != implied:
+            failures.append(f"phase 18 {name}: norm-act modes {modes}, "
+                            f"norm_launches {implied}")
+        if not (finite and loss_diff <= loss_tol and gn_diff <= gnorm_tol):
+            failures.append(f"phase 18 {name}: loss diff {loss_diff} "
+                            f"grad_norm diff {gn_diff} finite {finite}")
+    print(f"phase 18 (compute dtypes): {time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+def param_dtype_phase(dev, patch, base):
+    """Phase 19: the flagship step with ``param_dtype`` bfloat16 and bf16
+    compute (every parameter, gradient and AdamW moment in bf16; AdamW is
+    optax's rule in bf16, ``OptaxRule``): two first steps from the same
+    weights and batch bit-equal, then TRAIN_STEPS steps with every counter
+    zeroed before: all nine conv and upsample kernels launched, the
+    norm-act modes as ``norm_launches`` derives them, finite losses; ms and
+    peak memory beside phase 5b's (``base``). Returns the failures."""
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet, norm_launches
+    from mt3d_resenc_unet_torch.ops import _build
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    plan = ConfigManager(config_dict=flagship_config(
+        patch, param_dtype="bfloat16"), verbose=False).build_plan(dev)
+    model = ResEncUNet(plan, dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16, seed=SEED).to(dev)
+    batch = flagship_batch(dev, patch, 2)
+    same = step_repeatability(model, batch, FLAGSHIP_LOSSES)
+    if not same:
+        failures.append("phase 19: two first steps differ")
+    torch.cuda.empty_cache()
+    _build.clear_counts()
+    metrics, ms, peak, _ = train_path(model, batch, TRAIN_STEPS,
+                                      "phase 19 param bf16", FLAGSHIP_LOSSES)
+    launches = dict(_build.LAUNCHES)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    del model
+    torch.cuda.empty_cache()
+    implied = {k: v * TRAIN_STEPS
+               for k, v in norm_launches(plan, patch, 2).items()}
+    modes = {k: launches.get(k, 0) for k in implied}
+    print(f"phase 19 param_dtype bfloat16 step [{smi}]: parameters "
+          f"{dtypes}; {ms:.1f} ms median against {base['ms']:.1f} ms (phase "
+          f"5b, fp32 parameters); peak memory {peak / 2 ** 30:.2f} GiB "
+          f"against {base['peak'] / 2 ** 30:.2f} GiB (phase 5b); launches "
+          f"{launches}; norm-act modes {modes}, as the plan implies "
+          f"{implied}: {modes == implied}")
+    if dtypes != ["torch.bfloat16"]:
+        failures.append(f"phase 19: parameters in {dtypes}")
+    for name in CONV_KERNELS:
+        if launches.get(name, 0) <= 0:
+            failures.append(f"phase 19: kernel {name} was never launched")
+    if modes != implied:
+        failures.append(f"phase 19: norm-act modes {modes}, implied "
+                        f"{implied}")
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            failures.append(f"phase 19 step {i}: non-finite {m}")
+    print(f"phase 19 (param_dtype): {time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+def engine_dtype_phase(patch, volume):
+    """Phase 20: the engine's device pass at compute dtype float32 (the
+    kernels left on: rows 1-9 launch nothing, the fp32 norm-act kernels
+    run) and at bfloat16 on a seeded u8 Blosc volume from the same
+    checkpoint; the fp32 finals held against the bf16 ones with
+    ENGINE_DTYPE_LIMITS (5x one seed's measurement on the card: phase 8's
+    limits are for two orders of the same sums, and bf16 against fp32
+    compute moves the normals further). Returns the failures."""
+    import os
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    from mt3d_resenc_unet_torch.data.zio import create_zarr
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.train.checkpoint import save_params
+    failures = []
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "engine_dtypes"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        plan = plan_from_autoconfig(
+            patch, 1, [TaskHead("sheet", 1, "sigmoid"),
+                       TaskHead("normals", 3, "none")], model_name="flagship")
+        ckpt = work / "flagship.pt"
+        save_params(ckpt, ResEncUNet(plan, seed=SEED).state_dict())
+        img = work / "image.zarr"
+        create_zarr(str(img), volume, np.uint8, patch)[...] = \
+            np.random.default_rng(SEED + 1).integers(0, 256, volume,
+                                                     dtype=np.uint8)
+        stores = {}
+        for name in ("bfloat16", "float32"):
+            cfg = engine_config(ckpt, img, work / name, patch, True)
+            cfg["tr_config"]["compute_dtype"] = name
+            _build.clear_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine = ZarrInferenceEngine(config_dict=cfg, device=None)
+            stores[name] = engine.infer()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            print(f"phase 20 engine {name} [{smi}]: pass {engine.last_mode} "
+                  f"in {dt:.2f} s, phases " + ", ".join(
+                      f"{k} {v:.3f} s" for k, v in engine.last_phases.items())
+                  + f"; launches {launches}")
+            if engine.last_mode != "device":
+                failures.append(f"phase 20 {name}: the {engine.last_mode} "
+                                "pass ran, not the device pass")
+            conv = {k: launches.get(k, 0) for k in CONV_KERNELS}
+            if name == "float32" and any(conv.values()):
+                failures.append(f"phase 20 fp32: conv kernels launched "
+                                f"{conv}")
+            if name == "bfloat16" and not all(launches.get(k, 0)
+                                              for k in FORWARD):
+                failures.append(f"phase 20 bf16: forward kernels {launches}")
+        outputs_close(stores["float32"], stores["bfloat16"],
+                      "phase 20 fp32 vs bf16", failures, ENGINE_DTYPE_LIMITS)
+        for name, store in stores.items():
+            print(f"phase 20 {name} stores on disk: " + ", ".join(
+                f"{k} {store_bytes(os.path.join(store, k))}"
+                for k in sorted(os.listdir(store))
+                if os.path.isdir(os.path.join(store, k))) + " bytes")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 20 (engine dtypes): {time.perf_counter() - t_phase:.1f} s")
+    return failures
+
+
+@contextlib.contextmanager
+def http_root(root):
+    """Serves the directory ``root`` over HTTP/1.1 on 127.0.0.1 (a free
+    port) from a child process (``chip_smoke.py --serve``), so that a read
+    rate is the client's cost alone and shares no interpreter lock with the
+    server; yields the base URL, stops the child after."""
+    proc = subprocess.Popen([sys.executable, "-u", os.path.abspath(__file__),
+                             "--serve", str(root)], stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("PORT "):
+            raise RuntimeError(f"the http server did not start: {line!r}")
+        yield f"http://127.0.0.1:{int(line.split()[1])}"
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+
+
+def serve_main(root) -> int:
+    """``chip_smoke.py --serve ROOT``: serve ``ROOT`` over HTTP/1.1 on
+    127.0.0.1, without Nagle's algorithm (as object stores serve), until
+    terminated; prints ``PORT n`` first."""
+    import functools
+    import http.server
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        disable_nagle_algorithm = True
+
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=root))
+    print(f"PORT {httpd.server_address[1]}", flush=True)
+    httpd.serve_forever()
+    return 0
+
+
+def read_rates(local, url, label):
+    """The whole array read through ``open_zarr`` from the local path and
+    from its URL (the port's HTTP store, one connection a pool thread):
+    MB/s of decoded bytes each, printed; returns whether both reads are
+    bit-equal."""
+    from mt3d_resenc_unet_torch.data.zio import open_zarr
+    out = {}
+    for kind, path in (("local", local), ("http", url)):
+        t0 = time.perf_counter()
+        out[kind] = open_zarr(path).read_all()
+        out[kind + "_s"] = time.perf_counter() - t0
+    mb = out["local"].nbytes / 1e6
+    same = np.array_equal(out["local"], out["http"])
+    print(f"remote read {label} [{_host_cpu()}]: {mb:.1f} MB decoded, local "
+          f"{mb / out['local_s']:.1f} MB/s, over http {mb / out['http_s']:.1f}"
+          f" MB/s; bit-equal {same}")
+    return same
+
+
 def worker_main(argv) -> int:
     """``chip_smoke.py --worker MODE RANK WORLD PORT WORK [ARG]``: one rank
     of phase 14b (``step``) or 15 (``engine``); prints its result as a
@@ -3426,4 +3787,6 @@ def worker_main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(worker_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve"]:
+        sys.exit(serve_main(sys.argv[2]))
     sys.exit(main())

@@ -54,12 +54,13 @@ def set_precision() -> None:
     that runs on the card (``Trainer``, ``ZarrInferenceEngine``,
     ``chip_smoke.py``, ``tools/profile_step.py``), so that what is timed is what a user runs:
     fp32 convs and matmuls in full fp32 (TF32 off: the fp32 reference
-    model, the plain versions of the kernels), and bf16 matmuls that add
-    cuBLAS's split-K partials in fp32, as the JAX package's fp32
+    model, the plain versions of the kernels), and bf16 and fp16 matmuls
+    that add cuBLAS's split-K partials in fp32, as the JAX package's fp32
     accumulation does (the stem GEMM's K is every voxel)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 class ConfigManager:

@@ -5,40 +5,54 @@ The port of ``mt3d_resenc_unet_tpu/data/zio.py``, with the same API
 ``create_zarr``, ``zarr_exists``, ``normalize_to_unit``, the normals codec)
 and the same decode arithmetic. Two backends behind ``Volume``:
 
-* a local zarr v2 array (C order, no filters) whose compressor
-  ``data/codec.py`` handles -- none, Blosc (zstd, lz4, lz4hc, blosclz and
-  zlib streams, any shuffle), zstd, zlib, gzip or bz2 -- is read and written
-  by this module and the port's own C++ codec: one ``.zarray`` JSON plus one
-  file per chunk, named ``i.j.k`` (or ``i/j/k`` with
-  ``dimension_separator: "/"``), edge chunks stored at full size, a missing
-  chunk reading as the fill value. Its stores and the JAX package's
-  (tensorstore's) read each other bit for bit, and ``create_zarr`` writes
-  the ``.zarray`` tensorstore writes for the same arguments (the default
-  compressor, Blosc zstd-5 bit shuffle, included);
-* any other store (http(s)/s3/gs URLs, ``memory://``, Blosc snappy, other
-  codecs or filters) goes through tensorstore when it is importable, as in
-  the JAX package; without it, opening one raises an ``ImportError`` naming
-  the package and the store.
+* a zarr v2 array (C order, no filters) whose compressor ``data/codec.py``
+  handles -- none, Blosc (zstd, lz4, lz4hc, blosclz and zlib streams, any
+  shuffle), zstd, zlib, gzip or bz2 -- is read and written by this module
+  and the port's own C++ codec: one ``.zarray`` JSON plus one chunk per
+  key, named ``i.j.k`` (or ``i/j/k`` with ``dimension_separator: "/"``),
+  edge chunks stored at full size, a missing chunk reading as the fill
+  value. The keys live in one of three key-value stores (:class:`_FileKV`,
+  :class:`_HttpKV`, :class:`_MemoryKV`): a local directory; an ``http://``
+  or ``https://`` URL, read-only, through the standard library's
+  ``http.client`` with one kept-alive connection a thread (a 404 is a
+  missing key, as tensorstore's http kvstore has it), where ``s3://bucket/
+  prefix`` reads ``https://bucket.s3.amazonaws.com/prefix`` and ``gs://
+  bucket/prefix`` ``https://storage.googleapis.com/bucket/prefix`` (public
+  objects: no credentials are sent); and ``memory://``, which
+  ``create_zarr`` makes anew at each call and ``open_zarr`` never finds, as
+  each tensorstore open of the JAX package gets its own memory kvstore.
+  These stores and the JAX package's (tensorstore's) read each other bit
+  for bit, and ``create_zarr`` writes the ``.zarray`` tensorstore writes
+  for the same arguments (the default compressor, Blosc zstd-5 bit
+  shuffle, included);
+* any other array (Blosc snappy, other codecs or filters, local or remote)
+  goes through tensorstore when it is importable, as in the JAX package;
+  without it, opening one raises an ``ImportError`` naming the package and
+  the store.
 
-The local backend decodes or encodes the chunks of one read or write in
-parallel on a thread pool (the codec releases the GIL), and
-``Volume.read_async`` / ``write_async`` return futures of a second pool, as
-tensorstore's do. It writes a chunk that a region covers whole by replacing
-its file, and a chunk that it covers in part by read-modify-write under an
-exclusive ``fcntl.flock`` of the chunk's lock file (``.{key}.lock`` beside
-it): writers of disjoint parts of one chunk, in threads or processes, take
-turns and lose no update. The reads are thread-safe.
+The port's backend reads or writes (and decodes or encodes) the chunks of
+one read or write in parallel on a thread pool (the codec releases the
+GIL), and ``Volume.read_async`` / ``write_async`` return futures of a second
+pool, as tensorstore's do. It writes a chunk that a region covers whole by
+replacing it, and a chunk that it covers in part by read-modify-write under
+the key's lock: in a directory an exclusive ``fcntl.flock`` of the chunk's
+lock file (``.{key}.lock`` beside it), so writers of disjoint parts of one
+chunk, in threads or processes, take turns and lose no update. The reads
+are thread-safe.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import fcntl
+import http.client
 import json
 import math
 import os
 import shutil
 import threading
+import urllib.parse
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -62,7 +76,6 @@ _DTYPE_TO_ZARR = {
     np.dtype("float32"): "<f4",
     np.dtype("float64"): "<f8",
 }
-_REMOTE = ("http://", "https://", "s3://", "gs://", "memory://")
 # The keys tensorstore fills in when it writes a compressor to .zarray.
 _COMPRESSOR_DEFAULTS = {
     "blosc": {"blocksize": 0, "clevel": 5, "cname": "lz4", "shuffle": -1},
@@ -205,11 +218,153 @@ def _local_codec(meta: Dict[str, Any]) -> bool:
             and codec.supported(meta.get("compressor")))
 
 
-class _LocalZarr:
-    """A local zarr v2 array, by numpy and the port's codec."""
+# ------------------------------------------------------ key-value stores
 
-    def __init__(self, path: str, meta: Dict[str, Any]):
+class _FileKV:
+    """The keys of an array as files under its directory."""
+
+    writable = True
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _file(self, key: str) -> str:
+        return os.path.join(self.root, key)
+
+    def read(self, key: str) -> Optional[bytes]:
+        try:
+            with open(self._file(key), "rb") as f:
+                return f.read()
+        except (FileNotFoundError, NotADirectoryError):
+            return None
+
+    def write(self, key: str, data: bytes) -> None:
+        """Replace the key's file whole (a temporary file renamed over it)."""
+        path = self._file(key)
+        if "/" in key:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+
+    @contextlib.contextmanager
+    def locked(self, key: str):
+        """An exclusive ``fcntl.flock`` of the key's lock file, held by
+        threads and processes in turn."""
+        path = self._file(key)
+        if "/" in key:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        lock = os.path.join(os.path.dirname(path),
+                            f".{os.path.basename(path)}.lock")
+        fd = os.open(lock, os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)   # releases the lock
+
+
+class _MemoryKV:
+    """An in-process store of one ``create_zarr("memory://...")`` call."""
+
+    writable = True
+
+    def __init__(self):
+        self.data: Dict[str, bytes] = {}
+        self.lock = threading.Lock()
+
+    def read(self, key: str) -> Optional[bytes]:
+        return self.data.get(key)
+
+    def write(self, key: str, data: bytes) -> None:
+        self.data[key] = data
+
+    def locked(self, key: str):
+        return self.lock
+
+
+def http_url(path: str) -> str:
+    """The HTTP(S) base URL of a remote store: ``s3://bucket/prefix`` and
+    ``gs://bucket/prefix`` by their public endpoints."""
+    if path.startswith("s3://"):
+        bucket, _, prefix = path[len("s3://"):].partition("/")
+        return f"https://{bucket}.s3.amazonaws.com/{prefix}".rstrip("/")
+    if path.startswith("gs://"):
+        return ("https://storage.googleapis.com/"
+                + path[len("gs://"):]).rstrip("/")
+    return path.rstrip("/")
+
+
+class _HttpKV:
+    """The keys of an array under an HTTP(S) base URL, read-only: ``GET
+    {base}/{key}``, a 404 a missing key, any other status or a body shorter
+    than its ``Content-Length`` an ``OSError`` naming the URL. Each thread
+    keeps one connection to the host, reopened once where the server closed
+    it between requests."""
+
+    writable = False
+
+    def __init__(self, url: str):
+        self.url = url
+        parts = urllib.parse.urlsplit(url)
+        if parts.scheme not in ("http", "https") or not parts.hostname:
+            raise ValueError(f"not an http(s) URL: {url!r}")
+        self.https = parts.scheme == "https"
+        self.host, self.port = parts.hostname, parts.port
+        self.prefix = parts.path.rstrip("/")
+        self.local = threading.local()
+
+    def _connection(self, fresh: bool = False) -> http.client.HTTPConnection:
+        conn = getattr(self.local, "conn", None)
+        if conn is None or fresh:
+            if conn is not None:
+                conn.close()
+            cls = (http.client.HTTPSConnection if self.https
+                   else http.client.HTTPConnection)
+            conn = cls(self.host, self.port, timeout=60)
+            self.local.conn = conn
+        return conn
+
+    def read(self, key: str) -> Optional[bytes]:
+        target = f"{self.prefix}/{urllib.parse.quote(key)}"
+        url = f"{self.url}/{key}"
+        for attempt in (0, 1):
+            conn = self._connection(fresh=attempt == 1)
+            try:
+                conn.request("GET", target)
+                resp = conn.getresponse()
+                body = resp.read()
+                break
+            except (http.client.RemoteDisconnected, ConnectionResetError,
+                    BrokenPipeError):
+                if attempt == 1:
+                    raise
+            except http.client.IncompleteRead as exc:
+                conn.close()
+                raise OSError(f"GET {url}: body cut short ({len(exc.partial)}"
+                              f" bytes of {exc.expected + len(exc.partial)})"
+                              ) from exc
+        if resp.status == 404:
+            return None
+        if resp.status != 200:
+            raise OSError(f"GET {url}: HTTP {resp.status} {resp.reason}")
+        return body
+
+    def write(self, key: str, data: bytes) -> None:
+        raise OSError(f"{self.url}: an http(s) store is read-only")
+
+    def locked(self, key: str):
+        raise OSError(f"{self.url}: an http(s) store is read-only")
+
+
+class _LocalZarr:
+    """A zarr v2 array by numpy and the port's codec, its keys in ``kv``
+    (the directory ``path`` by default)."""
+
+    def __init__(self, path: str, meta: Dict[str, Any], kv=None):
         self.path = path
+        self.kv = _FileKV(path) if kv is None else kv
         self.shape = tuple(int(s) for s in meta["shape"])
         self.chunks = tuple(int(c) for c in meta["chunks"])
         self.dtype = np.dtype(meta["dtype"])
@@ -221,17 +376,15 @@ class _LocalZarr:
                              "filters, with a compressor data/codec.py "
                              "handles, are read without tensorstore")
 
-    def _chunk_file(self, key) -> str:
-        return os.path.join(self.path, self.sep.join(str(k) for k in key))
+    def _key(self, key) -> str:
+        return self.sep.join(str(k) for k in key)
 
     def _read_chunk(self, key) -> np.ndarray:
-        """The chunk's values; read-only where they are the file's bytes
+        """The chunk's values; read-only where they are the stored bytes
         (no compressor), to spare a copy."""
-        path = self._chunk_file(key)
-        try:
-            with open(path, "rb") as f:
-                data = f.read()
-        except FileNotFoundError:
+        name = self._key(key)
+        data = self.kv.read(name)
+        if data is None:
             return np.full(self.chunks, self.fill_value, self.dtype)
         if self.compressor is None and len(data) == np.prod(
                 self.chunks) * self.dtype.itemsize:
@@ -240,7 +393,7 @@ class _LocalZarr:
         try:
             codec.decode_chunk_into(self.compressor, data, chunk)
         except ValueError as exc:
-            raise ValueError(f"{path}: {exc}") from exc
+            raise ValueError(f"{self.path}/{name}: {exc}") from exc
         return chunk
 
     def _overlaps(self, ranges):
@@ -279,38 +432,27 @@ class _LocalZarr:
 
         def one(part):
             key, in_chunk, in_out = part
-            path = self._chunk_file(key)
-            if self.sep == "/":
-                os.makedirs(os.path.dirname(path), exist_ok=True)
             if all(s.stop - s.start == c
                    for s, c in zip(in_chunk, self.chunks)):
                 chunk = np.full(self.chunks, self.fill_value, self.dtype)
                 chunk[in_chunk] = value[in_out]
-                self._replace_chunk(path, chunk)
+                self._replace_chunk(key, chunk)
                 return
-            lock = os.path.join(os.path.dirname(path),
-                                f".{os.path.basename(path)}.lock")
-            fd = os.open(lock, os.O_RDWR | os.O_CREAT, 0o644)
-            try:
-                fcntl.flock(fd, fcntl.LOCK_EX)
+            with self.kv.locked(self._key(key)):
                 chunk = self._read_chunk(key)
                 if not chunk.flags.writeable:
                     chunk = chunk.copy()
                 chunk[in_chunk] = value[in_out]
-                self._replace_chunk(path, chunk)
-            finally:
-                os.close(fd)   # releases the lock
+                self._replace_chunk(key, chunk)
 
+        if not self.kv.writable:
+            raise OSError(f"{self.path}: the store is read-only")
         _each(one, list(self._overlaps(ranges)))
 
-    def _replace_chunk(self, path: str, chunk: np.ndarray) -> None:
-        data = codec.encode_chunk_array(self.compressor,
-                                        np.ascontiguousarray(chunk),
-                                        self.dtype.itemsize)
-        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-        with open(tmp, "wb") as f:
-            f.write(data)
-        os.replace(tmp, path)
+    def _replace_chunk(self, key, chunk: np.ndarray) -> None:
+        self.kv.write(self._key(key), codec.encode_chunk_array(
+            self.compressor, np.ascontiguousarray(chunk),
+            self.dtype.itemsize))
 
 
 class _TsStore:
@@ -425,14 +567,21 @@ def to_ram(vol) -> RamVolume:
     return RamVolume(data=np.ascontiguousarray(vol.read_all()), path=vol.path)
 
 
-def _local_meta(path: str) -> Optional[Dict[str, Any]]:
-    """The ``.zarray`` of a local array, or None."""
-    if path.startswith(_REMOTE):
-        return None
-    meta = Path(path) / ".zarray"
-    if not meta.is_file():
-        return None
-    return json.loads(meta.read_text())
+_HTTP = ("http://", "https://", "s3://", "gs://")
+
+
+def _kv(path: str):
+    """The key-value store of a path or URL (``memory://`` has none to
+    open)."""
+    if path.startswith(_HTTP):
+        return _HttpKV(http_url(path))
+    return _FileKV(path)
+
+
+def _meta(kv) -> Optional[Dict[str, Any]]:
+    """The ``.zarray`` of an array in ``kv``, or None."""
+    data = kv.read(".zarray")
+    return None if data is None else json.loads(data)
 
 
 def _open_ts(path: str, writable: bool, why: str) -> Volume:
@@ -444,29 +593,27 @@ def _open_ts(path: str, writable: bool, why: str) -> Volume:
 
 def open_zarr(path: str, *, component: Optional[str] = None,
               writable: bool = False) -> Volume:
-    """Open an existing zarr v2 array (local or remote). ``component``
-    selects an array inside a group; a group without one opens its
-    multiscale level "0" (JAX zio.py:156-176)."""
-    full = path if component is None else os.path.join(path, component)
-    meta = _local_meta(full)
+    """Open an existing zarr v2 array (a local path or an http(s), s3 or
+    gs URL). ``component`` selects an array inside a group; a group without
+    one opens its multiscale level "0" (JAX zio.py:156-176). A
+    ``memory://`` array is never found (each open of the JAX package's gets
+    a new, empty memory kvstore): ``ValueError``."""
+    full = path if component is None else f"{path.rstrip('/')}/{component}"
+    if full.startswith("memory://"):
+        raise ValueError(f"NOT_FOUND: no zarr array at {full} (a memory:// "
+                         "store lives only in the volume create_zarr "
+                         "returned)")
+    kv = _kv(full)
+    meta = _meta(kv)
     if meta is not None:
         if _local_codec(meta):
-            return Volume(store=_LocalZarr(full, meta), path=full)
+            return Volume(store=_LocalZarr(full, meta, kv), path=full)
         return _open_ts(full, writable, "compressor "
                         f"{meta.get('compressor')}, filters "
                         f"{meta.get('filters')}")
-    if component is None and _local_meta(os.path.join(path, "0")) is not None:
+    if component is None and _meta(_kv(f"{path.rstrip('/')}/0")) is not None:
         return open_zarr(path, component="0", writable=writable)
-    if not full.startswith(_REMOTE):
-        raise FileNotFoundError(f"no zarr array at {full}")
-    try:
-        return _open_ts(full, writable, "remote store")
-    except ImportError:
-        raise
-    except Exception:
-        if component is None:
-            return open_zarr(path, component="0", writable=writable)
-        raise
+    raise FileNotFoundError(f"no zarr array at {full}")
 
 
 def create_zarr(
@@ -481,8 +628,10 @@ def create_zarr(
     allow_existing: bool = False,
 ) -> Volume:
     """Create a zarr v2 array (bit-compatible with the reference's stores).
-    A local path with a compressor ``data/codec.py`` handles needs no
-    package; its ``.zarray`` is the one tensorstore writes."""
+    A local path or ``memory://`` (a new in-process store at each call)
+    with a compressor ``data/codec.py`` handles needs no package; its
+    ``.zarray`` is the one tensorstore writes. An http(s), s3 or gs URL is
+    read-only: ``OSError``."""
     dt = np.dtype(dtype)
     metadata = {
         "shape": list(shape),
@@ -491,41 +640,44 @@ def create_zarr(
         "compressor": compressor,
         "fill_value": fill_value,
     }
-    if path.startswith(_REMOTE) or not codec.supported(compressor):
-        ts = _tensorstore(path, f"compressor {compressor}"
-                          if not path.startswith(_REMOTE) else "remote store")
+    if path.startswith(_HTTP):
+        raise OSError(f"{path}: an http(s), s3 or gs store is read-only")
+    if not codec.supported(compressor):
+        ts = _tensorstore(path, f"compressor {compressor}")
         spec = {"driver": "zarr", "kvstore": _kvstore_spec(path),
                 "metadata": metadata}
         store = ts.open(spec, create=True, delete_existing=delete_existing,
                         open=allow_existing).result()
         return Volume(store=_TsStore(store, path), path=path)
-    root = Path(path)
-    if root.exists():
-        if delete_existing:
-            shutil.rmtree(root)
-        elif allow_existing and _local_meta(path) is not None:
-            return open_zarr(path, writable=True)
-        else:
-            raise FileExistsError(f"zarr array exists at {path}")
-    root.mkdir(parents=True)
     metadata.update(compressor=_normalize_compressor(compressor),
                     fill_value=_fill_value(fill_value, dt), zarr_format=2,
                     order="C", filters=None, dimension_separator=".")
-    (root / ".zarray").write_text(json.dumps(metadata, sort_keys=True))
-    return Volume(store=_LocalZarr(path, metadata), path=path)
+    if path.startswith("memory://"):
+        kv = _MemoryKV()
+    else:
+        root = Path(path)
+        if root.exists():
+            if delete_existing:
+                shutil.rmtree(root)
+            elif allow_existing and _meta(_FileKV(path)) is not None:
+                return open_zarr(path, writable=True)
+            else:
+                raise FileExistsError(f"zarr array exists at {path}")
+        root.mkdir(parents=True)
+        kv = _FileKV(path)
+    kv.write(".zarray", json.dumps(metadata, sort_keys=True).encode())
+    return Volume(store=_LocalZarr(path, metadata, kv), path=path)
 
 
 def zarr_exists(path: str) -> bool:
-    if _local_meta(path) is not None:
-        return True
-    if not path.startswith(_REMOTE):
+    """Whether an array opens at ``path``: its ``.zarray`` is there (never
+    for ``memory://``, as in the JAX package); a remote store that fails to
+    answer counts as none, as tensorstore's failed open does there."""
+    if path.startswith("memory://"):
         return False
     try:
-        _open_ts(path, False, "remote store")
-        return True
-    except ImportError:
-        raise
-    except Exception:
+        return _meta(_kv(path)) is not None
+    except (OSError, ValueError):
         return False
 
 

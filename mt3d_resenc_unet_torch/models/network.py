@@ -37,11 +37,12 @@ class UpsampleConv(nn.Module):
     as one pointwise GEMM written depth-to-space. The parameter keeps the
     flax ``ConvTranspose`` layout (*k, ci, co), which applies the kernel
     spatially flipped: y[k*i + a] = x[i] @ W[k-1-a] (JAX network.py:79-81).
-    The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) goes to
-    the CUDA upsample through its autograd Function when ``use_kernels``;
-    the flip stays outside it, so autograd takes its gradient. Other shapes
-    run the GEMM in plain PyTorch: in fp32 for an fp32 input, in the
-    input's dtype with fp32 accumulation for a bf16 one (ops/lowp.py).
+    The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) in
+    bf16 goes to the CUDA upsample through its autograd Function when
+    ``use_kernels``; the flip stays outside it, so autograd takes its
+    gradient. Other shapes and dtypes run the GEMM in plain PyTorch: in
+    fp32 for an fp32 input, in the input's dtype with fp32 accumulation for
+    a bf16 or fp16 one (ops/lowp.py).
     ``bias`` (with ``conv_bias``) is added in the output's dtype."""
 
     def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False,
@@ -65,6 +66,7 @@ class UpsampleConv(nn.Module):
                         dims=tuple(range(len(self.kernel_size)))).contiguous()
         ci, co = wf.shape[-2:]
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
+                and x.dtype == torch.bfloat16
                 and upsample2x_supported(x.shape, ci, co)):
             y = Upsample2xFn.apply(x, wf)
         elif x.dtype != torch.float32:
@@ -222,14 +224,17 @@ class ResEncUNet(nn.Module):
     """Multi-task network: shared Encoder, one Decoder per task. Starts in
     eval mode.
 
-    ``dtype`` is the compute dtype of the activations (bf16 on the card,
-    where the kernels need it); parameters stay fp32 and are cast at each
-    call, as in the JAX model, so their gradients are fp32. Parameters start
-    from torch's default init drawn from a ``torch.Generator`` seeded with
-    ``seed`` (affine norms start at ones and zeros)."""
+    ``dtype`` is the compute dtype of the activations (bf16 on the card
+    sends the kernels' classes to the kernels; fp32 and fp16 run the plain
+    classes). ``param_dtype`` is the dtype every parameter is kept in (the
+    flax modules' ``param_dtype``): each op casts its parameters to the
+    compute dtype at the call, as the JAX model does, so the gradients are
+    in ``param_dtype`` too. Parameters start from torch's default init
+    drawn in fp32 from a ``torch.Generator`` seeded with ``seed``, then
+    rounded to ``param_dtype`` (affine norms start at ones and zeros)."""
 
     def __init__(self, plan: NetworkPlan, dtype: torch.dtype = torch.float32,
-                 seed: int = 0):
+                 seed: int = 0, param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.plan = plan
         self.dtype = dtype
@@ -241,6 +246,7 @@ class ResEncUNet(nn.Module):
         for module in self.modules():
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
+        self.to(param_dtype)
         self.eval()
 
     def forward(self, x: torch.Tensor,
@@ -285,7 +291,9 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
     the convs outside the conv kernels' class, the 1x1 projections); the
     backward launches ``norm_act_tail_bwd`` once for each tail. Derived
     from the plan's stages and the conv kernels' shape classes, not from
-    the model, so that a run can hold its launch counts against it. For a
+    the model, so that a run can hold its launch counts against it, for
+    each compute ``dtype``: the norm-act kernels take bf16 and fp32 (8 and
+    4 channels a 16-byte vector), and an fp16 model launches none. For a
     residual BasicBlockD encoder and a ConvBlock decoder without conv bias,
     affine norm or dropout in 3-D (the flagship's and ``tasks/ink.yaml``'s
     plans); raises on another plan."""
@@ -295,6 +303,9 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
             and p.basic_decoder_block == "ConvBlock" and p.do_stem
             and not (p.conv_bias or p.norm_affine or p.dropout_p > 0.0)):
         raise NotImplementedError("norm_launches: not a plan it counts")
+    if not p.use_pallas_conv or dtype not in (torch.bfloat16, torch.float32):
+        return {"norm_act_tail": 0, "norm_act_raw_stats": 0,
+                "norm_act_tail_bwd": 0}
     vec = 8 if dtype == torch.bfloat16 else 4
 
     def in_class(c: int) -> bool:
@@ -302,7 +313,7 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
 
     def unfused(ext, ci, co, stride) -> bool:
         """A 3x3x3 conv whose statistics the raw mode takes: outside the
-        conv kernels' class, in a 16-bit model (an fp32 model's run
+        conv kernels' class, in a bf16 model (an fp32 model's run
         conv3d_k3_plain, which emits its own)."""
         if dtype == torch.float32 or not in_class(co):
             return False
@@ -311,9 +322,6 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
             return not conv_s1_supported(x, w)
         return not (stride == (2, 2, 2) and conv_s2_supported(x, w))
 
-    if not p.use_pallas_conv:
-        return {"norm_act_tail": 0, "norm_act_raw_stats": 0,
-                "norm_act_tail_bwd": 0}
     tails = raw = 0
     ext, ci = tuple(patch), p.stem_width
     raw += unfused(ext, p.in_channels, ci, (1, 1, 1))     # the stem

@@ -5,9 +5,11 @@ reference: train.py:146-168, 249-265, 339 and inference.py:39-44):
 
 * per-epoch checkpoints ``<ckpt_out_base>/<model_name>/<epoch>/state.pt``
   with keep-newest-N garbage collection (orbax ``max_to_keep``);
-* full resume: a state is ``{"params": model.state_dict() (fp32),
-  "opt_state": the torch optimizer's state_dict, "step": Optimizer.count,
-  "epoch": int}``. ``step`` is the schedule position (train/step.py
+* full resume: a state is ``{"params": model.state_dict() (in the
+  model's ``param_dtype``: fp32, bf16 or fp16), "opt_state": the torch
+  optimizer's state_dict (its moments in the same dtype), "step":
+  Optimizer.count, "epoch": int}``; a state saves and restores in its own
+  dtypes. ``step`` is the schedule position (train/step.py
   ``Optimizer.count``): a resume without it would restart the cosine
   schedule, which is why the JAX trainer restores ``step`` too;
 * ``load_weights_only`` fine-tune mode (params only, fresh optimizer);
@@ -28,6 +30,8 @@ from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from .optimizers import state_for
 
 STATE_FILE = "state.pt"
 # marks an optimizer state keyed by parameter name (tools/from_jax.py)
@@ -159,9 +163,11 @@ def merge_params_nonstrict(fresh: Mapping[str, torch.Tensor],
 def opt_state_by_index(opt_state: Mapping[str, Any],
                        model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """A name-keyed optimizer state (``tools/from_jax.py::state_from_jax``)
-    -> the ``state_dict`` of ``optimizer``, built over
-    ``model.parameters()``; an index-keyed one passes through."""
+    """A name-keyed optimizer state in optax's layout
+    (``tools/from_jax.py::state_from_jax``) -> the ``state_dict`` of
+    ``optimizer``, built over ``model.parameters()``, in its layout
+    (``train/optimizers.py::state_for``); an index-keyed one passes
+    through."""
     if not opt_state.get(OPT_STATE_BY_NAME):
         return dict(opt_state)
     names = [n for n, _ in model.named_parameters()]
@@ -169,6 +175,6 @@ def opt_state_by_index(opt_state: Mapping[str, Any],
     if missing:
         raise KeyError(f"optimizer state lacks {sorted(missing)[:5]}")
     fresh = optimizer.state_dict()
-    return {"state": {i: dict(opt_state["state"][n])
+    return {"state": {i: state_for(optimizer, opt_state["state"][n])
                       for i, n in enumerate(names)},
             "param_groups": fresh["param_groups"]}

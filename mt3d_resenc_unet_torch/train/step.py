@@ -4,10 +4,12 @@ global-norm clipping, AdamW or SGD, cosine epoch schedule.
 The port of ``mt3d_resenc_unet_tpu/train/step.py`` (reference:
 train.py:175-240). PyTorch runs eagerly, so a step is a Python function:
 forward and backward per microbatch, then one clipped optimizer update.
-Mixed precision is the model's: bf16 activations over fp32 parameters (the
-model casts its weights at each call), so gradients and the optimizer state
-are fp32 and no GradScaler is needed. Left out, as XLA-only devices: the
-packed ``_vec`` metric, the strong-int32 step and buffer donation.
+Mixed precision is the model's: activations in the compute dtype over
+parameters in ``param_dtype`` (fp32 by default; the model casts its weights
+at each call), so gradients and the optimizer state are in the parameters'
+dtype. There is no GradScaler, at fp16 either, as the JAX step has none.
+Left out, as XLA-only devices: the packed ``_vec`` metric, the strong-int32
+step and buffer donation.
 
 Multi-process (``parallel/distributed.py``), each rank holds its shard of
 the global batch, and the step computes what the JAX step jitted over the
@@ -47,12 +49,27 @@ def cosine_epoch_schedule(initial_lr: float, max_epoch: int,
     return schedule
 
 
+def global_norm(grads) -> torch.Tensor:
+    """``optax.global_norm`` of 16-bit leaves: each leaf's sum of squares
+    (accumulated in fp32) rounded to the leaves' dtype, the sums added in
+    that dtype in order, and the square root of the total."""
+    total = None
+    for g in grads:
+        sq = g.float().square().sum().to(g.dtype)
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
 class Optimizer:
     """Global-norm clip, then a torch optimizer whose learning rate follows
     ``schedule`` of the number of updates so far (the optax chain
     ``clip_by_global_norm -> adamw/sgd`` with a schedule).
     :meth:`step` returns the global norm of the gradients before the clip
-    (``optax.global_norm(grads)`` in the JAX step)."""
+    (``optax.global_norm(grads)`` in the JAX step). fp32 gradients go
+    through torch's clip; 16-bit ones (``param_dtype`` bf16 / fp16) are
+    clipped as ``optax.clip_by_global_norm`` rounds them: the norm of
+    :func:`global_norm`, and ``(g / norm) * max_norm`` in their dtype where
+    the norm is at least ``max_norm``."""
 
     def __init__(self, opt: torch.optim.Optimizer, schedule: Schedule,
                  grad_clip_norm: Optional[float]):
@@ -67,10 +84,18 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         params = [p for group in self.opt.param_groups
                   for p in group["params"] if p.grad is not None]
-        if self.grad_clip_norm:
-            norm = torch.nn.utils.clip_grad_norm_(params, self.grad_clip_norm)
+        grads = [p.grad for p in params]
+        clip = self.grad_clip_norm
+        if any(g.dtype != torch.float32 for g in grads):
+            norm = global_norm(grads)
+            if clip:
+                keep = norm < clip
+                for g in grads:
+                    g.copy_(torch.where(keep, g, g / norm * clip))
+        elif clip:
+            norm = torch.nn.utils.clip_grad_norm_(params, clip)
         else:
-            norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+            norm = torch.nn.utils.get_total_norm(grads)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -86,17 +111,15 @@ def build_optimizer(params: Iterable[torch.nn.Parameter],
     """AdamW (default: betas 0.9/0.999, eps 1e-8, decoupled decay) or
     SGD with nesterov and momentum 0.9 (decay added to the gradient), after
     global-norm clipping at ``grad_clip_norm`` (reference: train.py:69-84,
-    227). torch's AdamW scales p by ``1 - lr*wd`` before the Adam update
-    where optax adds ``wd*p`` to it; both give ``p - lr*(u + wd*p)``."""
-    params = list(params)
-    lr0 = schedule(0)
-    if optimizer_name.lower() == "sgd":
-        opt = torch.optim.SGD(params, lr=lr0, momentum=0.9, nesterov=True,
-                              weight_decay=weight_decay)
-    else:
-        opt = torch.optim.AdamW(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
-    return Optimizer(opt, schedule, grad_clip_norm)
+    227): ``train/optimizers.py::create_optimizer``'s "adamw" or "sgd",
+    the JAX step's optax chains. On fp32 parameters that is torch's AdamW /
+    SGD (torch's AdamW scales p by ``1 - lr*wd`` before the Adam update
+    where optax adds ``wd*p`` to it; both give ``p - lr*(u + wd*p)``); on
+    16-bit ones (``param_dtype``) optax's rule in their dtype."""
+    from .optimizers import create_optimizer
+    name = "sgd" if optimizer_name.lower() == "sgd" else "adamw"
+    return create_optimizer(params, name, schedule, weight_decay=weight_decay,
+                            grad_clip_norm=grad_clip_norm)
 
 
 def decode_wire(batch: Mapping[str, torch.Tensor],

@@ -126,10 +126,8 @@ class Trainer:
         return self.mgr.build_plan(self.device)
 
     def _build_model(self, plan: NetworkPlan) -> torch.nn.Module:
-        if self.mgr.param_dtype != "float32":
-            raise NotImplementedError(
-                "the port keeps parameters in float32 (tr_config.param_dtype)")
         return ResEncUNet(plan, dtype=_DTYPES[self.mgr.compute_dtype],
+                          param_dtype=_DTYPES[self.mgr.param_dtype],
                           seed=self.mgr.seed)
 
     def _configure_dataset(self) -> ZarrPatchDataset:

@@ -7,8 +7,10 @@ so it reaches every dispatch class of the port: the stride-1 and stride-2
 conv kernel classes, the split-weight decoder pair, the 2x upsample kernel
 class, and the plain-torch stem, 128-channel stage, deep stride-2 conv and
 generic upsample. The JAX side runs its plain XLA path
-(``use_pallas_conv=False``) in fp32; the port runs fp32 on the CPU, where
-every kernel wrapper takes its plain version.
+(``use_pallas_conv=False``) in fp32; the port runs fp32 on the CPU (its
+3x3x3 convs and upsamples through the kernels' plain versions, as the
+kernels take bf16 only), and a bf16 copy of it through the kernel wrappers,
+which take their plain versions on the CPU.
 
 Tolerance: rtol 1e-4 / atol 1e-4. Both sides are fp32, but convs sum in
 another order (oneDNN vs XLA), the port takes instance-norm statistics as
@@ -105,10 +107,11 @@ def test_forward_matches_jax(jax_run, port, task, channels):
 
 def test_kernel_dispatch_reaches_every_kernel_class(jax_run, port,
                                                     monkeypatch):
-    """With use_pallas_conv the kernel shape classes go through the
-    wrappers (which on the card launch the kernels), by way of the autograd
-    Functions: the stride-1 and stride-2 conv, the split pair's add-in, and
-    the upsample."""
+    """With use_pallas_conv the kernel shape classes of a bf16 model (the
+    kernels take bf16 only) go through the wrappers (which on the card
+    launch the kernels), by way of the autograd Functions: the stride-1 and
+    stride-2 conv, the split pair's add-in, and the upsample. The fp32
+    model (the fixture's) reaches none of them."""
     seen = []
 
     def spy(name, fn):
@@ -120,11 +123,16 @@ def test_kernel_dispatch_reaches_every_kernel_class(jax_run, port,
             return fn(x, w, *args, **kw)
         return wrapped
 
+    model = ResEncUNet(port[0].plan, dtype=torch.bfloat16)
+    model.load_state_dict(port[0].state_dict())
+    x = torch.from_numpy(jax_run["x"])
+    with torch.no_grad():
+        unspied = model(x)
     monkeypatch.setattr(conv3d, "conv3d_k3", spy("conv", conv3d.conv3d_k3))
     monkeypatch.setattr(upsample, "upsample2x",
                         spy("up", upsample.upsample2x))
     with torch.no_grad():
-        out = port[0](torch.from_numpy(jax_run["x"]))
+        out = model(x)
     keys = {(n, ci, co, s) for n, ci, co, s, _ in seen}
     assert ("conv", 32, 32, 1) in keys        # 32^3 stage 0 + decoder
     assert ("conv", 32, 64, 2) in keys        # stride-2 entry 32 -> 64
@@ -137,7 +145,11 @@ def test_kernel_dispatch_reaches_every_kernel_class(jax_run, port,
     modes = {m for *_, m in seen}
     assert {"addin", "pre"} <= modes
     for k in out:
-        np.testing.assert_array_equal(out[k].numpy(), port[1][k].numpy())
+        np.testing.assert_array_equal(out[k].numpy(), unspied[k].numpy())
+    seen.clear()
+    with torch.no_grad():
+        port[0](x)
+    assert seen == []
 
 
 def test_plain_path_equals_kernel_path_on_cpu(jax_run, port):
