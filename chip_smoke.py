@@ -17,10 +17,13 @@ step and the trainer with the augmentation on the card, runs the training
 step and the engine's tiled pass in several processes over
 ``torch.distributed``, runs the data-prep tools, holds the port's own
 zarr chunk codec against golden chunks that tensorstore and ``zstandard``
-wrote, and runs every dtype the trainer and the engine take (compute
-float32 and float16 with the kernels left on, ``param_dtype`` bfloat16).
-Every zarr store it makes is Blosc zstd-5 bit shuffle, the system's own
-format, read and written by the port's codec, also over HTTP.
+wrote, runs every dtype the trainer and the engine take (compute
+float32 and float16 with the kernels left on, ``param_dtype`` bfloat16),
+and last runs the port's two CLIs in subprocesses on a task file written
+from ``tasks/sheet_normals.yaml``'s own text. Every zarr store it makes is
+Blosc zstd-5 bit shuffle, the system's own format, read and written by the
+port's codec, also over HTTP. Every task setting it uses is read from
+``tasks/*.yaml`` through the port's own YAML reader.
 
     python3 chip_smoke.py
 
@@ -32,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
      per source, all at once), print the registers, shared memory and
      spills ``-Xptxas -v`` reports (per entry for the eight tensor-core
      sources, every conv and upsample source) and the card's name and
-     power limit; set the port's one precision
+     power limit, and which of ``yaml``, ``PIL``, ``imageio``, ``cv2`` and
+     ``torch.utils.tensorboard`` import on this machine (tried in a child
+     process: the port needs none of them); set the port's one precision
      (``core.config.set_precision``: TF32 off, fp32 split-K reductions in
      bf16 matmuls), as the trainer does;
   2. kernel vs plain on the card at the flagship's shapes (N=2): the conv
@@ -116,9 +121,9 @@ Phases (any failure exits non-zero and prints no result line):
      to those of the same volumes read over HTTP (``http_root``: a local
      ``http.server`` in a child process; the image's read rate over
      HTTP printed beside the local one, ``read_rates``), and
-     ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml``'s
-     settings, squeeze-excitation included, for 2 epochs of 6 steps and 2
-     validation steps, then resumed from its checkpoint to a 3rd epoch: the
+     ``Trainer(config_dict=...)`` on ``tasks/sheet_normals.yaml`` as the
+     port's YAML reader reads it, squeeze-excitation included, for 2
+     epochs of 6 steps and 2 validation steps, then resumed from its checkpoint to a 3rd epoch: the
      resume must start at epoch 3 with the optimizer count at 12 and the
      parameters and momenta bit-equal to the saved ones; every launch
      counter is zeroed before and all nine conv and upsample kernels must
@@ -156,8 +161,9 @@ Phases (any failure exits non-zero and prints no result line):
      ``last_phases``, peak device memory and the host slab's peak; then the
      bytes on disk of the inputs and of each pass's stores, beside their
      raw size.
-  9. ``tasks/ink.yaml``'s plan (5 stages, 32-512 channels, BasicBlockD,
-     the ink head with BCEWithLogitsLossZSmooth) at its (64, 192, 192)
+  9. ``tasks/ink.yaml``'s plan as the port's YAML reader reads it (5
+     stages, 32-512 channels, BasicBlockD, the ink head with
+     BCEWithLogitsLossZSmooth) at its (64, 192, 192)
      patch and batch 3: the eval forward against plain fp32 (ink
      probability within SHEET_TOL), INK_STEPS training steps as phase 5b
      (counters zeroed before, all nine kernels launched, peak memory; its
@@ -216,11 +222,12 @@ Phases (any failure exits non-zero and prints no result line):
  17. host only: the port's zarr chunk codec (``data/codec.py``, built by
      g++ from ``data/csrc/zcodec.cpp``): every golden chunk of
      ``tests/data/zarr_codec/`` decoded to its manifest's sha256 (the only
-     decode on this machine of bytes another encoder wrote), every
-     writable compressor round-tripped over a seeded u8, u16 and f4 128^3
-     chunk, decode and encode MB/s of raw bytes on one thread and on the
-     store's chunk pool and the compression ratio for Blosc zstd-5 bit
-     shuffle on a 128^3 u8 image chunk and a 128^3 fp32 sum chunk, and
+     decode on this machine of bytes another encoder wrote; Blosc snappy
+     among them), every writable compressor round-tripped over a seeded
+     u8, u16 and f4 128^3 chunk, decode and encode MB/s of raw bytes on one
+     thread and on the store's chunk pool and the compression ratio for
+     Blosc zstd-5 bit shuffle on a 128^3 u8 image chunk and a 128^3 fp32
+     sum chunk, the same on one thread for Blosc snappy bit shuffle, and
      ``ldd`` of the library (no codec library linked);
  18. the flagship step at compute dtype float32 and float16, the plan
      from the config with ``use_pallas_conv`` unset (the kernels on for
@@ -236,7 +243,18 @@ Phases (any failure exits non-zero and prints no result line):
      beside phase 5b's;
  20. the engine's device pass at compute dtype float32 (rows 1-9 launch
      nothing) and bfloat16 on a seeded (160, 256, 256) u8 Blosc volume
-     from one checkpoint, the finals held by ENGINE_DTYPE_LIMITS.
+     from one checkpoint, the finals held by ENGINE_DTYPE_LIMITS;
+ 21. the CLIs as a user runs them (``cli_phase``): ``python -m
+     mt3d_resenc_unet_torch.train --config_path FILE --verbose`` and
+     ``python -m mt3d_resenc_unet_torch.infer --config_path FILE`` in
+     subprocesses, on ``tasks/sheet_normals.yaml``'s text with only its
+     paths, steps and epochs cut line by line, at full width on phase 7's
+     dataset: rc 0, kernels on, checkpoints and final weights, losses
+     bit-equal to phase 7's run of the same config, the CLI's finals
+     bit-equal to the engine's in this process on a (160, 256, 256) u8
+     Blosc input; then the overwrite guard, ``--postprocess_only`` twice,
+     ``--write_layers``, a legacy ``tr_params:`` file and
+     ``--debug_dataloader``. A failed subprocess fails the run.
 Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
@@ -309,22 +327,9 @@ VOLUME = (160, 256, 256)
 FLAGSHIP_LOSSES = {"sheet": {"loss_fn": "BCEDiceLoss",
                              "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
                    "normals": {"loss_fn": "MaskedCosineLoss"}}
-# phase 9: tasks/ink.yaml's plan, patch, batch and loss (the card has no
-# pyyaml)
-INK_PATCH = (64, 192, 192)
-INK_BATCH = 3
+# phase 9: tasks/ink.yaml's plan, patch, batch and loss, read through the
+# port's YAML reader (``task_file``); the steps it runs
 INK_STEPS = 2
-INK_MODEL = {
-    "basic_encoder_block": "BasicBlockD", "basic_decoder_block": "ConvBlock",
-    "bottleneck_block": "BasicBlockD",
-    "features_per_stage": [32, 64, 128, 256, 512], "num_stages": 5,
-    "n_blocks_per_stage": [1, 3, 4, 6, 6],
-    "n_conv_per_stage_decoder": [1, 1, 1, 1], "kernel_sizes": [3] * 5,
-    "strides": [1, 2, 2, 2, 2], "conv_bias": False,
-    "squeeze_excitation": False}
-INK_LOSSES = {"ink": {"loss_fn": "BCEWithLogitsLossZSmooth",
-                      "loss_kwargs": {"center_smoothing": 0.1,
-                                      "edge_smoothing": 0.4}}}
 # the ink step's grad_norm, bf16 kernels against fp32 plain: measured
 # 6.1e-3 on an H100 (NVIDIA H100 80GB HBM3, 700 W) at seed 0, over
 # TRAIN_GNORM_TOL. The norm is the seg head's: its 32-weight kernel's
@@ -350,6 +355,7 @@ TRAINER_EPOCHS = 2
 TRAINER_STEPS = 6
 TRAINER_VAL_STEPS = 2
 WORK_DIR = "build/chip_smoke"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 8: the engine's input volume (u8) and its uint16 copy's extent
 ENGINE_VOLUME = (256, 512, 512)
 ENGINE_U16_VOLUME = (160, 256, 256)
@@ -714,14 +720,51 @@ def main() -> int:
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
     print(card())
+    print("packages on this machine: " + ", ".join(
+        f"{name} {'imports' if ok else 'missing'}"
+        for name, ok in importable(OPTIONAL_PACKAGES).items()))
 
+    ink = task_file("ink")["tr_config"]
     t0 = time.perf_counter()
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
-             ENGINE_U16_VOLUME, INK_PATCH, INK_BATCH)
-    print(f"phases 2-20: {time.perf_counter() - t0:.1f} s",
+             ENGINE_U16_VOLUME, tuple(ink["patch_size"]), ink["batch_size"])
+    print(f"phases 2-21: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     return rc
+
+
+# the optional packages the JAX package and the port may reach for; phase 1
+# says which import on the card's machine (the port needs none of them)
+OPTIONAL_PACKAGES = ("yaml", "PIL", "imageio", "cv2",
+                     "torch.utils.tensorboard")
+
+
+def importable(names):
+    """{name: whether ``import name`` succeeds}, tried in a child process,
+    so that this script imports none of them."""
+    code = ("import importlib, json, sys\n"
+            "ok = {}\n"
+            "for name in sys.argv[1:]:\n"
+            "    try:\n"
+            "        importlib.import_module(name)\n"
+            "        ok[name] = True\n"
+            "    except Exception:\n"
+            "        ok[name] = False\n"
+            "print(json.dumps(ok))\n")
+    out = subprocess.run([sys.executable, "-c", code, *names],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def task_file(name):
+    """``tasks/{name}.yaml`` as the config system reads it: through the
+    port's own YAML reader (``core/yaml_load.py``)."""
+    from mt3d_resenc_unet_torch.core.yaml_load import safe_load
+    with open(os.path.join(ROOT, "tasks", f"{name}.yaml"),
+              encoding="utf-8") as f:
+        return safe_load(f)
 
 
 def card() -> str:
@@ -735,7 +778,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-20 and the result lines; the case lists and sizes are
+    """Phases 2-21 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -915,6 +958,10 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 20. the engine's device pass at compute dtype float32
     failures += engine_dtype_phase(patch, volume)
+    torch.cuda.empty_cache()
+
+    # 21. both CLIs on a task file, as a user runs them
+    failures += cli_phase(patch, train_data, volume, host_trainer["history"])
     torch.cuda.empty_cache()
 
     if failures:
@@ -1410,9 +1457,16 @@ def ink_phase(dev, gen, patch, n):
     from mt3d_resenc_unet_torch.core.plan import (TaskHead,
                                                   plan_from_manual_config)
     failures = []
+    task = task_file("ink")
+    targets = task["dataset_config"]["targets"]
+    losses = {name: {"loss_fn": t["loss_fn"],
+                     "loss_kwargs": t.get("loss_kwargs", {})}
+              for name, t in targets.items()}
     plan = dataclasses.replace(plan_from_manual_config(
-        INK_MODEL, patch, 1, [TaskHead("ink", 1, "sigmoid")],
-        model_name="ink"), use_pallas_conv=True)
+        task["model_config"], patch, task["dataset_config"]["in_channels"],
+        [TaskHead(name, t["channels"], t["activation"])
+         for name, t in targets.items()],
+        model_name=task["tr_setup"]["model_name"]), use_pallas_conv=True)
     fast, plain = paired_models(dev, plan, f"ink plan {patch} batch {n}")
     x = torch.randn(n, *patch, 1, generator=gen).to(dev)
     with torch.inference_mode():
@@ -1435,7 +1489,7 @@ def ink_phase(dev, gen, patch, n):
         "ink": (rng.random((n,) + patch + (1,)) > 0.5).astype(
             np.float32)}.items()}
     _, launches, shapes, fails = training(fast, plain, batch, INK_STEPS,
-                                          "ink", losses=INK_LOSSES,
+                                          "ink", losses=losses,
                                           gnorm_tol=INK_GNORM_TOL)
     failures += fails
     del fast, plain, batch
@@ -1821,35 +1875,24 @@ def norm_act_cases(dev, gen, cases):
 
 def sheet_normals_config(work, volume_paths, patch, max_epoch,
                          device_augment=False):
-    """``tasks/sheet_normals.yaml``'s settings as a dict (the card has no
-    pyyaml), squeeze-excitation included, cut to a few steps, on the
-    synthetic dataset; ``device_augment`` sets ``augment_on_device``."""
-    return {
-        "tr_setup": {"model_name": "sheet_normals", "autoconfigure": True,
-                     "tr_val_split": 0.9, "dilate_label": False,
-                     "load_weights_only": False,
-                     "ckpt_out_base": str(work / "ckpt"),
-                     "tensorboard_log_dir": str(work / "logs"), "seed": SEED},
-        "tr_config": {"optimizer": "SGD", "initial_lr": 1e-3,
-                      "weight_decay": 1e-4, "gradient_accumulation": 1,
-                      "num_dataloader_workers": 8, "patch_size": list(patch),
-                      "batch_size": 2, "max_steps_per_epoch": TRAINER_STEPS,
-                      "max_val_steps_per_epoch": TRAINER_VAL_STEPS,
-                      "max_epoch": max_epoch, "compute_dtype": "bfloat16",
-                      "augment_on_device": device_augment},
-        "model_config": {"squeeze_excitation": True},
-        "dataset_config": {
-            "min_bbox_percent": 0.97, "min_labeled_ratio": 0.15,
-            "use_cache": True, "cache_folder": str(work / "patch_cache"),
-            "in_channels": 1, "volume_paths": [volume_paths],
-            "targets": {
-                "sheet": {"channels": 1, "activation": "sigmoid",
-                          "weight": 1.0, "loss_fn": "BCEDiceLoss",
-                          "loss_kwargs": {"alpha": 0.5, "beta": 0.5}},
-                "normals": {"channels": 3, "activation": "none",
-                            "weight": 1.0, "loss_fn": "MaskedCosineLoss"}}},
-        "inference_config": {},
-    }
+    """``tasks/sheet_normals.yaml`` read through the port's YAML reader
+    (squeeze-excitation on), with what phases 7, 12 and 21 cut: the
+    output paths and the patch cache under ``work``, the synthetic
+    dataset's ``volume_paths``, TRAINER_STEPS and TRAINER_VAL_STEPS steps
+    an epoch, ``max_epoch`` epochs and, for a rehearsal, the patch;
+    ``device_augment`` sets ``augment_on_device``."""
+    cfg = task_file("sheet_normals")
+    cfg["tr_setup"].update(ckpt_out_base=str(work / "ckpt"),
+                           tensorboard_log_dir=str(work / "logs"))
+    cfg["tr_config"].update(patch_size=list(patch),
+                            max_steps_per_epoch=TRAINER_STEPS,
+                            max_val_steps_per_epoch=TRAINER_VAL_STEPS,
+                            max_epoch=max_epoch)
+    if device_augment:
+        cfg["tr_config"]["augment_on_device"] = True
+    cfg["dataset_config"].update(cache_folder=str(work / "patch_cache"),
+                                 volume_paths=[dict(volume_paths)])
+    return cfg
 
 
 def host_sample_cost(cfg, n=24):
@@ -1950,7 +1993,8 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
     """Phase 7 (and, with ``device_augment``, phase 12: the same runs with
     ``augment_on_device: true``, printed beside ``host``, phase 7's
     summary). Returns (launch counts of the two trainer runs, failures,
-    a summary: the mean patches/s and t_fetch's share of epochs 2-3)."""
+    a summary: the mean patches/s and t_fetch's share of epochs 2-3, and
+    the first run's history, which phase 21 holds the CLI's against)."""
     import os
     import shutil
     from pathlib import Path
@@ -1995,7 +2039,8 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
         first = Trainer(config_dict=sheet_normals_config(
             work, paths, patch, TRAINER_EPOCHS, device_augment),
             verbose=False).train()
-        history = first["history"]
+        history = list(first["history"])
+        first_history = list(history)
         del first
         torch.cuda.empty_cache()
         cfg = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS + 1,
@@ -2030,7 +2075,7 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
     fetch = sum(h["train/t_fetch_s"] for h in steady)
     step = sum(h["train/t_step_s"] for h in steady)
     summary = {"rate": rate, "fetch_share": fetch / (fetch + step),
-               "t_fetch": fetch, "t_step": step}
+               "t_fetch": fetch, "t_step": step, "history": first_history}
     print(f"{label} epochs 2-{len(history)} [{card()}]: {rate:.3f} "
           f"patches/s against {step_rate:.3f} for the step alone (phase "
           f"5e, the same network); t_fetch is "
@@ -3395,10 +3440,15 @@ def codec_phase():
                 bad.append(e["file"])
         except ValueError as exc:
             bad.append(f"{e['file']} ({exc})")
+    snappy = [e for e in manifest
+              if e["compressor"].get("cname") == "snappy"]
     print(f"phase 17: {len(manifest) - len(bad)} of {len(manifest)} golden "
-          "chunks (tensorstore's Blosc zstd/lz4/lz4hc/blosclz/zlib x "
-          "shuffle 0/1/2 x u1/u2/f4, zstandard's frames) decoded to their "
+          "chunks (tensorstore's Blosc zstd/lz4/lz4hc/blosclz/zlib/snappy x "
+          "shuffle 0/1/2 x u1/u2/f4, zstandard's frames; "
+          f"{len(snappy)} of them snappy) decoded to their "
           f"sha256{': failed ' + ', '.join(bad) if bad else ''}")
+    if len(snappy) < 11:
+        failures.append(f"phase 17: {len(snappy)} snappy golden chunks")
     if bad:
         failures.append(f"phase 17: golden chunks failed: {bad}")
 
@@ -3410,7 +3460,7 @@ def codec_phase():
                       + rng.integers(0, 8, CODEC_CHUNK).astype(np.uint16)),
               "f4": sums}
     comps = [{"id": "blosc", "cname": c, "clevel": 5, "shuffle": sh}
-             for c in ("zstd", "lz4", "lz4hc", "blosclz", "zlib")
+             for c in ("zstd", "lz4", "lz4hc", "blosclz", "zlib", "snappy")
              for sh in (0, 1, 2)] + [
         {"id": "zstd", "level": 1}, {"id": "zstd", "level": 5},
         {"id": "zlib", "level": 1}, {"id": "gzip", "level": 1},
@@ -3467,6 +3517,25 @@ def codec_phase():
               f"chunks): decode {CODEC_POOL_CHUNKS * mb / dec_pool:.1f} "
               f"MB/s, encode {CODEC_POOL_CHUNKS * mb / enc_pool:.1f} MB/s "
               "(MB of raw bytes)")
+    # Blosc snappy (bit shuffle, as the default) on the same chunks, one
+    # thread
+    comp = {"id": "blosc", "cname": "snappy", "clevel": 5, "shuffle": 2}
+    for label, arr in (("u8 image", image), ("fp32 sum", sums)):
+        raw = arr.tobytes()
+        enc_s, dec_s = [], []
+        for _ in range(CODEC_REPS):
+            t0 = time.perf_counter()
+            stored = codec.encode_chunk(comp, raw, arr.itemsize)
+            enc_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            codec.decode_chunk(comp, stored, len(raw))
+            dec_s.append(time.perf_counter() - t0)
+        mb = len(raw) / 1e6
+        print(f"phase 17 [{_host_cpu()}]: Blosc snappy bit shuffle, 128^3 "
+              f"{label}: ratio {len(raw) / len(stored):.3f} ({len(stored)} "
+              f"of {len(raw)} bytes); one thread: decode "
+              f"{mb / min(dec_s):.1f} MB/s, encode {mb / min(enc_s):.1f} "
+              "MB/s (MB of raw bytes)")
     print(f"phase 17 (codec): {time.perf_counter() - t_phase:.1f} s")
     return failures
 
@@ -3702,6 +3771,261 @@ def engine_dtype_phase(patch, volume):
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 20 (engine dtypes): {time.perf_counter() - t_phase:.1f} s")
     return failures
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the port's two CLIs as a user runs them, on a task file
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_TIMEOUT_S = 900   # the training CLI, 2 epochs at full width
+CLI_TIMEOUT_S = 300         # each other CLI run
+CLI_DEBUG_SAMPLES = 25      # what --debug_dataloader dumps
+
+
+def cli_task_text(work, paths, image, patch, max_epoch):
+    """``tasks/sheet_normals.yaml``'s own text, its comments and block
+    lists kept, with only the lines phase 21 must cut replaced line by line
+    (this machine has no YAML writer): the output paths, the patch cache
+    and the synthetic dataset's and image's paths under ``work``,
+    TRAINER_STEPS / TRAINER_VAL_STEPS steps, ``max_epoch`` epochs and the
+    patch's six list items (the file's 128s at full size). Raises where a
+    line to cut is missing."""
+    with open(os.path.join(ROOT, "tasks", "sheet_normals.yaml"),
+              encoding="utf-8") as f:
+        text = f.read()
+    cuts = {
+        "ckpt_out_base: ./checkpoints": work / "ckpt",
+        "tensorboard_log_dir: ./logs": work / "logs",
+        "max_steps_per_epoch: 500": TRAINER_STEPS,
+        "max_val_steps_per_epoch: 25": TRAINER_VAL_STEPS,
+        "max_epoch: 500": max_epoch,
+        "cache_folder: patch_cache/sheet_normals": work / "patch_cache",
+        "- input: /data/s1.zarr": paths["input"],
+        "sheet: /data/s1_sheet.zarr": paths["sheet"],
+        "normals: /data/s1_normals.zarr": paths["normals"],
+        "checkpoint_path: ./checkpoints/sheet_normals":
+            work / "ckpt" / "sheet_normals",
+        "input_path: ./data/layers.zarr": image,
+        "output_path: ./outputs": work / "out",
+    }
+    for value in cuts.values():
+        if any(c in str(value) for c in (": ", " #", "\n")):
+            raise ValueError(f"{value!r} is not a plain YAML scalar")
+    sizes = iter(list(patch) * 2)
+    seen = collections.Counter()
+    out = []
+    for line in text.splitlines():
+        body = line.lstrip(" ")
+        indent = line[:len(line) - len(body)]
+        if body in cuts:
+            key = body.split(":")[0]
+            line = f"{indent}{key}: {cuts[body]}"
+        elif body == "- 128":
+            line = f"{indent}- {next(sizes)}"
+        seen[body] += 1
+        out.append(line)
+    missing = [k for k in cuts if seen[k] != 1]
+    if missing or seen["- 128"] != 6:
+        raise ValueError(f"tasks/sheet_normals.yaml lacks the lines "
+                         f"{missing} or six patch items")
+    return "\n".join(out) + "\n"
+
+
+def _cli(module, args, cwd, timeout):
+    """``python -m mt3d_resenc_unet_torch.<module> <args>`` in ``cwd``, the
+    repository on its path; the CompletedProcess with its output as text
+    (``returncode`` None where ``timeout`` cut it, after killing it)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", f"mt3d_resenc_unet_torch.{module}", *args]
+    try:
+        return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        out = exc.stdout or ""
+        if isinstance(out, bytes):
+            out = out.decode(errors="replace")
+        return subprocess.CompletedProcess(
+            cmd, None, out, f"killed after the {timeout} s limit")
+
+
+def _tail(proc, n=12):
+    return "\n    ".join((proc.stdout + proc.stderr).splitlines()[-n:])
+
+
+def _jsonl_losses(path):
+    """{epoch: {key: value}} of the ``*_loss`` scalars a trainer wrote to
+    its metrics JSONL (train and validation records merged)."""
+    out = collections.defaultdict(dict)
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            out[rec["step"]].update({k: v for k, v in rec.items()
+                                     if k.endswith("_loss")})
+    return dict(out)
+
+
+def cli_phase(patch, train_data, volume, trainer_history):
+    """Phase 21: the training and inference CLIs in subprocesses, on a task
+    file written from ``tasks/sheet_normals.yaml``'s text
+    (``cli_task_text``) and read by the port's own YAML reader, the model at
+    full width (the autoconfigured 6-stage plan at ``patch``, SE on, batch
+    2, bf16) on phase 7's synthetic dataset. The file must read to phase
+    7's config; the training CLI must exit 0 with the kernels on, write the
+    checkpoints, the final weights and finite losses equal to phase 7's
+    first run (``trainer_history``: the same config in this process) bit
+    for bit. The inference CLI serves a seeded ``volume`` u8 Blosc input
+    from that checkpoint, bit-equal to ``ZarrInferenceEngine`` in this
+    process on the same file (the device pass adds its patches in a fixed
+    order). Then the probes: a rerun stops at the overwrite guard
+    (``FileExistsError``), ``--postprocess_only`` twice says "already
+    finalized; skipping" the second time, ``--write_layers`` writes a JPEG
+    per z-slice and target, a legacy ``tr_params:`` file exits non-zero
+    naming the five sections, ``--debug_dataloader`` writes its TIFFs into
+    ``./debug_dir`` and trains nothing. Returns the failures."""
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.yaml_load import safe_load
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.tools.synthetic_data import \
+        write_sheet_dataset
+    checks, seconds = {}, {}
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        paths = write_sheet_dataset(work / "data", train_data, seed=SEED)
+        image = work / "image.zarr"
+        create_zarr(str(image), volume, np.uint8, patch)[...] = \
+            np.random.default_rng(SEED + 1).integers(0, 256, volume,
+                                                     dtype=np.uint8)
+        task = work / "sheet_normals.yaml"
+        task.write_text(cli_task_text(work, paths, image, patch,
+                                      TRAINER_EPOCHS), encoding="utf-8")
+        cfg = safe_load(task.read_text(encoding="utf-8"))
+        want = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS)
+        checks["the file reads to phase 7's config"] = all(
+            cfg[k] == want[k] for k in ("tr_setup", "tr_config",
+                                        "model_config", "dataset_config"))
+
+        def run_cli(label, module, args, cwd=work, timeout=CLI_TIMEOUT_S):
+            t0 = time.perf_counter()
+            proc = _cli(module, args, cwd, timeout)
+            seconds[label] = time.perf_counter() - t0
+            return proc
+
+        # training
+        proc = run_cli("train", "train", ["--config_path", str(task),
+                                          "--verbose"],
+                       timeout=CLI_TRAIN_TIMEOUT_S)
+        checks["train: rc 0"] = proc.returncode == 0
+        if proc.returncode != 0:
+            print(f"phase 21 train rc {proc.returncode}:\n    {_tail(proc)}")
+        kernels = [line for line in proc.stdout.splitlines()
+                   if "[trainer] model" in line]
+        print("phase 21 train: " + (kernels[0] if kernels else "no model "
+                                    "line"))
+        checks["train: kernels on"] = any("kernels on" in line
+                                          for line in kernels)
+        ckpt = work / "ckpt" / "sheet_normals"
+        checks["train: a checkpoint an epoch"] = all(
+            (ckpt / str(e) / "state.pt").is_file()
+            for e in range(TRAINER_EPOCHS))
+        checks["train: final weights"] = (
+            work / "sheet_normals_final.pt").is_file()
+        metrics = work / "logs" / "sheet_normals_metrics.jsonl"
+        got = _jsonl_losses(metrics) if metrics.is_file() else {}
+        same = finite = bool(got) and len(trainer_history) == TRAINER_EPOCHS
+        for h in trainer_history:
+            mine = got.get(h["epoch"], {})
+            theirs = {k: v for k, v in h.items() if k.endswith("_loss")}
+            finite = finite and all(np.isfinite(v) for v in mine.values())
+            same = same and mine == theirs and bool(mine)
+            print(f"phase 21 train epoch {h['epoch'] + 1}: " + " ".join(
+                f"{k} {v!r}" for k, v in sorted(mine.items()))
+                + f" (phase 7: {'the same bits' if mine == theirs else theirs})")
+        checks["train: finite losses"] = finite
+        checks["train: losses bit-equal to phase 7's run"] = same
+
+        # inference, then the same file in this process
+        proc = run_cli("infer", "infer", ["--config_path", str(task)])
+        checks["infer: rc 0"] = proc.returncode == 0
+        if proc.returncode != 0:
+            print(f"phase 21 infer rc {proc.returncode}:\n    {_tail(proc)}")
+        store = work / "out" / "predictions.zarr"
+        cfg["inference_config"]["output_path"] = str(work / "in_process")
+        t0 = time.perf_counter()
+        engine = ZarrInferenceEngine(config_dict=cfg, device=None)
+        here = engine.infer()
+        seconds["infer in process"] = time.perf_counter() - t0
+        equal = {}
+        for name in cfg["inference_config"]["output_targets"]:
+            try:
+                a = open_zarr(str(store / f"{name}_final")).read_all()
+                b = open_zarr(os.path.join(here, f"{name}_final")).read_all()
+                equal[name] = a.dtype == b.dtype and np.array_equal(a, b)
+            except (OSError, ValueError) as exc:
+                equal[name] = f"unreadable ({exc})"
+        print(f"phase 21 infer: the CLI's finals against the engine in "
+              f"this process ({engine.last_mode} pass): {equal}")
+        checks["infer: finals bit-equal to the in-process engine"] = all(
+            v is True for v in equal.values())
+
+        # the probes
+        proc = run_cli("rerun", "infer", ["--config_path", str(task)])
+        checks["rerun: stops at the overwrite guard"] = (
+            proc.returncode not in (0, None)
+            and "FileExistsError" in proc.stderr)
+        first = run_cli("postprocess_only", "infer", [
+            "--config_path", str(task), "--postprocess_only"])
+        second = run_cli("postprocess_only + write_layers", "infer", [
+            "--config_path", str(task), "--postprocess_only",
+            "--write_layers"])
+        checks["postprocess_only twice: already finalized"] = (
+            first.returncode == 0 and second.returncode == 0
+            and "already finalized; skipping" in second.stdout)
+        slices = {name: len(list((work / "out" / "z_slices" / name)
+                                 .glob("*.jpg")))
+                  for name in cfg["inference_config"]["output_targets"]}
+        print(f"phase 21 write_layers: JPEGs by target {slices} for "
+              f"{volume[0]} z-slices")
+        checks["write_layers: a JPEG per z-slice and target"] = all(
+            n == volume[0] for n in slices.values())
+        legacy = work / "legacy.yaml"
+        legacy.write_text("tr_params:\n  model_name: legacy\n"
+                          "inference_params:\n  input_path: x.zarr\n")
+        proc = run_cli("legacy config", "train",
+                       ["--config_path", str(legacy)])
+        checks["legacy tr_params: names the five sections"] = (
+            proc.returncode not in (0, None) and all(
+                k in proc.stderr for k in ("tr_setup", "tr_config",
+                                           "model_config", "dataset_config",
+                                           "inference_config")))
+        debug = work / "debug"
+        debug.mkdir()
+        proc = run_cli("debug_dataloader", "train", [
+            "--config_path", str(task), "--debug_dataloader"], cwd=debug)
+        tiffs = sorted(p.name for p in (debug / "debug_dir").glob("*.tif"))
+        # a TIFF a sample for the image and for each target
+        want_tiffs = CLI_DEBUG_SAMPLES * (
+            1 + len(cfg["dataset_config"]["targets"]))
+        print(f"phase 21 debug_dataloader: rc {proc.returncode}, "
+              f"{len(tiffs)} TIFFs ({tiffs[:3]}...)")
+        checks["debug_dataloader: TIFFs, no training"] = (
+            proc.returncode == 0 and len(tiffs) == want_tiffs
+            and "exiting before training" in proc.stdout
+            and not (debug / "sheet_normals_final.pt").exists())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 21 [{smi}] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    print("phase 21 checks: " + ", ".join(
+        f"{k}: {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    print(f"phase 21 (CLIs): {time.perf_counter() - t_phase:.1f} s")
+    return [f"phase 21: {k}" for k, v in checks.items() if not v]
 
 
 @contextlib.contextmanager

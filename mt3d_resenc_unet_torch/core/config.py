@@ -5,7 +5,9 @@ schema (``tr_setup``, ``tr_config``, ``model_config``, ``dataset_config``,
 ``inference_config``; reference: configuration/config_manager.py:13-97) and
 the same defaults, so one config file drives both packages. Differences:
 
-* ``yaml`` is imported only to read a file: a config dict needs no pyyaml;
+* a config file is read by the port's own YAML reader
+  (``core/yaml_load.py``, the values and types of ``yaml.safe_load``),
+  so a machine without pyyaml reads the same task files;
 * ``use_pallas_conv: null`` (auto) follows the device ``build_plan`` is
   given (``resolve_device``: the card unless the caller names the CPU):
   the hand-written CUDA kernels on the card, their plain versions on the
@@ -27,6 +29,7 @@ import torch
 
 from ..parallel.distributed import local_device_index
 from .plan import NetworkPlan, TaskHead, plan_from_autoconfig, plan_from_manual_config
+from .yaml_load import safe_load
 
 _SECTIONS = ("tr_setup", "tr_config", "model_config", "dataset_config", "inference_config")
 
@@ -71,14 +74,8 @@ class ConfigManager:
         if config_dict is None:
             if config_file is None:
                 raise ValueError("Provide config_file or config_dict")
-            try:
-                import yaml
-            except ImportError as exc:
-                raise ImportError(
-                    "reading a YAML config needs the pyyaml package; pass "
-                    "config_dict= instead where it is not installed") from exc
-            with open(config_file, "r") as f:
-                config = yaml.safe_load(f)
+            with open(config_file, "r", encoding="utf-8") as f:
+                config = safe_load(f)
         else:
             config = dict(config_dict)
         self.config_file = config_file

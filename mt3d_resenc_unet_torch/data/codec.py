@@ -1,17 +1,17 @@
 """Chunk codecs of zarr v2 stores, through the port's own C++ library.
 
 ``csrc/zcodec.cpp`` decodes and encodes the chunk formats the JAX package
-writes through tensorstore: Blosc 1 frames (zstd, lz4, lz4hc, blosclz and
-zlib streams, byte and bit shuffle) and zstd frames. It links no codec
-library. ``g++`` builds it at first use into ``build/zcodec/`` at the
+writes through tensorstore: Blosc 1 frames (zstd, lz4, lz4hc, blosclz,
+snappy and zlib streams, byte and bit shuffle) and zstd frames. It links no
+codec library. ``g++`` builds it at first use into ``build/zcodec/`` at the
 repository root (ignored by git), under a name that carries a hash of the
 source and the flags, through a temporary file renamed into place; a failed
 build raises ``RuntimeError`` with the compiler's output.
 
 The ``zlib``, ``gzip`` and ``bz2`` compressors go through Python's standard
 library. Corrupt data, a chunk of the wrong size, an unknown compressor id
-and a codec this module lacks (Blosc's snappy, a zstd dictionary) raise
-``ValueError``; nothing falls back to another codec on its own.
+and a codec this module lacks (a zstd dictionary) raise ``ValueError``;
+nothing falls back to another codec on its own.
 
 ctypes releases the GIL for the length of a call, so threads decode and
 encode chunks in parallel. The numpy versions of the two Blosc shuffles stay
@@ -38,7 +38,7 @@ _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = Path(__file__).resolve().parent / "csrc" / "zcodec.cpp"
 BUILD_DIR = _ROOT / "build" / "zcodec"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-_ABI_VERSION = 1
+_ABI_VERSION = 2
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -49,7 +49,6 @@ BLOSC_CODES = {"blosclz": (0, False), "lz4": (1, False), "lz4hc": (1, True),
 COMPRESSOR_IDS = ("blosc", "zstd", "zlib", "gzip", "bz2")
 _ERRORS = {-1: "corrupt or truncated data", -2: "data decodes past the chunk",
            -3: "bad magic number", -4: "checksum mismatch",
-           -5: "Blosc snappy streams are not supported",
            -6: "zstd frames with a dictionary are not supported",
            -7: "unsupported format version or codec", -8: "bad arguments",
            -9: "out of memory"}
@@ -89,16 +88,20 @@ def load() -> ctypes.CDLL:
         lib.zc_abi_version.argtypes = []
         lib.zc_abi_version.restype = i32
         for name in ("zc_blosc_decode", "zc_zstd_decode", "zc_lz4_decode",
-                     "zc_blosclz_decode", "zc_zlib_decode"):
+                     "zc_blosclz_decode", "zc_zlib_decode",
+                     "zc_snappy_decode", "zc_snappy_encode"):
             getattr(lib, name).argtypes = [p, i64, p, i64]
         lib.zc_blosc_encode.argtypes = [p, i64, p, i64, i32, i32, i32, i32,
                                         i32, i64]
         lib.zc_zstd_encode.argtypes = [p, i64, p, i64, i32, i32]
         lib.zc_zstd_bound.argtypes = [i64]
+        lib.zc_snappy_bound.argtypes = [i64]
         lib.zc_shuffle.argtypes = [p, p, i64, i32, i32]
         for name in ("zc_blosc_decode", "zc_zstd_decode", "zc_lz4_decode",
                      "zc_blosclz_decode", "zc_zlib_decode", "zc_blosc_encode",
-                     "zc_zstd_encode", "zc_zstd_bound", "zc_shuffle"):
+                     "zc_zstd_encode", "zc_zstd_bound", "zc_shuffle",
+                     "zc_snappy_decode", "zc_snappy_encode",
+                     "zc_snappy_bound"):
             getattr(lib, name).restype = i64
         _lib = lib
         return lib
@@ -171,6 +174,16 @@ def blosclz_decompress(data: bytes, nbytes: int) -> bytes:
     return _decoded("zc_blosclz_decode", data, nbytes, "blosclz")
 
 
+def snappy_decompress(data: bytes, nbytes: int) -> bytes:
+    """A Snappy block (its stated length at most ``nbytes``)."""
+    return _decoded("zc_snappy_decode", data, nbytes, "snappy")
+
+
+def snappy_compress(raw: bytes) -> bytes:
+    cap = load().zc_snappy_bound(_bytes_of(raw).size)
+    return _encoded("zc_snappy_encode", raw, cap).tobytes()
+
+
 def zlib_decompress(data: bytes, nbytes: int) -> bytes:
     """The C++ inflate (Blosc's zlib streams); ``decode_chunk`` uses the
     standard library for the ``zlib`` compressor."""
@@ -203,7 +216,7 @@ def blosc_compress(raw: bytes, cname: str = "zstd", clevel: int = 5,
 
 def _blosc_compress(raw, cname, clevel, shuffle, typesize,
                     blocksize) -> np.ndarray:
-    if cname not in BLOSC_CODES or cname == "snappy":
+    if cname not in BLOSC_CODES:
         raise ValueError(f"blosc: cannot write {cname!r} streams")
     code, hc = BLOSC_CODES[cname]
     if shuffle == -1:
@@ -234,8 +247,7 @@ def supported(compressor: Optional[Dict[str, Any]]) -> bool:
         _require(compressor)
     except ValueError:
         return False
-    return not (compressor["id"] == "blosc"
-                and compressor.get("cname", "lz4") == "snappy")
+    return True
 
 
 def decode_chunk_into(compressor: Optional[Dict[str, Any]], data: bytes,

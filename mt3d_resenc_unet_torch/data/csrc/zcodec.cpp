@@ -1,14 +1,15 @@
 // Chunk codecs of zarr v2 stores, written for this repository.
 //
-// Decoders: Blosc 1 frames (blosclz, lz4/lz4hc, zlib and zstd streams; byte
-// and bit shuffle; split and unsplit blocks; memcpyed frames), zstd frames
-// (RFC 8878: raw / RLE / compressed blocks, Huffman and FSE, repeat
-// offsets, XXH64 checksums, skippable and concatenated frames), LZ4 blocks,
-// BloscLZ streams and zlib streams (RFC 1950/1951).
-// Encoders: Blosc 1 frames with zstd, lz4 or zlib streams (blosclz and a
-// clevel of 0 write a memcpyed frame), zstd frames (hash-chain LZ77 whose
-// effort follows the level, Huffman literals, sequences on the predefined
-// FSE tables), LZ4 blocks and zlib streams (fixed-Huffman deflate).
+// Decoders: Blosc 1 frames (blosclz, lz4/lz4hc, snappy, zlib and zstd
+// streams; byte and bit shuffle; split and unsplit blocks; memcpyed frames),
+// zstd frames (RFC 8878: raw / RLE / compressed blocks, Huffman and FSE,
+// repeat offsets, XXH64 checksums, skippable and concatenated frames), LZ4
+// blocks, BloscLZ streams, Snappy blocks and zlib streams (RFC 1950/1951).
+// Encoders: Blosc 1 frames with zstd, lz4, snappy or zlib streams (blosclz
+// and a clevel of 0 write a memcpyed frame), zstd frames (hash-chain LZ77
+// whose effort follows the level, Huffman literals, sequences on the
+// predefined FSE tables), LZ4 and Snappy blocks and zlib streams
+// (fixed-Huffman deflate).
 //
 // No codec library is linked or included. Every entry point is reentrant:
 // the only state is on the stack or in buffers allocated by the call. A
@@ -38,7 +39,6 @@ enum : int64_t {
   E_OVERRUN = -2,      // the output would not fit the buffer given
   E_MAGIC = -3,        // not a frame of the codec asked for
   E_CHECKSUM = -4,     // a stored checksum does not match the content
-  E_SNAPPY = -5,       // a Blosc frame of snappy streams
   E_DICT = -6,         // a zstd frame that needs a dictionary
   E_UNSUPPORTED = -7,  // a format version or codec this file lacks
   E_ARG = -8,          // bad arguments
@@ -1893,6 +1893,130 @@ void zlib_encode(const uint8_t* src, size_t n, int level, std::vector<uint8_t>& 
   for (int i = 3; i >= 0; i--) o.push_back(uint8_t(a >> (8 * i)));
 }
 
+// --------------------------------------------------------------- Snappy
+//
+// Google's Snappy block format (format_description.txt in the snappy
+// sources): the uncompressed length as a little-endian base-128 varint,
+// then elements whose tag byte's low two bits say what follows: 00 a
+// literal (length - 1 in the tag's upper six bits, or in 1-4 bytes after it
+// for the values 60-63), 01 a copy of 4-11 bytes with an 11-bit offset,
+// 10 a copy of 1-64 bytes with a 16-bit offset, 11 one with a 32-bit offset.
+
+size_t snappy_decode(const uint8_t* src, size_t len, uint8_t* out, size_t cap) {
+  size_t ip = 0, ulen = 0;
+  for (int shift = 0;; shift += 7) {
+    need(ip < len && shift <= 28);
+    uint8_t b = src[ip++];
+    ulen |= size_t(b & 0x7F) << shift;
+    if (!(b & 0x80)) break;
+  }
+  need(ulen <= 0xFFFFFFFFu);
+  need(ulen <= cap, E_OVERRUN);
+  size_t op = 0;
+  while (ip < len) {
+    uint8_t tag = src[ip++];
+    size_t n, off;
+    if ((tag & 3) == 0) {
+      n = tag >> 2;
+      if (n >= 60) {
+        size_t k = n - 59;
+        need(len - ip >= k);
+        n = 0;
+        for (size_t j = 0; j < k; j++) n |= size_t(src[ip + j]) << (8 * j);
+        ip += k;
+      }
+      n += 1;
+      need(n <= len - ip && n <= ulen - op);
+      memcpy(out + op, src + ip, n);
+      ip += n;
+      op += n;
+      continue;
+    }
+    if ((tag & 3) == 1) {
+      need(ip < len);
+      n = 4 + ((tag >> 2) & 7);
+      off = (size_t(tag >> 5) << 8) | src[ip++];
+    } else if ((tag & 3) == 2) {
+      need(len - ip >= 2);
+      n = 1 + (tag >> 2);
+      off = rd16(src + ip);
+      ip += 2;
+    } else {
+      need(len - ip >= 4);
+      n = 1 + (tag >> 2);
+      off = rd32(src + ip);
+      ip += 4;
+    }
+    need(off > 0 && off <= op && n <= ulen - op);
+    copy_match(out + op, off, n);
+    op += n;
+  }
+  need(op == ulen);
+  return op;
+}
+
+inline size_t snappy_bound(size_t n) { return 32 + n + n / 6; }
+
+void snappy_literal(const uint8_t* p, size_t n, std::vector<uint8_t>& o) {
+  size_t v = n - 1;
+  if (v < 60) {
+    o.push_back(uint8_t(v << 2));
+  } else {
+    int k = v < (1u << 8) ? 1 : v < (1u << 16) ? 2 : v < (1u << 24) ? 3 : 4;
+    o.push_back(uint8_t((59 + k) << 2));
+    for (int j = 0; j < k; j++) o.push_back(uint8_t(v >> (8 * j)));
+  }
+  o.insert(o.end(), p, p + n);
+}
+
+// A copy of `n` >= 4 bytes from `off` <= 65535 back, as snappy's own
+// encoder splits it: pieces of 64 while 68 or more are left (60 then, so
+// that the last piece keeps at least 4), the short near ones in two bytes.
+void snappy_copy(size_t off, size_t n, std::vector<uint8_t>& o) {
+  auto copy2 = [&](size_t len) {
+    o.push_back(uint8_t(((len - 1) << 2) | 2));
+    o.push_back(uint8_t(off));
+    o.push_back(uint8_t(off >> 8));
+  };
+  while (n >= 68) {
+    copy2(64);
+    n -= 64;
+  }
+  if (n > 64) {
+    copy2(60);
+    n -= 60;
+  }
+  if (n < 12 && off < 2048) {
+    o.push_back(uint8_t(((off >> 8) << 5) | ((n - 4) << 2) | 1));
+    o.push_back(uint8_t(off));
+  } else {
+    copy2(n);
+  }
+}
+
+void snappy_encode(const uint8_t* src, size_t n, std::vector<uint8_t>& o) {
+  o.clear();
+  need(n <= 0xFFFFFFFFu, E_ARG);
+  for (size_t v = n;; v >>= 7) {
+    o.push_back(uint8_t((v & 0x7F) | (v >= 0x80 ? 0x80 : 0)));
+    if (v < 0x80) break;
+  }
+  std::vector<Seq> seqs;
+  size_t tail = n;
+  if (n >= 8) {
+    LZ lz(src, n, 65535, SIZE_MAX, 1, false);
+    uint32_t rep0 = 0;
+    tail = lz.parse(0, n, n - 3, seqs, rep0, 5);
+  }
+  size_t p = 0;
+  for (const Seq& s : seqs) {
+    if (s.ll) snappy_literal(src + p, s.ll, o);
+    snappy_copy(s.off, s.ml, o);
+    p += s.ll + s.ml;
+  }
+  if (tail) snappy_literal(src + p, tail, o);
+}
+
 // ---------------------------------------------------------------- Blosc
 
 enum { BLOSCLZ = 0, LZ4 = 1, SNAPPY = 2, ZLIB = 3, ZSTD = 4 };
@@ -1909,7 +2033,7 @@ size_t blosc_stream_decode(int codec, const uint8_t* src, size_t len, uint8_t* o
     case ZSTD:
       return zstd_decode(src, len, out, cap);
     case SNAPPY:
-      fail(E_SNAPPY);
+      return snappy_decode(src, len, out, cap);
     default:
       fail(E_UNSUPPORTED);
   }
@@ -1929,7 +2053,6 @@ size_t blosc_decode(const uint8_t* src, size_t len, uint8_t* dst, size_t cap) {
     return nbytes;
   }
   int codec = flags >> 5;
-  if (codec == SNAPPY) fail(E_SNAPPY);
   need(codec <= ZSTD, E_UNSUPPORTED);
   need(ts >= 1 && bsz >= 1);
   size_t nblocks = nbytes / bsz + (nbytes % bsz != 0);
@@ -2011,7 +2134,7 @@ size_t blosc_blocksize(int codec, bool hc, int clevel, size_t ts, size_t n, size
 size_t blosc_encode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap, int codec, bool hc,
                     int clevel, int shuffle, size_t ts, size_t forced_bs) {
   need(cap >= n + BLOSC_OVERHEAD && ts >= 1 && ts <= 255 && clevel >= 0 && clevel <= 9 &&
-           shuffle >= 0 && shuffle <= 2 && codec >= 0 && codec <= ZSTD && codec != SNAPPY &&
+           shuffle >= 0 && shuffle <= 2 && codec >= 0 && codec <= ZSTD &&
            n <= 0x7FFFFFF0u,
        E_ARG);
   size_t bsz = blosc_blocksize(codec, hc, clevel, ts, n, forced_bs);
@@ -2053,6 +2176,8 @@ size_t blosc_encode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap, int 
         zstd_encode(piece, neblock, clevel * 2 - 1, false, enc);
       else if (codec == LZ4)
         lz4_encode(piece, neblock, hc ? 9 : clevel, enc);
+      else if (codec == SNAPPY)
+        snappy_encode(piece, neblock, enc);
       else
         zlib_encode(piece, neblock, clevel, enc);
       bool raw = enc.size() >= neblock;
@@ -2074,13 +2199,14 @@ size_t blosc_encode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap, int 
 
 extern "C" {
 
-int zc_abi_version() { return 1; }
+int zc_abi_version() { return 2; }
 
 int64_t zc_blosc_decode(const uint8_t* src, int64_t len, uint8_t* dst, int64_t cap) {
   return guarded([&] { return int64_t(blosc_decode(src, size_t(len), dst, size_t(cap))); });
 }
 
-// codec: 0 blosclz, 1 lz4, 3 zlib, 4 zstd; hc: lz4hc. dst holds n + 16.
+// codec: 0 blosclz, 1 lz4, 2 snappy, 3 zlib, 4 zstd; hc: lz4hc. dst holds
+// n + 16.
 int64_t zc_blosc_encode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int codec,
                         int hc, int clevel, int shuffle, int typesize, int64_t blocksize) {
   return guarded([&] {
@@ -2117,6 +2243,22 @@ int64_t zc_blosclz_decode(const uint8_t* src, int64_t len, uint8_t* dst, int64_t
 
 int64_t zc_zlib_decode(const uint8_t* src, int64_t len, uint8_t* dst, int64_t cap) {
   return guarded([&] { return int64_t(zlib_decode(src, size_t(len), dst, size_t(cap))); });
+}
+
+int64_t zc_snappy_decode(const uint8_t* src, int64_t len, uint8_t* dst, int64_t cap) {
+  return guarded([&] { return int64_t(snappy_decode(src, size_t(len), dst, size_t(cap))); });
+}
+
+int64_t zc_snappy_bound(int64_t n) { return int64_t(snappy_bound(size_t(n))); }
+
+int64_t zc_snappy_encode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  return guarded([&] {
+    std::vector<uint8_t> o;
+    snappy_encode(src, size_t(n), o);
+    need(o.size() <= size_t(cap), E_OVERRUN);
+    memcpy(dst, o.data(), o.size());
+    return int64_t(o.size());
+  });
 }
 
 // mode: 0 byte shuffle, 1 byte unshuffle, 2 bitshuffle, 3 bit unshuffle.

@@ -5,11 +5,12 @@ The port of ``mt3d_resenc_unet_tpu/data/zio.py``, with the same API
 ``create_zarr``, ``zarr_exists``, ``normalize_to_unit``, the normals codec)
 and the same decode arithmetic. Two backends behind ``Volume``:
 
-* a zarr v2 array (C order, no filters) whose compressor ``data/codec.py``
-  handles -- none, Blosc (zstd, lz4, lz4hc, blosclz and zlib streams, any
-  shuffle), zstd, zlib, gzip or bz2 -- is read and written by this module
-  and the port's own C++ codec: one ``.zarray`` JSON plus one chunk per
-  key, named ``i.j.k`` (or ``i/j/k`` with ``dimension_separator: "/"``),
+* a zarr v2 array (C or F order, no filters) whose compressor
+  ``data/codec.py`` handles -- none, Blosc (zstd, lz4, lz4hc, blosclz,
+  snappy and zlib streams, any shuffle), zstd, zlib, gzip or bz2: every
+  compressor tensorstore's zarr driver has -- is read and written by this
+  module and the port's own C++ codec: one ``.zarray`` JSON plus one chunk
+  per key, named ``i.j.k`` (or ``i/j/k`` with ``dimension_separator: "/"``),
   edge chunks stored at full size, a missing chunk reading as the fill
   value. The keys live in one of three key-value stores (:class:`_FileKV`,
   :class:`_HttpKV`, :class:`_MemoryKV`): a local directory; an ``http://``
@@ -25,10 +26,11 @@ and the same decode arithmetic. Two backends behind ``Volume``:
   for bit, and ``create_zarr`` writes the ``.zarray`` tensorstore writes
   for the same arguments (the default compressor, Blosc zstd-5 bit
   shuffle, included);
-* any other array (Blosc snappy, other codecs or filters, local or remote)
-  goes through tensorstore when it is importable, as in the JAX package;
-  without it, opening one raises an ``ImportError`` naming the package and
-  the store.
+* any other array (filters, a compressor or Blosc stream that neither
+  this module nor tensorstore knows) goes to tensorstore when it is
+  importable, as in the JAX package, which refuses it too; without it,
+  opening one raises an ``ImportError`` that names the store and says
+  so.
 
 The port's backend reads or writes (and decodes or encodes) the chunks of
 one read or write in parallel on a thread pool (the codec releases the
@@ -104,10 +106,11 @@ def _tensorstore(path: str, why: str):
         import tensorstore as ts
     except ImportError as exc:
         raise ImportError(
-            f"zarr store {path!r} ({why}) needs the tensorstore package; "
-            "without it only local zarr v2 arrays whose compressor is none, "
-            f"{', '.join(codec.COMPRESSOR_IDS)} (Blosc without snappy) and "
-            "that have no filters can be read and written") from exc
+            f"zarr store {path!r} ({why}) is not one the port's codec reads "
+            "(C or F order, no filters, compressor none or "
+            f"{', '.join(codec.COMPRESSOR_IDS)}), and tensorstore, which is "
+            "not installed, cannot read it either: its zarr driver has the "
+            "same compressors and refuses filters") from exc
     return ts
 
 
@@ -214,7 +217,7 @@ def _normalize_compressor(compressor):
 
 def _local_codec(meta: Dict[str, Any]) -> bool:
     """Whether this module reads and writes the array itself."""
-    return (meta.get("order", "C") == "C" and not meta.get("filters")
+    return (meta.get("order", "C") in ("C", "F") and not meta.get("filters")
             and codec.supported(meta.get("compressor")))
 
 
@@ -371,10 +374,14 @@ class _LocalZarr:
         self.compressor = meta.get("compressor")
         self.fill_value = _parse_fill(meta.get("fill_value"), self.dtype)
         self.sep = meta.get("dimension_separator") or "."
+        # an F-order chunk stores the transpose of its C-order bytes
+        self.fortran = meta.get("order", "C") == "F"
+        self.stored = self.chunks[::-1] if self.fortran else self.chunks
         if not _local_codec(meta):
-            raise ValueError(f"{path}: only C-order zarr arrays without "
-                             "filters, with a compressor data/codec.py "
-                             "handles, are read without tensorstore")
+            raise ValueError(f"{path}: only C- or F-order zarr arrays "
+                             "without filters, with a compressor "
+                             "data/codec.py handles, are read without "
+                             "tensorstore")
 
     def _key(self, key) -> str:
         return self.sep.join(str(k) for k in key)
@@ -388,13 +395,14 @@ class _LocalZarr:
             return np.full(self.chunks, self.fill_value, self.dtype)
         if self.compressor is None and len(data) == np.prod(
                 self.chunks) * self.dtype.itemsize:
-            return np.frombuffer(data, self.dtype).reshape(self.chunks)
-        chunk = np.empty(self.chunks, self.dtype)
-        try:
-            codec.decode_chunk_into(self.compressor, data, chunk)
-        except ValueError as exc:
-            raise ValueError(f"{self.path}/{name}: {exc}") from exc
-        return chunk
+            chunk = np.frombuffer(data, self.dtype).reshape(self.stored)
+        else:
+            chunk = np.empty(self.stored, self.dtype)
+            try:
+                codec.decode_chunk_into(self.compressor, data, chunk)
+            except ValueError as exc:
+                raise ValueError(f"{self.path}/{name}: {exc}") from exc
+        return chunk.T if self.fortran else chunk
 
     def _overlaps(self, ranges):
         """(chunk key, slice in the chunk, slice in the region) of every
@@ -451,7 +459,8 @@ class _LocalZarr:
 
     def _replace_chunk(self, key, chunk: np.ndarray) -> None:
         self.kv.write(self._key(key), codec.encode_chunk_array(
-            self.compressor, np.ascontiguousarray(chunk),
+            self.compressor,
+            np.ascontiguousarray(chunk.T if self.fortran else chunk),
             self.dtype.itemsize))
 
 

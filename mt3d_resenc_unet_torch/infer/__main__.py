@@ -10,8 +10,8 @@ there is none; ``--device cpu`` runs it on the CPU. Several processes
 / ``JAX_PROCESS_ID``) form one process group first
 (``parallel.distributed.initialize``: NCCL on the card, gloo on the CPU
 or with ``--dist_backend gloo``, which two ranks sharing one card need).
-Reading a YAML file needs pyyaml; where it is missing, build
-``ZarrInferenceEngine(config_dict=...)`` from Python instead.
+The task file is read by the port's own YAML reader
+(``core/yaml_load.py``): no pyyaml is needed.
 """
 
 import argparse

@@ -1,7 +1,9 @@
 """Debug visualization: per-epoch GIF panels and dataloader TIFF dumps.
 
-A copy of ``mt3d_resenc_unet_tpu/train/visualization.py``; imageio and PIL
-stay optional.
+A copy of ``mt3d_resenc_unet_tpu/train/visualization.py``; imageio stays
+optional (the GIF), and the TIFFs go through cv2 where it is importable and
+PIL otherwise, as ``tools/images.py`` writes images (the card's machine has
+cv2).
 
 Parity with the reference's visual QA tooling
 (reference: training/visualization/plotting.py:172-317): a per-Z-slice
@@ -121,12 +123,36 @@ def log_3d_slices_as_images(writer, tag: str, volume: np.ndarray, step: int,
         writer._tb.add_image(f"{tag}/z{i}", rgb, step, dataformats="HWC")
 
 
+def _tiff_writer():
+    """A function that writes uint8 pages, (H, W) or (H, W, 3) RGB, as one
+    multipage TIFF: ``cv2.imwritemulti`` where cv2 is importable, else PIL;
+    ``RuntimeError`` where neither is."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        def write(path, pages):
+            bgr = [p[..., ::-1] if p.ndim == 3 else p for p in pages]
+            if not cv2.imwritemulti(str(path), [np.ascontiguousarray(p)
+                                                for p in bgr]):
+                raise OSError(f"cv2 could not write {path}")
+        return write
+    if not _HAS_PIL:
+        raise RuntimeError("neither cv2 nor PIL is importable; cannot "
+                           "export debug TIFFs")
+
+    def write(path, pages):
+        images = [Image.fromarray(p) for p in pages]
+        images[0].save(path, save_all=True, append_images=images[1:])
+    return write
+
+
 def export_data_dict_as_tif(dataset, num_batches: int, out_dir: str) -> None:
     """Dump the first N dataset samples as multipage TIFFs — the
     ``--debug_dataloader`` path (reference: train.py:137-144,
     plotting.py:285-317)."""
-    if not _HAS_PIL:
-        raise RuntimeError("PIL unavailable; cannot export debug TIFFs")
+    write = _tiff_writer()
     os.makedirs(out_dir, exist_ok=True)
     n = min(num_batches, len(dataset))
     for i in range(n):
@@ -135,10 +161,8 @@ def export_data_dict_as_tif(dataset, num_batches: int, out_dir: str) -> None:
             arr = np.asarray(arr)
             if arr.ndim == 4:  # (D, H, W, C)
                 is_n = key.lower() == "normals"
-                pages = [Image.fromarray(slice_to_rgb(arr[z], is_n))
+                pages = [slice_to_rgb(arr[z], is_n)
                          for z in range(arr.shape[0])]
             else:
-                pages = [Image.fromarray(_minmax_u8(arr[z]))
-                         for z in range(arr.shape[0])]
-            path = Path(out_dir) / f"sample{i:03d}_{key}.tif"
-            pages[0].save(path, save_all=True, append_images=pages[1:])
+                pages = [_minmax_u8(arr[z]) for z in range(arr.shape[0])]
+            write(Path(out_dir) / f"sample{i:03d}_{key}.tif", pages)

@@ -2,8 +2,9 @@
 
 Each file is one stored zarr chunk written by another encoder than the
 port's: Blosc chunks by tensorstore (through the JAX package's
-``create_zarr``: zstd, lz4, lz4hc, blosclz and zlib streams, shuffle 0, 1
-and 2, ``|u1``, ``<u2`` and ``<f4``), and zstd frames by the ``zstandard``
+``create_zarr``: zstd, lz4, lz4hc, blosclz, zlib and snappy streams,
+shuffle 0, 1 and 2, ``|u1``, ``<u2`` and ``<f4``; for snappy also an
+all-zero and a random chunk), and zstd frames by the ``zstandard``
 package at levels 1, 5, 19 and 22, with and without a checksum and a
 content size. ``manifest.json`` lists each file's compressor, dtype, shape
 and the sha256 of its raw C-order bytes. The tests and ``chip_smoke.py``
@@ -139,6 +140,24 @@ def main() -> int:
             zstandard.ZstdCompressor(level=3, write_checksum=True)
             .compress(multi.tobytes()), multi, {"id": "zstd", "level": 3},
             source="zstandard", checksum=True, content_size=True)
+        # written last, so the files above keep their bytes
+        for shuffle in (0, 1, 2):
+            for dt in DTYPES:
+                data = volume(SHAPE, dt, rng)
+                comp = {"id": "blosc", "cname": "snappy", "clevel": 5,
+                        "shuffle": shuffle, "blocksize": 0}
+                name = f"blosc_snappy_s{shuffle}_{np.dtype(dt).name}.bin"
+                add(name, tensorstore_chunk(work, name, data, comp), data,
+                    comp, source="tensorstore")
+        snappy = {"id": "blosc", "cname": "snappy", "clevel": 5,
+                  "shuffle": 1, "blocksize": 0}
+        add("blosc_snappy_zeros_uint16.bin",
+            tensorstore_chunk(work, "sz", zeros, snappy, fill_value=7),
+            zeros, snappy, source="tensorstore")
+        noise = rng.integers(0, 256, SHAPE, dtype=np.uint8)
+        add("blosc_snappy_random_uint8.bin",
+            tensorstore_chunk(work, "sr", noise, snappy), noise, snappy,
+            source="tensorstore")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     (OUT / "manifest.json").write_text(json.dumps(entries) + "\n")

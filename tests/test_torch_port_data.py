@@ -18,9 +18,11 @@ sides, so the comparisons are exact (bit for bit) unless stated.
 
 import dataclasses
 import glob
+import json
 import os
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from mt3d_resenc_unet_tpu.data import dataset as jds
 from mt3d_resenc_unet_tpu.data import patches as jpatches
 from mt3d_resenc_unet_tpu.data import pipeline as jpipe
 from mt3d_resenc_unet_tpu.data import zio as jzio
+from mt3d_resenc_unet_torch.core import yaml_load
 from mt3d_resenc_unet_torch.core.config import ConfigManager
 from mt3d_resenc_unet_torch.data import dataset as tds
 from mt3d_resenc_unet_torch.data import patches as tpatches
@@ -80,8 +83,11 @@ def test_config_dict_needs_no_yaml_and_device_augment_raises(monkeypatch):
     cfg = _cfg_dict()
     monkeypatch.setitem(sys.modules, "yaml", None)
     assert ConfigManager(config_dict=cfg).train_patch_size
-    with pytest.raises(ImportError, match="pyyaml"):
-        ConfigManager(TASKS[0])
+    # a task file is read by the port's own reader: no pyyaml either
+    from_file = ConfigManager(TASKS[0])
+    assert from_file.model_config == ConfigManager(
+        config_dict=yaml_load.safe_load(Path(TASKS[0]).read_text())
+    ).model_config
     # device augmentation is ported: the flag is read, nothing raises
     assert ConfigManager(
         config_dict=_cfg_dict(augment_on_device=True)).augment_on_device
@@ -119,19 +125,26 @@ def test_port_written_store_reads_in_jax_and_back(tmp_path):
 
 
 def test_compressed_store_needs_tensorstore(tmp_path, monkeypatch):
-    """A Blosc store opens without tensorstore (the port's codec); a codec
-    the port lacks (Blosc snappy) still needs it and says so."""
+    """A Blosc store opens without tensorstore (the port's codec), Blosc
+    snappy included; only a store that tensorstore cannot read either
+    (filters) reaches for it, and the error says so."""
     path = str(tmp_path / "c.zarr")
     jzio.create_zarr(path, (8, 8, 8), np.uint8, (4, 4, 4))[...] = 3
     assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
     snappy = str(tmp_path / "s.zarr")
     jzio.create_zarr(snappy, (8, 8, 8), np.uint8, (4, 4, 4),
-                     compressor={"id": "blosc", "cname": "snappy"})
+                     compressor={"id": "blosc", "cname": "snappy"})[...] = 5
+    filtered = tmp_path / "f.zarr"
+    filtered.mkdir()
+    (filtered / ".zarray").write_text(json.dumps({
+        "shape": [4], "chunks": [4], "dtype": "|u1", "compressor": None,
+        "fill_value": 0, "filters": [{"id": "delta", "dtype": "|u1"}],
+        "order": "C", "zarr_format": 2}))
     monkeypatch.setitem(sys.modules, "tensorstore", None)
     assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
-    with pytest.raises(ImportError,
-                       match="tensorstore.*snappy|snappy.*tensorstore"):
-        tzio.open_zarr(snappy)
+    assert int(tzio.open_zarr(snappy)[...].sum()) == 5 * 512
+    with pytest.raises(ImportError, match="tensorstore.*cannot read it"):
+        tzio.open_zarr(str(filtered))
 
 
 def test_unit_tables_and_normals_codec_bit_for_bit():

@@ -149,10 +149,24 @@ def _train_pass(model):
     assert grads and all(torch.isfinite(g).all() for g in grads)
 
 
+@pytest.fixture(scope="module")
+def dispatch():
+    """One training pass of the kernel model (no SE) in each dtype, with
+    the conv and upsample Functions' applies and the norm-act wrappers'
+    calls counted: {dtype: (Function counts, norm-act counts)}, which the
+    two routing tests below read."""
+    out = {}
+    for dtype in DTYPES:
+        with pytest.MonkeyPatch.context() as mp:
+            functions, norms = _spy_functions(mp), _spy_norm(mp)
+            _train_pass(ResEncUNet(_plan(), dtype=DTYPES[dtype]))
+        out[dtype] = (functions, norms)
+    return out
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
-def test_only_bf16_reaches_the_conv_and_upsample_kernels(monkeypatch, dtype):
-    calls = _spy_functions(monkeypatch)
-    _train_pass(ResEncUNet(_plan(), dtype=DTYPES[dtype]))
+def test_only_bf16_reaches_the_conv_and_upsample_kernels(dispatch, dtype):
+    calls = dispatch[dtype][0]
     names = ("Conv3dK3Fn", "Conv3dK3PairFn", "Upsample2xFn")
     if dtype == "bfloat16":
         assert all(calls[n] > 0 for n in names), calls
@@ -162,12 +176,16 @@ def test_only_bf16_reaches_the_conv_and_upsample_kernels(monkeypatch, dtype):
 
 @pytest.mark.parametrize("squeeze_excitation", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
-def test_norm_launches_predict_each_dtypes_dispatch(monkeypatch, dtype,
+def test_norm_launches_predict_each_dtypes_dispatch(monkeypatch, dispatch,
+                                                    dtype,
                                                     squeeze_excitation):
     plan = _plan(squeeze_excitation=squeeze_excitation)
     want = norm_launches(plan, PATCH, 2, DTYPES[dtype])
-    calls = _spy_norm(monkeypatch)
-    _train_pass(ResEncUNet(plan, dtype=DTYPES[dtype]))
+    if squeeze_excitation:
+        calls = _spy_norm(monkeypatch)
+        _train_pass(ResEncUNet(plan, dtype=DTYPES[dtype]))
+    else:   # the model of the fixture's pass
+        calls = dispatch[dtype][1]
     assert {k: calls[k] for k in want} == want
     if dtype == "float16":
         assert set(want.values()) == {0}

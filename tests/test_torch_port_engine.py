@@ -17,6 +17,7 @@ plan in float32 (sheet + normals heads).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -418,6 +419,13 @@ def test_cli_runs_on_cpu_and_writes_layers(setup, tmp_path):
         assert len(slices) == SHAPE[0]
     with pytest.raises(FileExistsError):
         cli_main(["--config_path", str(path), "--device", "cpu"])
+
+
+def test_cli_runs_without_pyyaml(setup, tmp_path, monkeypatch):
+    """``test_cli_runs_on_cpu_and_writes_layers`` with ``yaml`` blocked
+    from import: the CLI reads its task file with the port's own reader."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    test_cli_runs_on_cpu_and_writes_layers(setup, tmp_path)
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(setup, monkeypatch):

@@ -108,7 +108,12 @@ def _no_tensorstore(monkeypatch):
     monkeypatch.setattr(tzio, "_tensorstore", refuse)
 
 
-@pytest.mark.parametrize("comp", BLOSC + OTHERS, ids=_label)
+# snappy over a URL once (bit shuffle); its shuffles are the codec tests'
+REMOTE = [c for c in BLOSC + OTHERS
+          if not (c and c.get("cname") == "snappy" and c["shuffle"] != 2)]
+
+
+@pytest.mark.parametrize("comp", REMOTE, ids=_label)
 def test_url_reads_equal_jax_and_local(server, monkeypatch, comp):
     root, url = server
     _no_tensorstore(monkeypatch)
@@ -207,23 +212,21 @@ def test_one_thread_keeps_one_connection(server):
     assert len(_Handler.clients) == 1
 
 
-def _served_dataset(root):
+@pytest.fixture(scope="module")
+def served_dataset(server):
+    """A synthetic sheet dataset under the served root, written once."""
     from mt3d_resenc_unet_torch.tools.synthetic_data import \
         write_sheet_dataset
-    return write_sheet_dataset(root / "sheets", (40, 48, 48), seed=2,
+    return write_sheet_dataset(server[0] / "sheets", (40, 48, 48), seed=2,
                                chunks=(16, 16, 32))
 
 
 @pytest.mark.parametrize("ram", [False, True])
-def test_dataset_samples_equal_over_urls(server, ram):
+def test_dataset_samples_equal_over_urls(server, served_dataset, ram):
     from mt3d_resenc_unet_torch.core.config import ConfigManager
     from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
     root, url = server
-    paths = (_served_dataset(root) if not (root / "sheets").exists() else
-             {"input": str(root / "sheets" / "image.zarr"),
-              "sheet": str(root / "sheets" / "sheet.zarr"),
-              "normals": str(root / "sheets" / "normals.zarr"),
-              "ref_label": "sheet"})
+    paths = served_dataset
     urls = {k: (v.replace(str(root), url) if k != "ref_label" else v)
             for k, v in paths.items()}
     assert urls["input"].startswith("http://")

@@ -23,6 +23,7 @@ with a small manual 2-stage plan (no squeeze-excitation) in float32.
 """
 
 import copy
+import sys
 
 import numpy as np
 import pytest
@@ -242,6 +243,48 @@ def test_cli_trains_one_epoch(tmp_path, volumes, monkeypatch):
     assert main(["--config_path", str(path), "--debug_dataloader",
                  "--device", "cpu"]) == {}
     assert len(list((tmp_path / "debug_dir").glob("sample000_*.tif"))) == 3
+
+
+def test_cli_trains_one_epoch_without_pyyaml(tmp_path, volumes, monkeypatch):
+    """``test_cli_trains_one_epoch`` with ``yaml`` blocked from import: the
+    CLI reads its task file with the port's own reader."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    test_cli_trains_one_epoch(tmp_path, volumes, monkeypatch)
+
+
+def test_debug_tiffs_hold_the_same_pixels_through_cv2_and_pil(
+        tmp_path, monkeypatch):
+    """``--debug_dataloader``'s TIFFs: cv2 (what the card's machine has)
+    and PIL write the same pages, read back through PIL; with neither
+    importable the export raises."""
+    from PIL import Image
+    from mt3d_resenc_unet_torch.train import visualization as vis
+    rng = np.random.default_rng(0)
+    samples = [{"image": rng.random((4, 6, 5, 1), np.float32),
+                "normals": rng.random((4, 6, 5, 3), np.float32) * 2 - 1,
+                "sheet": rng.random((4, 6, 5), np.float32)}]
+
+    def pages(path):
+        img = Image.open(path)
+        out = []
+        for k in range(img.n_frames):
+            img.seek(k)
+            out.append(np.asarray(img))
+        return out
+
+    vis.export_data_dict_as_tif(samples, 1, str(tmp_path / "cv2"))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    vis.export_data_dict_as_tif(samples, 1, str(tmp_path / "pil"))
+    for key in samples[0]:
+        name = f"sample000_{key}.tif"
+        a, b = pages(tmp_path / "cv2" / name), pages(tmp_path / "pil" / name)
+        assert len(a) == len(b) == 4
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype == np.uint8
+            np.testing.assert_array_equal(x, y)
+    monkeypatch.setattr(vis, "_HAS_PIL", False)
+    with pytest.raises(RuntimeError, match="neither cv2 nor PIL"):
+        vis.export_data_dict_as_tif(samples, 1, str(tmp_path / "none"))
 
 
 def test_trainer_without_a_card_raises_unless_asked_for_the_cpu(

@@ -42,7 +42,7 @@ FIXTURES = ROOT / "tests" / "data" / "zarr_codec"
 MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
 
 BLOSC = [{"id": "blosc", "cname": cname, "clevel": 5, "shuffle": shuffle}
-         for cname in ("zstd", "lz4", "lz4hc", "blosclz", "zlib")
+         for cname in ("zstd", "lz4", "lz4hc", "blosclz", "zlib", "snappy")
          for shuffle in (0, 1, 2)]
 OTHERS = [{"id": "zstd", "level": 1}, {"id": "zstd", "level": 9},
           {"id": "zlib", "level": 5}, {"id": "gzip", "level": 5},
@@ -81,7 +81,7 @@ def test_manifest_lists_every_fixture():
     assert files == {e["file"] for e in MANIFEST}
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 512 * 1024
     cnames = {e["compressor"].get("cname") for e in MANIFEST}
-    assert {"zstd", "lz4", "lz4hc", "blosclz", "zlib"} <= cnames
+    assert {"zstd", "lz4", "lz4hc", "blosclz", "zlib", "snappy"} <= cnames
     for e in MANIFEST:
         assert set(e) >= {"file", "compressor", "dtype", "shape", "sha256"}
 
@@ -209,10 +209,11 @@ def _valid_chunks():
     raw = _volume((8, 24, 20), np.uint16).tobytes()
     out = [(c, codec.encode_chunk(c, raw, 2), len(raw))
            for c in (tzio.DEFAULT_COMPRESSOR, BLOSC[4], BLOSC[8], BLOSC[14],
-                     {"id": "zstd", "level": 3, "checksum": True})]
+                     BLOSC[16], {"id": "zstd", "level": 3, "checksum": True})]
     for name in ("blosc_blosclz_s1_uint16.bin", "blosc_lz4_s1_edge_uint16.bin",
                  "blosc_zlib_s2_float32.bin", "zstd_l19_c1_s1_uint16.bin",
-                 "zstd_l3_multiblock_uint16.bin"):
+                 "zstd_l3_multiblock_uint16.bin",
+                 "blosc_snappy_s1_uint16.bin"):
         e = next(e for e in MANIFEST if e["file"] == name)
         out.append((e["compressor"], (FIXTURES / name).read_bytes(),
                     int(np.prod(e["shape"])) * np.dtype(e["dtype"]).itemsize))
@@ -252,7 +253,8 @@ def test_low_level_decoders_reject_garbage():
         junk = rng.integers(0, 256, int(rng.integers(1, 300)),
                             np.uint8).tobytes()
         for fn in (codec.zstd_decompress, codec.lz4_decompress,
-                   codec.blosclz_decompress, codec.zlib_decompress):
+                   codec.blosclz_decompress, codec.zlib_decompress,
+                   codec.snappy_decompress):
             try:
                 out = fn(junk, 4096)
             except ValueError:
@@ -260,14 +262,67 @@ def test_low_level_decoders_reject_garbage():
             assert len(out) <= 4096
 
 
+def test_snappy_blocks_round_trip_and_malformed_ones_raise():
+    """The Snappy block codec alone: round trips over literals of every
+    length class and copies of every offset class, then the malformed
+    streams: truncated, a stated length past the output, a copy from
+    before the start, an offset of 0, a literal past the input, and
+    output past the stated length."""
+    rng = np.random.default_rng(3)
+    for raw in (b"", b"a", bytes(60), bytes(range(61)),
+                rng.integers(0, 256, 70000, np.uint8).tobytes(),
+                bytes(range(256)) * 300, b"ab" * 40000):
+        enc = codec.snappy_compress(raw)
+        assert codec.snappy_decompress(enc, len(raw)) == raw
+    # length 6, a literal of 2 bytes, a 4-byte copy from 2 bytes back
+    good = bytes([6, 1 << 2, ord("a"), ord("b"), 0b00000001, 2])
+    assert codec.snappy_decompress(good, 6) == b"ababab"
+    bad = {
+        "truncated": codec.snappy_compress(bytes(range(200)) * 3)[:-7],
+        "length over 32 bits": bytes([0x80, 0x80, 0x80, 0x80, 0x80, 1]),
+        "stated length over the buffer": bytes([100, 0, ord("x")]),
+        "copy before the start": bytes([6, 1 << 2, 97, 98, 0b1, 9]),
+        "offset 0": bytes([6, 1 << 2, 97, 98, 0b1, 0]),
+        "literal past the input": bytes([4, 3 << 2, 97]),
+        "output past its length": bytes([1, 1 << 2, 97, 98]),
+        "short output": bytes([5, 1 << 2, 97, 98]),
+        "copy-2 offset cut": bytes([6, 1 << 2, 97, 98, 0b10, 1]),
+    }
+    for name, data in bad.items():
+        with pytest.raises(ValueError):
+            codec.snappy_decompress(data, 8 if name.startswith("stated")
+                                    else 64)
+
+
+def test_fortran_order_store_read_and_written_as_tensorstore(tmp_path):
+    """An F-order store (tensorstore writes the transposed chunk) read and
+    written in part by the port, read back by tensorstore."""
+    import tensorstore as ts
+    path = str(tmp_path / "f.zarr")
+    data = _volume((9, 17, 12), np.uint16)
+    meta = {"shape": list(data.shape), "chunks": [4, 8, 8], "dtype": "<u2",
+            "compressor": BLOSC[16], "fill_value": 0, "order": "F"}
+    store = ts.open({"driver": "zarr", "kvstore": {"driver": "file",
+                                                   "path": path},
+                     "metadata": meta}, create=True).result()
+    store[...].write(data).result()
+    vol = tzio.open_zarr(path, writable=True)
+    np.testing.assert_array_equal(vol.read_all(), data)
+    np.testing.assert_array_equal(vol[2:7, 3, 1:11], data[2:7, 3, 1:11])
+    data[3:7, 5:11, 2:9] = 7
+    vol[3:7, 5:11, 2:9] = 7
+    np.testing.assert_array_equal(
+        np.asarray(store[...].read().result()), data)
+
+
 def test_unsupported_codecs_raise(tmp_path):
     raw = bytes(range(256)) * 4
-    with pytest.raises(ValueError, match="snappy"):
-        codec.blosc_compress(raw, "snappy")
+    with pytest.raises(ValueError, match="lzma"):
+        codec.blosc_compress(raw, "lzma")
     frame = bytearray(codec.blosc_compress(raw, "lz4", shuffle=0))
-    frame[2] = (frame[2] & 0x1F) | (2 << 5)
-    with pytest.raises(ValueError, match="snappy"):
-        codec.decode_chunk({"id": "blosc", "cname": "snappy"}, bytes(frame),
+    frame[2] = (frame[2] & 0x1F) | (5 << 5)   # no Blosc 1 stream has code 5
+    with pytest.raises(ValueError, match="unsupported"):
+        codec.decode_chunk({"id": "blosc", "cname": "lz4"}, bytes(frame),
                            len(raw))
     rng = np.random.default_rng(1)
     trained = zstandard.train_dictionary(2048, [
