@@ -19,16 +19,19 @@ step and the engine's tiled pass in several processes over
 zarr chunk codec against golden chunks that tensorstore and ``zstandard``
 wrote, runs every dtype the trainer and the engine take (compute
 float32 and float16 with the kernels left on, ``param_dtype`` bfloat16),
-and last runs the port's two CLIs in subprocesses on a task file written
-from ``tasks/sheet_normals.yaml``'s own text. Every zarr store it makes is
+runs the port's two CLIs in subprocesses on a task file written from
+``tasks/sheet_normals.yaml``'s own text, and last reads and writes
+private s3 and gs buckets, signed, on an emulator that checks the
+signatures. Every zarr store it makes is
 Blosc zstd-5 bit shuffle, the system's own format, read and written by the
 port's codec, also over HTTP. Every task setting it uses is read from
 ``tasks/*.yaml`` through the port's own YAML reader.
 
     python3 chip_smoke.py
 
-(``chip_smoke.py --worker MODE ...`` is one rank of phase 14b or 15, as
-the script itself starts them.)
+(``chip_smoke.py --worker MODE ...`` is one rank of phase 14b or 15;
+``--serve`` and ``--cas-writer`` are phase 7/8's HTTP server and phase
+22's chunk writers, as the script itself starts them.)
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
@@ -188,8 +191,9 @@ Phases (any failure exits non-zero and prints no result line):
      beside 5c's, and the step's device time (torch.profiler) with the
      augmentation's share of it;
  12. phase 7 with ``augment_on_device: true`` (the dataset ships
-     unaugmented wire bytes), its patches/s and ``t_fetch`` share beside
-     phase 7's;
+     unaugmented wire bytes), cut to one epoch and a resumed second
+     (AUG_TRAINER_EPOCHS) to keep the command in time, its patches/s and
+     ``t_fetch`` share beside phase 7's;
  13. every name of ``train/optimizers.py::create_optimizer`` on the
      flagship's 235.5 M parameters: 2 updates from one gradient set made
      on the card, held against the same rule on the CPU on copies of the
@@ -254,7 +258,34 @@ Phases (any failure exits non-zero and prints no result line):
      bit-equal to the engine's in this process on a (160, 256, 256) u8
      Blosc input; then the overwrite guard, ``--postprocess_only`` twice,
      ``--write_layers``, a legacy ``tr_params:`` file and
-     ``--debug_dataloader``. A failed subprocess fails the run.
+     ``--debug_dataloader``; the training CLI must leave the debug GIF
+     (``sheet_normals_debug.gif``, through PIL where imageio is absent)
+     with a frame a z-slice of the patch. A failed subprocess fails the
+     run.
+ 22. private buckets (``bucket_phase``), through the S3 + GCS emulator
+     of the CPU tests (``tests/bucket_emulator.py``, standard library
+     only) in a child process, strict: it refuses anonymous requests,
+     checks SigV4 with its own code (``sigv4_ok``) and grants bearer
+     tokens only for a JWT whose RS256 signature verifies against the
+     golden test key (``jwt_claims_ok``); the port's clients carry
+     AWS's example credentials and the test service account: (a) the
+     golden requests of ``tests/data/remote_auth/`` (tensorstore's)
+     signed again by the port and accepted by ``sigv4_ok``, the golden
+     JWT signed again; an anonymous request and a wrong secret refused;
+     (b) phase 7's dataset copied into ``s3://`` and ``gs://`` by the
+     port, its first SAME_SAMPLES samples from each bit-equal to the
+     local read; (c) ``tools/zarr_crop.py`` local -> s3 -> gs twice (the
+     second over the first: ``delete_existing``), bit-equal to a local
+     crop, Blosc zstd; (d) the engine's device pass at full width on a
+     (160, 256, 256) u8 input (phase 8's volume cut so that the pass
+     stays within 60 s) read from ``s3://``, finals bit-equal to the
+     same pass on the local input, every counter zeroed before each run,
+     rows 1, 4, 7 and the norm tail and raw statistics (10a, 10b)
+     launched and no backward kernel; (e) two
+     processes (``chip_smoke.py --cas-writer``) writing the halves of
+     one chunk CAS_ROUNDS times each on s3 and on gs: both halves kept,
+     overtaken writes (412) seen; (f) the loopback's write and read MB/s,
+     labelled host rates, beside the card's name and power limit.
 Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
@@ -278,7 +309,12 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# the helper processes (the HTTP server, the chunk writers) start faster
+# without torch, which they do not use
+if not (__name__ == "__main__" and sys.argv[1:2] in (
+        ["--serve"], ["--cas-writer"])):
+    import torch
 
 KERNEL_TOL = 1e-2      # max |kernel - plain| / max |plain|, bf16 outputs
 STATS_TOL = 1e-3       # relative error of the fp32 [sum; sumsq]
@@ -352,6 +388,7 @@ TAIL_MODES = ((False, False), (True, False), (True, True))
 # phase 7: the synthetic dataset and the trainer's cut of sheet_normals.yaml
 TRAIN_DATA = (256, 384, 384)
 TRAINER_EPOCHS = 2
+AUG_TRAINER_EPOCHS = 1      # phase 12's, cut to keep the command in time
 TRAINER_STEPS = 6
 TRAINER_VAL_STEPS = 2
 WORK_DIR = "build/chip_smoke"
@@ -729,7 +766,7 @@ def main() -> int:
     rc = run(dev, CONV_CASES, S2_CASES, UP_CASES, PATCH, VOLUME,
              TRAIN_STEPS, NORM_CASES, TRAIN_DATA, ENGINE_VOLUME,
              ENGINE_U16_VOLUME, tuple(ink["patch_size"]), ink["batch_size"])
-    print(f"phases 2-21: {time.perf_counter() - t0:.1f} s",
+    print(f"phases 2-22: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
     return rc
 
@@ -778,7 +815,7 @@ def card() -> str:
 def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
         train_steps, norm_cases, train_data, engine_volume,
         engine_u16_volume, ink_patch, ink_batch) -> int:
-    """Phases 2-21 and the result lines; the case lists and sizes are
+    """Phases 2-22 and the result lines; the case lists and sizes are
     arguments so the phases can be rehearsed at a tiny size."""
     from mt3d_resenc_unet_torch.ops import _build
     failures = []
@@ -924,9 +961,11 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                                      step_launches, aug_ms)
     torch.cuda.empty_cache()
 
-    # 12. phase 7's trainer with augment_on_device: true
+    # 12. phase 7's trainer with augment_on_device: true, one epoch and a
+    # resumed second (phase 7 trains two and a resumed third)
     _, fails, _ = trainer_phase(patch, train_data, step_rate,
-                                device_augment=True, host=host_trainer)
+                                device_augment=True, host=host_trainer,
+                                epochs=AUG_TRAINER_EPOCHS)
     failures += fails
     torch.cuda.empty_cache()
 
@@ -962,6 +1001,10 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 
     # 21. both CLIs on a task file, as a user runs them
     failures += cli_phase(patch, train_data, volume, host_trainer["history"])
+    torch.cuda.empty_cache()
+
+    # 22. private buckets: s3 and gs, signed, through the port's stores
+    failures += bucket_phase(patch, train_data, volume)
     torch.cuda.empty_cache()
 
     if failures:
@@ -1934,48 +1977,51 @@ def store_bytes(path) -> int:
 SAME_SAMPLES = 8
 
 
+def first_samples(work, vols, patch, label):
+    """The first SAME_SAMPLES samples (read, augmented, wire format) of
+    phase 7's dataset on the volumes ``vols``."""
+    from mt3d_resenc_unet_torch.core.config import ConfigManager
+    from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
+    cfg = sheet_normals_config(work, vols, patch, 1)
+    cfg["dataset_config"]["use_cache"] = False
+    t0 = time.perf_counter()
+    ds = ZarrPatchDataset(ConfigManager(config_dict=cfg, verbose=False),
+                          seed=SEED, wire=True)
+    t_open = time.perf_counter() - t0
+    print(f"trainer data ({label}): dataset of {len(ds)} patches opened "
+          f"(volumes read into RAM, patches mined) in {t_open:.2f} s")
+    return [ds[i] for i in range(min(SAME_SAMPLES, len(ds)))]
+
+
+def equal_samples(a, b) -> bool:
+    """Two lists of SAME_SAMPLES samples, bit for bit."""
+    return len(a) == SAME_SAMPLES and len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x) for x, y in zip(a, b))
+
+
 def same_samples(work, paths, patch, train_data):
     """Phase 7's check: the dataset's first SAME_SAMPLES samples (read,
     augmented, wire format) from the Blosc volumes against those of an
     uncompressed copy, bit for bit. Returns the failures."""
-    from mt3d_resenc_unet_torch.core.config import ConfigManager
-    from mt3d_resenc_unet_torch.data.dataset import ZarrPatchDataset
     from mt3d_resenc_unet_torch.tools.synthetic_data import \
         write_sheet_dataset
     t0 = time.perf_counter()
     raw_paths = write_sheet_dataset(work / "data_raw", train_data, seed=SEED,
                                     compressor=None)
     t_raw = time.perf_counter() - t0
-    samples = []
-
-    def first_samples(label, vols):
-        cfg = sheet_normals_config(work, vols, patch, 1)
-        cfg["dataset_config"]["use_cache"] = False
-        t0 = time.perf_counter()
-        ds = ZarrPatchDataset(ConfigManager(config_dict=cfg, verbose=False),
-                              seed=SEED, wire=True)
-        t_open = time.perf_counter() - t0
-        samples.append([ds[i] for i in range(min(SAME_SAMPLES, len(ds)))])
-        print(f"trainer data ({label}): dataset of {len(ds)} patches opened "
-              f"(volumes read into RAM, patches mined) in {t_open:.2f} s")
-
-    def equal(a, b):
-        return len(a) == SAME_SAMPLES and len(a) == len(b) and all(
-            x.keys() == y.keys() and all(
-                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
-                for k in x) for x, y in zip(a, b))
-
-    first_samples("blosc", paths)
-    first_samples("raw", raw_paths)
+    samples = [first_samples(work, paths, patch, "blosc"),
+               first_samples(work, raw_paths, patch, "raw")]
     # the remote reads: the same Blosc volumes over a local HTTP server
     with http_root(work) as url:
-        first_samples("blosc over http", {
+        samples.append(first_samples(work, {
             k: v if k == "ref_label" else v.replace(str(work), url)
-            for k, v in paths.items()})
+            for k, v in paths.items()}, patch, "blosc over http"))
         read_same = read_rates(paths["input"], paths["input"].replace(
             str(work), url), f"phase 7 image {train_data}")
-    raw_equal = equal(samples[0], samples[1])
-    http_equal = equal(samples[0], samples[2]) and read_same
+    raw_equal = equal_samples(samples[0], samples[1])
+    http_equal = equal_samples(samples[0], samples[2]) and read_same
     print(f"trainer data: first {SAME_SAMPLES} samples of the Blosc dataset "
           f"bit-equal to the uncompressed copy's: {raw_equal} (copy written "
           f"in {t_raw:.1f} s, {store_bytes(work / 'data_raw')} bytes on "
@@ -1989,12 +2035,14 @@ def same_samples(work, paths, patch, train_data):
 
 
 def trainer_phase(patch, train_data, step_rate, device_augment=False,
-                  host=None):
+                  host=None, epochs=TRAINER_EPOCHS):
     """Phase 7 (and, with ``device_augment``, phase 12: the same runs with
     ``augment_on_device: true``, printed beside ``host``, phase 7's
-    summary). Returns (launch counts of the two trainer runs, failures,
-    a summary: the mean patches/s and t_fetch's share of epochs 2-3, and
-    the first run's history, which phase 21 holds the CLI's against)."""
+    summary): ``epochs`` epochs, then one more resumed from the last
+    checkpoint. Returns (launch counts of the two trainer runs, failures,
+    a summary: the mean patches/s and t_fetch's share of the epochs after
+    the first, and the first run's history, which phase 21 holds the
+    CLI's against)."""
     import os
     import shutil
     from pathlib import Path
@@ -2037,13 +2085,13 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
         _build.clear_counts()
         t0 = time.perf_counter()
         first = Trainer(config_dict=sheet_normals_config(
-            work, paths, patch, TRAINER_EPOCHS, device_augment),
+            work, paths, patch, epochs, device_augment),
             verbose=False).train()
         history = list(first["history"])
         first_history = list(history)
         del first
         torch.cuda.empty_cache()
-        cfg = sheet_normals_config(work, paths, patch, TRAINER_EPOCHS + 1,
+        cfg = sheet_normals_config(work, paths, patch, epochs + 1,
                                    device_augment)
         cfg["tr_setup"]["checkpoint_path"] = str(work / "ckpt" /
                                                  "sheet_normals")
@@ -2052,7 +2100,7 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
         del second
         launches = dict(_build.LAUNCHES)
         print(f"{label}: {time.perf_counter() - t0:.1f} s for "
-              f"{TRAINER_EPOCHS} + 1 epochs; launches {launches}")
+              f"{epochs} + 1 epochs; launches {launches}")
     finally:
         os.chdir(cwd)
     torch.cuda.empty_cache()
@@ -2068,7 +2116,7 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
         if not all(np.isfinite(v) for v in losses.values()):
             failures.append(f"{label} epoch {h['epoch'] + 1}: non-finite "
                             f"{losses}")
-    if [h["epoch"] for h in history] != list(range(TRAINER_EPOCHS + 1)):
+    if [h["epoch"] for h in history] != list(range(epochs + 1)):
         failures.append(f"{label}: epochs {[h['epoch'] for h in history]}")
     steady = history[1:]
     rate = sum(h["train/patches_per_sec"] for h in steady) / len(steady)
@@ -2091,8 +2139,8 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
         host_sample_cost(sheet_normals_config(work, paths, patch, 1))
 
     saved = CheckpointManager(work / "ckpt", "sheet_normals").restore(
-        TRAINER_EPOCHS - 1)
-    want_count = TRAINER_EPOCHS * TRAINER_STEPS
+        epochs - 1)
+    want_count = epochs * TRAINER_STEPS
     same_params = bool(probe) and sorted(probe["params"]) == sorted(
         saved["params"]) and all(torch.equal(v, saved["params"][k])
                                  for k, v in probe["params"].items())
@@ -2103,7 +2151,7 @@ def trainer_phase(patch, train_data, step_rate, device_augment=False,
     print(f"{label} resume: start epoch {probe.get('epoch', -1) + 1}, "
           f"optimizer count {probe.get('count')} (want {want_count}), params "
           f"bit-equal {same_params}, momenta bit-equal {same_momenta}")
-    if not (probe.get("epoch") == TRAINER_EPOCHS
+    if not (probe.get("epoch") == epochs
             and probe.get("count") == want_count and same_params
             and same_momenta):
         failures.append(f"{label}: the resume did not restore the state")
@@ -3936,6 +3984,19 @@ def cli_phase(patch, train_data, volume, trainer_history):
             for e in range(TRAINER_EPOCHS))
         checks["train: final weights"] = (
             work / "sheet_normals_final.pt").is_file()
+        gif = work / "sheet_normals_debug.gif"
+        frames = 0
+        if gif.is_file():
+            from PIL import Image
+            with Image.open(gif) as im:
+                frames = im.n_frames
+                im.seek(frames - 1)
+                im.convert("RGB")       # decodes the last frame
+        print(f"phase 21 train: debug GIF {gif.name} "
+              + (f"{gif.stat().st_size} bytes, {frames} frames (a z-slice "
+                 f"each of {patch[0]})" if gif.is_file() else "missing"))
+        checks["train: the debug GIF, a frame a z-slice"] = \
+            frames == patch[0]
         metrics = work / "logs" / "sheet_normals_metrics.jsonl"
         got = _jsonl_losses(metrics) if metrics.is_file() else {}
         same = finite = bool(got) and len(trainer_history) == TRAINER_EPOCHS
@@ -4028,6 +4089,381 @@ def cli_phase(patch, train_data, volume, trainer_history):
     return [f"phase 21: {k}" for k, v in checks.items() if not v]
 
 
+# ---------------------------------------------------------------------------
+# phase 22: private buckets, s3 and gs, on an emulator that checks the
+# signatures and tokens with its own code
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(ROOT, "tests", "data", "remote_auth")
+# AWS's published example credentials, which the golden requests carry
+BUCKET_KEY = "AKIDEXAMPLE"
+BUCKET_SECRET = "wJalrXUtnFEMI/K7MDENG+bPxRfiCYEXAMPLEKEY"
+BUCKET_LIST_PAGE = 100      # keys a list page: the continuation path runs
+BUCKET_SLOW_S = 0.005       # a "slow-" bucket's object reads age this long
+CAS_ROUNDS = 20
+BUCKET_ENGINE_CUT = "(160, 256, 256) of phase 8's (256, 512, 512)"
+
+
+def emulator_module():
+    """``tests/bucket_emulator.py``: the S3 + GCS emulator, standard
+    library only, that the CPU tests run too."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import bucket_emulator
+    return bucket_emulator
+
+
+@contextlib.contextmanager
+def bucket_emulator(work):
+    """``tests/bucket_emulator.py`` in a child process, strict (anonymous
+    requests refused, SigV4 checked with its own code, bearer tokens only
+    those it granted for a JWT that verifies against the golden key), fed
+    the example S3 credentials; yields its base URL, stops it after."""
+    manifest = json.loads(open(os.path.join(FIXTURES, "manifest.json"),
+                               encoding="utf-8").read())
+    sa = json.loads(open(os.path.join(
+        FIXTURES, manifest["jwt"]["service_account_file"]),
+        encoding="utf-8").read())
+    conf = os.path.join(work, "emulator.json")
+    with open(conf, "w", encoding="utf-8") as f:
+        json.dump({"aws": {BUCKET_KEY: BUCKET_SECRET},
+                   "jwt_n": manifest["jwt"]["public_n"],
+                   "jwt_e": manifest["jwt"]["public_e"],
+                   "jwt_iss": sa["client_email"], "strict": True,
+                   "page": BUCKET_LIST_PAGE, "slow_s": BUCKET_SLOW_S}, f)
+    proc = subprocess.Popen([sys.executable, "-u",
+                             emulator_module().__file__, conf],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("PORT "):
+            raise RuntimeError(f"the bucket emulator did not start: {line!r}")
+        yield f"http://127.0.0.1:{int(line.split()[1])}"
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+
+
+def bucket_env(url, work):
+    """The environment of phase 22's clients: the example S3 credentials,
+    the test service account (the golden key) for gs, every store and
+    token endpoint on the emulator; no file of this machine's user."""
+    manifest = json.loads(open(os.path.join(FIXTURES, "manifest.json"),
+                               encoding="utf-8").read())
+    sa = json.loads(open(os.path.join(
+        FIXTURES, manifest["jwt"]["service_account_file"]),
+        encoding="utf-8").read())
+    sa["private_key"] = open(os.path.join(
+        FIXTURES, manifest["jwt"]["key_file"]), encoding="utf-8").read()
+    sa_path = os.path.join(work, "service_account.json")
+    with open(sa_path, "w", encoding="utf-8") as f:
+        json.dump(sa, f)
+    os.makedirs(os.path.join(work, "gcloud"), exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("AWS_", "GOOGLE_", "GCE_", "CLOUDSDK_"))}
+    env.update(AWS_ACCESS_KEY_ID=BUCKET_KEY,
+               AWS_SECRET_ACCESS_KEY=BUCKET_SECRET,
+               AWS_CONFIG_FILE=os.devnull,
+               AWS_SHARED_CREDENTIALS_FILE=os.devnull,
+               GOOGLE_APPLICATION_CREDENTIALS=sa_path,
+               CLOUDSDK_CONFIG=os.path.join(work, "gcloud"),
+               GCE_METADATA_ROOT=url[len("http://"):],
+               TENSORSTORE_GCS_HTTP_URL=url)
+    return env
+
+
+def point_at(url):
+    """Points the port's s3 endpoint and token endpoint at ``url``, as the
+    CPU tests do."""
+    from mt3d_resenc_unet_torch.data import remote_auth, zio
+    zio.s3_endpoint = lambda bucket, region=None: f"{url}/{bucket}"
+    remote_auth.GOOGLE_TOKEN_URL = f"{url}/token"
+    remote_auth._providers.clear()
+
+
+def golden_replay():
+    """Phase 22a: tensorstore's recorded requests signed again by the port
+    (``remote_auth.sign_s3``) and checked by the emulator's ``sigv4_ok``;
+    the golden JWT signed again and checked by its ``jwt_claims_ok``.
+    Returns the failures."""
+    import datetime
+    from mt3d_resenc_unet_torch.data import remote_auth
+    emu = emulator_module()
+    manifest = json.loads(open(os.path.join(FIXTURES, "manifest.json"),
+                               encoding="utf-8").read())
+    failures, n = [], 0
+    for case in manifest["s3"]:
+        c = case["credentials"]
+        creds = remote_auth.AwsCredentials(c["access_key"], c["secret_key"],
+                                           c.get("session_token"))
+        for r in case["requests"]:
+            h = r["headers"]
+            names = h["authorization"].split("SignedHeaders=")[1].split(
+                ",")[0].split(";")
+            path, _, query = r["target"].partition("?")
+            when = datetime.datetime.strptime(
+                h["x-amz-date"], "%Y%m%dT%H%M%SZ").replace(
+                tzinfo=datetime.timezone.utc)
+            region = h["authorization"].split("/")[2]
+            mine = remote_auth.sign_s3(
+                r["method"], path, query, {k: h[k] for k in names},
+                h["x-amz-content-sha256"], creds, region, when)
+            n += 1
+            if mine != h["authorization"]:
+                failures.append(f"22a: {case['name']} {r['method']} "
+                                f"{r['target']}: the port's signature differs")
+            if not emu.sigv4_ok(r["method"], r["target"], h,
+                                r["body_sha256"],
+                                {c["access_key"]: c["secret_key"]}):
+                failures.append(f"22a: {case['name']} {r['method']} "
+                                f"{r['target']}: the emulator refuses it")
+    jwt = manifest["jwt"]
+    sa = json.loads(open(os.path.join(FIXTURES, jwt["service_account_file"]),
+                         encoding="utf-8").read())
+    sa["private_key"] = open(os.path.join(FIXTURES, jwt["key_file"]),
+                             encoding="utf-8").read()
+    t0 = time.perf_counter()
+    mine = remote_auth.service_account_jwt(sa, jwt["iat"])
+    rs256_ms = 1e3 * (time.perf_counter() - t0)
+    if mine != f"{jwt['signing_input']}.{jwt['signature']}":
+        failures.append("22a: the port's JWT differs from the golden one")
+    if emu.jwt_claims_ok(mine, int(jwt["public_n"], 16), jwt["public_e"],
+                         sa["client_email"]) is None:
+        failures.append("22a: the emulator refuses the golden JWT")
+    print(f"phase 22a: {n} golden S3 requests (GET, HEAD, PUT .zarray and "
+          f"chunks, list, DELETE; without and with a session token) and "
+          f"the golden JWT signed again by the port: "
+          f"{'all equal' if not failures else failures[:3]}; RS256 in "
+          f"pure Python {rs256_ms:.1f} ms")
+    return failures
+
+
+def _stats(url):
+    import urllib.request
+    with urllib.request.urlopen(f"{url}/_stats", timeout=30) as resp:
+        return collections.Counter(json.loads(resp.read()))
+
+
+def bucket_copy(src, dst):
+    """``src`` written whole into ``dst`` by the port, its chunks and
+    compressor kept; returns (raw bytes, seconds of the write)."""
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    vol = open_zarr(src)
+    data = vol.read_all()
+    t0 = time.perf_counter()
+    create_zarr(dst, vol.shape, vol.dtype, vol.chunks,
+                compressor=vol.store.compressor,
+                delete_existing=True)[...] = data
+    return data.nbytes, time.perf_counter() - t0
+
+
+def cas_writer_main(argv) -> int:
+    """``chip_smoke.py --cas-writer URL PATH HALF ROUNDS``: phase 22e's
+    writer: ROUNDS times, its half of the one chunk of PATH written and
+    read back."""
+    url, path, half, rounds = argv[0], argv[1], int(argv[2]), int(argv[3])
+    point_at(url)
+    from mt3d_resenc_unet_torch.data.zio import open_zarr
+    vol = open_zarr(path, writable=True)
+    mine = np.s_[4 * half:4 * half + 4]
+    for r in range(1, rounds + 1):
+        vol[mine] = r + 100 * half
+        if not (vol[mine] == r + 100 * half).all():
+            print(f"RESULT lost: half {half} round {r}", flush=True)
+            return 1
+    print(f"RESULT ok: half {half}", flush=True)
+    return 0
+
+
+def bucket_phase(patch, train_data, volume):
+    """Phase 22: private buckets. Returns the failures."""
+    import shutil
+    from pathlib import Path
+    from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.models.network import ResEncUNet
+    from mt3d_resenc_unet_torch.ops import _build
+    from mt3d_resenc_unet_torch.tools.synthetic_data import \
+        write_sheet_dataset
+    from mt3d_resenc_unet_torch.tools.zarr_crop import cut_zarr_bounding_box
+    from mt3d_resenc_unet_torch.train.checkpoint import save_params
+    failures = golden_replay()
+    smi = card()
+    t_phase = time.perf_counter()
+    work = Path(WORK_DIR).absolute() / "buckets"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    saved_env = dict(os.environ)
+    checks, rates = {}, []
+    try:
+        with bucket_emulator(str(work)) as url:
+            os.environ.clear()
+            os.environ.update(bucket_env(url, str(work)))
+            point_at(url)
+            # refusals: an anonymous request, a wrong secret
+            import http.client
+            host, port = url[len("http://"):].split(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=30)
+            conn.request("GET", "/smoke/none")
+            checks["anonymous S3 GET refused (403)"] = \
+                conn.getresponse().status == 403
+            conn.close()
+            os.environ["AWS_SECRET_ACCESS_KEY"] = "not-the-secret"
+            try:
+                open_zarr("s3://smoke/none.zarr")
+                checks["a wrong secret refused"] = False
+            except OSError as exc:
+                checks["a wrong secret refused"] = "HTTP 403" in str(exc) \
+                    and "not-the-secret" not in str(exc)
+            os.environ["AWS_SECRET_ACCESS_KEY"] = BUCKET_SECRET
+
+            # (b) phase 7's dataset from s3 and gs
+            paths = write_sheet_dataset(work / "data", train_data, seed=SEED)
+            remote = {}
+            for scheme in ("s3", "gs"):
+                remote[scheme] = {"ref_label": paths["ref_label"]}
+                for name in ("input", "sheet", "normals"):
+                    dst = f"{scheme}://smoke/data/{name}.zarr"
+                    nbytes, dt = bucket_copy(paths[name], dst)
+                    remote[scheme][name] = dst
+                    rates.append((f"{scheme} write {name}", nbytes, dt))
+                t0 = time.perf_counter()
+                back = open_zarr(remote[scheme]["input"]).read_all()
+                rates.append((f"{scheme} read input", back.nbytes,
+                              time.perf_counter() - t0))
+                checks[f"{scheme}: the image reads back bit-equal"] = \
+                    np.array_equal(back, open_zarr(paths["input"]).read_all())
+            local = first_samples(work, paths, patch, "local")
+            for scheme in ("s3", "gs"):
+                got = first_samples(work, remote[scheme], patch,
+                                    f"from {scheme}://")
+                checks[f"(b) first {SAME_SAMPLES} samples from {scheme}:// "
+                       "bit-equal to the local read"] = equal_samples(local,
+                                                                      got)
+
+            # (c) zarr_crop local -> s3 -> gs against a local crop, twice
+            # at most 128 a side from (16, 32, 48): 2 x 2 x 2 chunks at
+            # phase 7's size, so the tools leave no write unawaited
+            box = [b for lo, n in zip((16, 32, 48), train_data)
+                   for b in (lo, min(n, lo + 128))]
+            want = None
+            for rnd in (1, 2):                     # the 2nd deletes the 1st
+                cut_zarr_bounding_box(paths["input"], str(work / "crop.zarr"),
+                                      *box)
+                cut_zarr_bounding_box(paths["input"], "s3://smoke/crop.zarr",
+                                      *box)
+                ext = open_zarr("s3://smoke/crop.zarr").shape
+                cut_zarr_bounding_box("s3://smoke/crop.zarr",
+                                      "gs://smoke/crop.zarr",
+                                      0, ext[0], 0, ext[1], 0, ext[2])
+                want = open_zarr(str(work / "crop.zarr")).read_all()
+                got = open_zarr("gs://smoke/crop.zarr")
+                checks[f"(c) crop local -> s3 -> gs bit-equal to the local "
+                       f"crop (run {rnd})"] = (
+                    np.array_equal(got.read_all(), want)
+                    and got.store.compressor["cname"] == "zstd")
+            print(f"phase 22c: crop {want.shape} of the image, Blosc "
+                  f"{got.store.compressor}")
+
+            # (d) the engine's device pass with its input from s3
+            plan = plan_from_autoconfig(
+                patch, 1, [TaskHead("sheet", 1, "sigmoid"),
+                           TaskHead("normals", 3, "none")],
+                model_name="flagship")
+            ckpt = work / "flagship.pt"
+            save_params(ckpt, ResEncUNet(plan, seed=SEED).state_dict())
+            img = work / "image.zarr"
+            create_zarr(str(img), volume, np.uint8, patch)[...] = \
+                np.random.default_rng(SEED + 2).integers(0, 256, volume,
+                                                         dtype=np.uint8)
+            bucket_copy(str(img), "s3://smoke/engine/image.zarr")
+            finals = {}
+            for label, src in (("local", str(img)),
+                               ("s3", "s3://smoke/engine/image.zarr")):
+                cfg = engine_config(ckpt, src, work / f"out_{label}", patch,
+                                    True)
+                _build.clear_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine = ZarrInferenceEngine(config_dict=cfg, device=None)
+                store = engine.infer()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launches = dict(_build.LAUNCHES)
+                print(f"phase 22d engine, input {label} [{smi}]: pass "
+                      f"{engine.last_mode} on {volume} ({BUCKET_ENGINE_CUT})"
+                      f" in {dt:.2f} s, phases " + ", ".join(
+                          f"{k} {v:.3f} s"
+                          for k, v in engine.last_phases.items())
+                      + f"; launches {launches}")
+                checks[f"(d) {label}: the device pass"] = \
+                    engine.last_mode == "device"
+                forward = FORWARD + ("norm_act_raw_stats", "norm_act_tail")
+                checks[f"(d) {label}: forward kernels launched, no "
+                       "backward one"] = all(
+                    launches.get(k, 0) > 0 if k in forward
+                    else launches.get(k, 0) == 0
+                    for k in CONV_KERNELS + TAIL_KERNELS)
+                checks[f"(d) {label}: within 60 s"] = dt <= 60
+                finals[label] = {
+                    t: open_zarr(os.path.join(store, f"{t}_final")).read_all()
+                    for t in ("sheet", "normals")}
+            checks["(d) finals from s3 bit-equal to the local input's"] = all(
+                np.array_equal(finals["local"][t], finals["s3"][t])
+                for t in finals["local"])
+
+            stats = _stats(url)
+            checks["the token granted once (cached), none refused"] = (
+                stats["grants"] == 1 and stats["refused_grants"] == 0)
+
+            # (e) two processes write the halves of one chunk
+            for scheme in ("s3", "gs"):
+                path = f"{scheme}://slow-cas/{scheme}.zarr"
+                create_zarr(path, (8, 8, 8), np.uint8, (8, 8, 8))
+                before = _stats(url)["conflicts"]
+                procs = [subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cas-writer", url, path, str(half), str(CAS_ROUNDS)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True) for half in (0, 1)]
+                outs = [p.communicate(timeout=DIST_TIMEOUT_S) for p in procs]
+                conflicts = _stats(url)["conflicts"] - before
+                got = open_zarr(path).read_all()
+                ok = (all(p.returncode == 0 for p in procs)
+                      and (got[:4] == CAS_ROUNDS).all()
+                      and (got[4:] == 100 + CAS_ROUNDS).all())
+                print(f"phase 22e {scheme}: two processes x {CAS_ROUNDS} "
+                      f"rounds on halves of one chunk: both halves kept "
+                      f"{ok}, {conflicts} writes overtaken (412) and "
+                      "redone" + ("" if ok else
+                                  f"; {[o[1][-500:] for o in outs]}"))
+                checks[f"(e) {scheme}: both halves kept, 412s seen"] = \
+                    ok and conflicts > 0
+            stats = _stats(url)
+        print(f"phase 22 emulator: {stats['requests']} requests, "
+              f"{stats['refused']} refused, {stats['grants']} token grants "
+              f"(this process 1, each writer of (e) 1), "
+              f"{stats['refused_grants']} grants refused, "
+              f"{stats['conflicts']} conditional writes overtaken")
+        # (f) loopback rates, this host's
+        for label, nbytes, dt in rates:
+            print(f"phase 22f host rate [{smi}; {_host_cpu()}; loopback, "
+                  f"the emulator in a child process]: {label} "
+                  f"{nbytes / 1e6:.1f} MB raw in {dt:.3f} s, "
+                  f"{nbytes / 1e6 / dt:.1f} MB/s")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        shutil.rmtree(work, ignore_errors=True)
+    print("phase 22 checks: " + ", ".join(
+        f"{k}: {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    print(f"phase 22 (buckets): {time.perf_counter() - t_phase:.1f} s")
+    return failures + [f"phase 22: {k}" for k, v in checks.items() if not v]
+
+
 @contextlib.contextmanager
 def http_root(root):
     """Serves the directory ``root`` over HTTP/1.1 on 127.0.0.1 (a free
@@ -4113,4 +4549,6 @@ if __name__ == "__main__":
         sys.exit(worker_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve"]:
         sys.exit(serve_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--cas-writer"]:
+        sys.exit(cas_writer_main(sys.argv[2:]))
     sys.exit(main())

@@ -3,7 +3,7 @@
 The port of ``mt3d_resenc_unet_tpu/data/zio.py``, with the same API
 (``Volume``, ``RamVolume``, ``to_ram``, ``volume_nbytes``, ``open_zarr``,
 ``create_zarr``, ``zarr_exists``, ``normalize_to_unit``, the normals codec)
-and the same decode arithmetic. Two backends behind ``Volume``:
+and the same decode arithmetic, without tensorstore:
 
 * a zarr v2 array (C or F order, no filters) whose compressor
   ``data/codec.py`` handles -- none, Blosc (zstd, lz4, lz4hc, blosclz,
@@ -12,56 +12,61 @@ and the same decode arithmetic. Two backends behind ``Volume``:
   module and the port's own C++ codec: one ``.zarray`` JSON plus one chunk
   per key, named ``i.j.k`` (or ``i/j/k`` with ``dimension_separator: "/"``),
   edge chunks stored at full size, a missing chunk reading as the fill
-  value. The keys live in one of three key-value stores (:class:`_FileKV`,
-  :class:`_HttpKV`, :class:`_MemoryKV`): a local directory; an ``http://``
-  or ``https://`` URL, read-only, through the standard library's
-  ``http.client`` with one kept-alive connection a thread (a 404 is a
-  missing key, as tensorstore's http kvstore has it), where ``s3://bucket/
-  prefix`` reads ``https://bucket.s3.amazonaws.com/prefix`` and ``gs://
-  bucket/prefix`` ``https://storage.googleapis.com/bucket/prefix`` (public
-  objects: no credentials are sent); and ``memory://``, which
-  ``create_zarr`` makes anew at each call and ``open_zarr`` never finds, as
-  each tensorstore open of the JAX package gets its own memory kvstore.
-  These stores and the JAX package's (tensorstore's) read each other bit
-  for bit, and ``create_zarr`` writes the ``.zarray`` tensorstore writes
-  for the same arguments (the default compressor, Blosc zstd-5 bit
-  shuffle, included);
+  value. The keys live in one of five key-value stores: a local directory
+  (:class:`_FileKV`); an ``http://`` or ``https://`` URL (:class:`_HttpKV`),
+  read-only, as tensorstore's http kvstore (a 404 is a missing key); an
+  ``s3://bucket/prefix`` (:class:`_S3KV`) or ``gs://bucket/prefix``
+  (:class:`_GcsKV`) bucket, read and written through the REST and JSON
+  APIs as tensorstore's s3 and gcs kvstores send them, signed with the
+  user's AWS credentials (SigV4) or a Google bearer token, found where
+  tensorstore finds them (``data/remote_auth.py``), unsigned where there
+  are none; and ``memory://`` (:class:`_MemoryKV`), which ``create_zarr``
+  makes anew at each call and ``open_zarr`` never finds, as each
+  tensorstore open of the JAX package gets its own memory kvstore. The
+  remote stores go through the standard library's ``http.client``, one
+  kept-alive connection a thread. These stores and the JAX package's
+  (tensorstore's) read each other bit for bit, and ``create_zarr`` writes
+  the objects tensorstore writes for the same arguments (the ``.zarray``
+  and the default compressor, Blosc zstd-5 bit shuffle, included);
 * any other array (filters, a compressor or Blosc stream that neither
-  this module nor tensorstore knows) goes to tensorstore when it is
-  importable, as in the JAX package, which refuses it too; without it,
-  opening one raises an ``ImportError`` that names the store and says
-  so.
+  this module nor tensorstore knows) raises a ``ValueError`` that names
+  the store: the JAX package's tensorstore refuses it too.
 
-The port's backend reads or writes (and decodes or encodes) the chunks of
+This module reads or writes (and decodes or encodes) the chunks of
 one read or write in parallel on a thread pool (the codec releases the
 GIL), and ``Volume.read_async`` / ``write_async`` return futures of a second
 pool, as tensorstore's do. It writes a chunk that a region covers whole by
-replacing it, and a chunk that it covers in part by read-modify-write under
-the key's lock: in a directory an exclusive ``fcntl.flock`` of the chunk's
-lock file (``.{key}.lock`` beside it), so writers of disjoint parts of one
-chunk, in threads or processes, take turns and lose no update. The reads
-are thread-safe.
+replacing it, and a chunk that it covers in part by read-modify-write
+(``update``): in a directory under an exclusive ``fcntl.flock`` of the
+chunk's lock file (``.{key}.lock`` beside it); in a bucket by
+compare-and-swap, the object written only if its ETag or generation is
+still the one read (``If-Match`` / ``ifGenerationMatch``), read again where
+another writer came first. Writers of disjoint parts of one chunk, in
+threads or processes, lose no update. The reads are thread-safe.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import fcntl
+import hashlib
 import http.client
 import json
 import math
 import os
+import random
 import shutil
 import threading
+import time
 import urllib.parse
+from xml.etree import ElementTree
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import codec
+from . import codec, remote_auth
 
 # Blosc zstd level 5 with bitshuffle — the reference's compressor for all
 # prediction stores (reference: inference.py:92).
@@ -86,32 +91,13 @@ _COMPRESSOR_DEFAULTS = {
 }
 
 
-def _kvstore_spec(path: str) -> Dict[str, Any]:
-    """Map a path/URL to a tensorstore kvstore spec (JAX zio.py:39-56)."""
-    if path.startswith(("http://", "https://")):
-        return {"driver": "http", "base_url": path.rstrip("/")}
-    if path.startswith("s3://"):
-        bucket, _, prefix = path[len("s3://"):].partition("/")
-        return {"driver": "s3", "bucket": bucket, "path": prefix}
-    if path.startswith("gs://"):
-        bucket, _, prefix = path[len("gs://"):].partition("/")
-        return {"driver": "gcs", "bucket": bucket, "path": prefix}
-    if path.startswith("memory://"):
-        return {"driver": "memory", "path": path[len("memory://"):]}
-    return {"driver": "file", "path": os.path.abspath(path)}
-
-
-def _tensorstore(path: str, why: str):
-    try:
-        import tensorstore as ts
-    except ImportError as exc:
-        raise ImportError(
-            f"zarr store {path!r} ({why}) is not one the port's codec reads "
-            "(C or F order, no filters, compressor none or "
-            f"{', '.join(codec.COMPRESSOR_IDS)}), and tensorstore, which is "
-            "not installed, cannot read it either: its zarr driver has the "
-            "same compressors and refuses filters") from exc
-    return ts
+def _unreadable(path: str, why: str) -> ValueError:
+    return ValueError(
+        f"zarr store {path!r} ({why}) is not one the port reads (C or F "
+        "order, no filters, compressor none or "
+        f"{', '.join(codec.COMPRESSOR_IDS)}); tensorstore, which the JAX "
+        "package opens it with, cannot read it either: its zarr driver has "
+        "the same compressors and refuses filters")
 
 
 # ------------------------------------------------------------ thread pools
@@ -251,10 +237,9 @@ class _FileKV:
             f.write(data)
         os.replace(tmp, path)
 
-    @contextlib.contextmanager
-    def locked(self, key: str):
-        """An exclusive ``fcntl.flock`` of the key's lock file, held by
-        threads and processes in turn."""
+    def update(self, key: str, fn: Callable) -> None:
+        """Write ``fn(value or None)`` under an exclusive ``fcntl.flock`` of
+        the key's lock file, held by threads and processes in turn."""
         path = self._file(key)
         if "/" in key:
             os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -263,7 +248,7 @@ class _FileKV:
         fd = os.open(lock, os.O_RDWR | os.O_CREAT, 0o644)
         try:
             fcntl.flock(fd, fcntl.LOCK_EX)
-            yield
+            self.write(key, fn(self.read(key)))
         finally:
             os.close(fd)   # releases the lock
 
@@ -283,39 +268,33 @@ class _MemoryKV:
     def write(self, key: str, data: bytes) -> None:
         self.data[key] = data
 
-    def locked(self, key: str):
-        return self.lock
+    def update(self, key: str, fn: Callable) -> None:
+        with self.lock:
+            self.data[key] = fn(self.data.get(key))
 
 
-def http_url(path: str) -> str:
-    """The HTTP(S) base URL of a remote store: ``s3://bucket/prefix`` and
-    ``gs://bucket/prefix`` by their public endpoints."""
-    if path.startswith("s3://"):
-        bucket, _, prefix = path[len("s3://"):].partition("/")
-        return f"https://{bucket}.s3.amazonaws.com/{prefix}".rstrip("/")
-    if path.startswith("gs://"):
-        return ("https://storage.googleapis.com/"
-                + path[len("gs://"):]).rstrip("/")
-    return path.rstrip("/")
+class _Remote:
+    """Requests to one HTTP(S) host, one kept-alive connection a thread,
+    reopened once where the server closed it between requests. A 429 or
+    5xx answer is retried ``attempts - 1`` times with a doubling pause.
+    An error names the method, the URL and the status, never a request's
+    headers or an answer's body."""
 
+    writable = True
+    attempts = 4
+    backoff_s = 0.05
 
-class _HttpKV:
-    """The keys of an array under an HTTP(S) base URL, read-only: ``GET
-    {base}/{key}``, a 404 a missing key, any other status or a body shorter
-    than its ``Content-Length`` an ``OSError`` naming the URL. Each thread
-    keeps one connection to the host, reopened once where the server closed
-    it between requests."""
-
-    writable = False
-
-    def __init__(self, url: str):
-        self.url = url
-        parts = urllib.parse.urlsplit(url)
+    def _connect(self, base: str) -> None:
+        parts = urllib.parse.urlsplit(base)
         if parts.scheme not in ("http", "https") or not parts.hostname:
-            raise ValueError(f"not an http(s) URL: {url!r}")
+            raise ValueError(f"not an http(s) URL: {base!r}")
         self.https = parts.scheme == "https"
         self.host, self.port = parts.hostname, parts.port
-        self.prefix = parts.path.rstrip("/")
+        default = 443 if self.https else 80
+        self.netloc = self.host if self.port in (None, default) \
+            else f"{self.host}:{self.port}"
+        self.origin = f"{parts.scheme}://{self.netloc}"
+        self.base_path = parts.path.rstrip("/")
         self.local = threading.local()
 
     def _connection(self, fresh: bool = False) -> http.client.HTTPConnection:
@@ -329,36 +308,323 @@ class _HttpKV:
             self.local.conn = conn
         return conn
 
+    def _headers(self, method: str, target: str, body: bytes,
+                 headers: Dict[str, str]) -> Dict[str, str]:
+        return headers
+
+    def _call(self, method: str, target: str, body: bytes = b"",
+              headers: Optional[Dict[str, str]] = None):
+        """(status, reason, response headers, body) of one request."""
+        body = bytes(body)          # the codec's chunks are numpy buffers
+        for attempt in range(self.attempts):
+            sent = self._headers(method, target, body, dict(headers or {}))
+            for fresh in (False, True):
+                conn = self._connection(fresh=fresh)
+                try:
+                    conn.request(method, target, body=body or None,
+                                 headers=sent)
+                    resp = conn.getresponse()
+                    data = resp.read()
+                    break
+                except (http.client.RemoteDisconnected, ConnectionResetError,
+                        BrokenPipeError):
+                    if fresh:
+                        raise
+                except http.client.IncompleteRead as exc:
+                    conn.close()
+                    raise OSError(
+                        f"{method} {self._url(target)}: body cut short "
+                        f"({len(exc.partial)} bytes of "
+                        f"{exc.expected + len(exc.partial)})") from None
+            transient = resp.status == 429 or resp.status >= 500
+            if not transient or attempt == self.attempts - 1:
+                return resp.status, resp.reason, resp.headers, data
+            time.sleep(self.backoff_s * 2 ** attempt)
+
+    def _url(self, target: str) -> str:
+        return self.origin + target.split("?", 1)[0]
+
+    def _fail(self, method: str, target: str, status: int, reason: str):
+        return OSError(f"{method} {self._url(target)}: HTTP {status} {reason}")
+
+    def update(self, key: str, fn: Callable) -> None:
+        """Write ``fn(value or None)`` by compare-and-swap: read the key
+        with its version, write only if the version still holds, and read
+        again where another writer came first (HTTP 412). Writers of one
+        key in any number of processes lose no update."""
+        for attempt in range(_CAS_ATTEMPTS):
+            data, version = self.read_versioned(key)
+            if self.write_if(key, fn(data), version):
+                return
+            time.sleep(random.uniform(0, 0.002 * min(attempt + 1, 10)))
+        raise OSError(f"{self.url}/{key}: gave up after {_CAS_ATTEMPTS} "
+                      "conditional writes that others overtook")
+
     def read(self, key: str) -> Optional[bytes]:
-        target = f"{self.prefix}/{urllib.parse.quote(key)}"
-        url = f"{self.url}/{key}"
-        for attempt in (0, 1):
-            conn = self._connection(fresh=attempt == 1)
-            try:
-                conn.request("GET", target)
-                resp = conn.getresponse()
-                body = resp.read()
-                break
-            except (http.client.RemoteDisconnected, ConnectionResetError,
-                    BrokenPipeError):
-                if attempt == 1:
-                    raise
-            except http.client.IncompleteRead as exc:
-                conn.close()
-                raise OSError(f"GET {url}: body cut short ({len(exc.partial)}"
-                              f" bytes of {exc.expected + len(exc.partial)})"
-                              ) from exc
-        if resp.status == 404:
+        return self.read_versioned(key)[0]
+
+    def write(self, key: str, data: bytes) -> None:
+        self.write_if(key, data, _ANY)
+
+
+_CAS_ATTEMPTS = 200
+_ANY = object()     # write_if without a condition
+
+
+class _HttpKV(_Remote):
+    """The keys of an array under an HTTP(S) base URL, read-only, as
+    tensorstore's http kvstore: ``GET {base}/{key}``, a 404 a missing key,
+    any other status or a body shorter than its ``Content-Length`` an
+    ``OSError`` naming the URL. No retry."""
+
+    writable = False
+    attempts = 1
+
+    def __init__(self, url: str):
+        self.url = url
+        self._connect(url)
+
+    def read(self, key: str) -> Optional[bytes]:
+        target = f"{self.base_path}/{urllib.parse.quote(key)}"
+        status, reason, _, body = self._call("GET", target)
+        if status == 404:
             return None
-        if resp.status != 200:
-            raise OSError(f"GET {url}: HTTP {resp.status} {resp.reason}")
+        if status != 200:
+            raise OSError(f"GET {self.url}/{key}: HTTP {status} {reason}")
         return body
 
     def write(self, key: str, data: bytes) -> None:
         raise OSError(f"{self.url}: an http(s) store is read-only")
 
-    def locked(self, key: str):
-        raise OSError(f"{self.url}: an http(s) store is read-only")
+    update = write
+
+
+def s3_endpoint(bucket: str, region: Optional[str] = None) -> str:
+    """The base URL of a bucket's objects, as tensorstore's s3 kvstore
+    forms it: ``https://{bucket}.s3.amazonaws.com`` before the bucket's
+    region is known (the unsigned ``HEAD`` that asks it),
+    ``https://{bucket}.s3.{region}.amazonaws.com`` after; path style,
+    ``https://s3.{region}.amazonaws.com/{bucket}``, for a name with a dot,
+    which the endpoints' certificates do not cover."""
+    if "." in bucket:
+        return f"https://s3.{region or 'us-east-1'}.amazonaws.com/{bucket}"
+    if region is None:
+        return f"https://{bucket}.s3.amazonaws.com"
+    return f"https://{bucket}.s3.{region}.amazonaws.com"
+
+
+_s3_regions: Dict[str, str] = {}
+_s3_regions_lock = threading.Lock()
+
+
+def _s3_region(bucket: str) -> str:
+    """The bucket's region from an unsigned ``HEAD`` of its global
+    endpoint (``x-amz-bucket-region``, whatever the status), kept per
+    endpoint; ``us-east-1`` where the answer has none, as tensorstore,
+    unless it is a 429 or 5xx, which raises."""
+    url = s3_endpoint(bucket)
+    with _s3_regions_lock:
+        region = _s3_regions.get(url)
+    if region is None:
+        try:
+            status, headers, _ = remote_auth.request_once("HEAD", url,
+                                                          timeout=60)
+        except OSError as exc:
+            raise OSError(f"HEAD {url}: {type(exc).__name__}: {exc}") \
+                from None
+        region = headers.get("x-amz-bucket-region")
+        if region is None and (status == 429 or status >= 500):
+            raise OSError(f"HEAD {url}: HTTP {status} (the bucket's region)")
+        region = region or "us-east-1"
+        with _s3_regions_lock:
+            _s3_regions[url] = region
+    return region
+
+
+def _join(prefix: str, key: str) -> str:
+    return f"{prefix}/{key}" if prefix else key
+
+
+class _S3KV(_Remote):
+    """The keys of an array in an S3 bucket, each an object
+    ``{prefix}/{key}``, through the REST API as tensorstore's s3 kvstore
+    sends it: every request signed with AWS SigV4 (``remote_auth``) where
+    credentials are found, unsigned where none are; ``GET`` (a 404 a
+    missing key), ``PUT`` (``If-None-Match: *`` or ``If-Match: <ETag>``
+    where conditional), ListObjectsV2 and ``DELETE``. The endpoint is
+    :func:`s3_endpoint` of the bucket's region, asked at the first
+    request."""
+
+    def __init__(self, bucket: str, prefix: str):
+        self.bucket, self.prefix = bucket, prefix.strip("/")
+        self.url = f"s3://{bucket}/{self.prefix}".rstrip("/")
+        self.credentials = remote_auth.aws_credentials()
+        self.region: Optional[str] = None
+        self.init_lock = threading.Lock()
+
+    def _ready(self) -> None:
+        if self.region is not None:         # set last: the rest is there
+            return
+        with self.init_lock:
+            if self.region is None:
+                region = _s3_region(self.bucket)
+                self._connect(s3_endpoint(self.bucket, region))
+                self.region = region
+
+    def _headers(self, method, target, body, headers):
+        path, _, query = target.partition("?")
+        return remote_auth.s3_headers(
+            method, self.netloc, path, query, headers,
+            hashlib.sha256(body).hexdigest() if body
+            else remote_auth.EMPTY_SHA256, self.credentials, self.region)
+
+    def _target(self, key: str) -> str:
+        return (f"{self.base_path}/"
+                f"{urllib.parse.quote(_join(self.prefix, key), safe='/~')}")
+
+    def read_versioned(self, key: str):
+        """(bytes, ETag), or (None, None) for a missing key."""
+        self._ready()
+        target = self._target(key)
+        status, reason, headers, body = self._call(
+            "GET", target, headers={"x-amz-checksum-mode": "ENABLED"})
+        if status == 404:
+            return None, None
+        if status != 200:
+            raise self._fail("GET", target, status, reason)
+        return body, headers.get("ETag")
+
+    def write_if(self, key: str, data: bytes, version) -> bool:
+        """``PUT`` the object; where ``version`` is not ``_ANY``, only if
+        it is still that ETag (None: only if there is none). False where
+        the condition failed."""
+        self._ready()
+        target = self._target(key)
+        headers = {"content-length": str(len(data)),
+                   "content-type": "application/octet-stream"}
+        if version is None:
+            headers["if-none-match"] = "*"
+        elif version is not _ANY:
+            headers["if-match"] = version
+        status, reason, _, _ = self._call("PUT", target, data, headers)
+        if status in (412, 409) and version is not _ANY:
+            return False
+        if status != 200:
+            raise self._fail("PUT", target, status, reason)
+        return True
+
+    def list(self):
+        """Every key of the store (ListObjectsV2, each page)."""
+        self._ready()
+        full = f"{self.prefix}/" if self.prefix else ""
+        keys, token = [], None
+        while True:
+            query = {"list-type": "2", "prefix": full}
+            if token:
+                query["continuation-token"] = token
+            target = (f"{self.base_path}/?" + remote_auth.canonical_query(
+                urllib.parse.urlencode(query)))
+            status, reason, _, body = self._call("GET", target)
+            if status != 200:
+                raise self._fail("GET", target, status, reason)
+            root = ElementTree.fromstring(body)
+            found = {el.tag.rsplit("}", 1)[-1]: el for el in root}
+            for el in root:
+                if el.tag.endswith("Contents"):
+                    name = next(c.text for c in el if c.tag.endswith("Key"))
+                    keys.append(name[len(self.prefix) + 1:]
+                                if self.prefix else name)
+            truncated = found.get("IsTruncated")
+            token = found.get("NextContinuationToken")
+            if truncated is None or truncated.text != "true" or token is None:
+                return keys
+            token = token.text
+
+    def delete(self, key: str) -> None:
+        self._ready()
+        target = self._target(key)
+        status, reason, _, _ = self._call("DELETE", target)
+        if status not in (200, 204, 404):
+            raise self._fail("DELETE", target, status, reason)
+
+
+class _GcsKV(_Remote):
+    """The keys of an array in a GCS bucket, each an object
+    ``{prefix}/{key}``, through the JSON API as tensorstore's gcs kvstore
+    sends it (``TENSORSTORE_GCS_HTTP_URL``, else
+    ``https://storage.googleapis.com``), with a bearer token from
+    ``remote_auth.gcs_authorization`` where one is found: media ``GET``
+    (a 404 a missing key), media upload (``ifGenerationMatch`` where
+    conditional, 0 for "none yet"), the object list and ``DELETE``."""
+
+    def __init__(self, bucket: str, prefix: str):
+        self.bucket, self.prefix = bucket, prefix.strip("/")
+        self.url = f"gs://{bucket}/{self.prefix}".rstrip("/")
+        self._connect(os.environ.get("TENSORSTORE_GCS_HTTP_URL")
+                      or "https://storage.googleapis.com")
+        b = urllib.parse.quote(bucket, safe="")
+        self.objects = f"{self.base_path}/storage/v1/b/{b}/o"
+        self.upload = f"{self.base_path}/upload/storage/v1/b/{b}/o"
+
+    def _headers(self, method, target, body, headers):
+        auth = remote_auth.gcs_authorization()
+        if auth is not None:
+            headers["Authorization"] = auth
+        return headers
+
+    def _name(self, key: str) -> str:
+        return urllib.parse.quote(_join(self.prefix, key), safe="")
+
+    def read_versioned(self, key: str):
+        """(bytes, generation), or (None, 0) for a missing key."""
+        target = f"{self.objects}/{self._name(key)}?alt=media"
+        status, reason, headers, body = self._call("GET", target)
+        if status == 404:
+            return None, 0
+        if status != 200:
+            raise self._fail("GET", target, status, reason)
+        return body, int(headers.get("x-goog-generation") or 0)
+
+    def write_if(self, key: str, data: bytes, version) -> bool:
+        """Upload the object; where ``version`` is not ``_ANY``, only if
+        its generation is still ``version`` (0 or None: only if there is
+        none). False where the condition failed."""
+        target = f"{self.upload}?uploadType=media&name={self._name(key)}"
+        if version is not _ANY:
+            target += f"&ifGenerationMatch={int(version or 0)}"
+        status, reason, _, _ = self._call(
+            "POST", target, data,
+            {"Content-Type": "application/octet-stream"})
+        if status == 412 and version is not _ANY:
+            return False
+        if status != 200:
+            raise self._fail("POST", target, status, reason)
+        return True
+
+    def list(self):
+        """Every key of the store (the object list, each page)."""
+        full = f"{self.prefix}/" if self.prefix else ""
+        keys, token = [], None
+        while True:
+            target = (f"{self.objects}?prefix="
+                      f"{urllib.parse.quote(full, safe='')}")
+            if token:
+                target += f"&pageToken={urllib.parse.quote(token, safe='')}"
+            status, reason, _, body = self._call("GET", target)
+            if status != 200:
+                raise self._fail("GET", target, status, reason)
+            page = json.loads(body)
+            keys += [item["name"][len(self.prefix) + 1:] if self.prefix
+                     else item["name"] for item in page.get("items", ())]
+            token = page.get("nextPageToken")
+            if not token:
+                return keys
+
+    def delete(self, key: str) -> None:
+        target = f"{self.objects}/{self._name(key)}"
+        status, reason, _, _ = self._call("DELETE", target)
+        if status not in (200, 204, 404):
+            raise self._fail("DELETE", target, status, reason)
 
 
 class _LocalZarr:
@@ -390,7 +656,9 @@ class _LocalZarr:
         """The chunk's values; read-only where they are the stored bytes
         (no compressor), to spare a copy."""
         name = self._key(key)
-        data = self.kv.read(name)
+        return self._decode(name, self.kv.read(name))
+
+    def _decode(self, name: str, data: Optional[bytes]) -> np.ndarray:
         if data is None:
             return np.full(self.chunks, self.fill_value, self.dtype)
         if self.compressor is None and len(data) == np.prod(
@@ -446,38 +714,29 @@ class _LocalZarr:
                 chunk[in_chunk] = value[in_out]
                 self._replace_chunk(key, chunk)
                 return
-            with self.kv.locked(self._key(key)):
-                chunk = self._read_chunk(key)
+            name = self._key(key)
+
+            def modify(data):
+                chunk = self._decode(name, data)
                 if not chunk.flags.writeable:
                     chunk = chunk.copy()
                 chunk[in_chunk] = value[in_out]
-                self._replace_chunk(key, chunk)
+                return self._encode(chunk)
+
+            self.kv.update(name, modify)
 
         if not self.kv.writable:
             raise OSError(f"{self.path}: the store is read-only")
         _each(one, list(self._overlaps(ranges)))
 
     def _replace_chunk(self, key, chunk: np.ndarray) -> None:
-        self.kv.write(self._key(key), codec.encode_chunk_array(
+        self.kv.write(self._key(key), self._encode(chunk))
+
+    def _encode(self, chunk: np.ndarray) -> bytes:
+        return codec.encode_chunk_array(
             self.compressor,
             np.ascontiguousarray(chunk.T if self.fortran else chunk),
-            self.dtype.itemsize))
-
-
-class _TsStore:
-    """A tensorstore handle with the interface of :class:`_LocalZarr`."""
-
-    def __init__(self, store, path: str):
-        self.store, self.path = store, path
-        self.shape = tuple(store.shape)
-        self.dtype = np.dtype(store.dtype.numpy_dtype)
-        self.chunks = tuple(store.chunk_layout.read_chunk.shape)
-
-    def read(self, idx) -> np.ndarray:
-        return np.asarray(self.store[idx].read().result())
-
-    def write(self, idx, value) -> None:
-        self.store[idx].write(value).result()
+            self.dtype.itemsize)
 
 
 class _ReadyFuture:
@@ -494,7 +753,7 @@ class _ReadyFuture:
 
 @dataclasses.dataclass
 class Volume:
-    """A zarr array on either backend (the JAX package's ``Volume``)."""
+    """A zarr array (the JAX package's ``Volume``)."""
 
     store: Any
     path: str
@@ -516,8 +775,6 @@ class Volume:
 
     def read_async(self, idx) -> Future:
         """Begin a read; returns a future with .result()."""
-        if isinstance(self.store, _TsStore):
-            return self.store.store[idx].read()
         return _pool("io").submit(self.store.read, idx)
 
     def __setitem__(self, idx, value) -> None:
@@ -526,8 +783,6 @@ class Volume:
     def write_async(self, idx, value) -> Future:
         """Begin a write; ``value`` must not change until the future is
         done."""
-        if isinstance(self.store, _TsStore):
-            return self.store.store[idx].write(value)
         return _pool("io").submit(self.store.write, idx, value)
 
     def read_all(self) -> np.ndarray:
@@ -576,14 +831,19 @@ def to_ram(vol) -> RamVolume:
     return RamVolume(data=np.ascontiguousarray(vol.read_all()), path=vol.path)
 
 
-_HTTP = ("http://", "https://", "s3://", "gs://")
+_HTTP = ("http://", "https://")
+_BUCKETS = {"s3://": _S3KV, "gs://": _GcsKV}
 
 
 def _kv(path: str):
     """The key-value store of a path or URL (``memory://`` has none to
     open)."""
     if path.startswith(_HTTP):
-        return _HttpKV(http_url(path))
+        return _HttpKV(path.rstrip("/"))
+    for scheme, cls in _BUCKETS.items():
+        if path.startswith(scheme):
+            bucket, _, prefix = path[len(scheme):].partition("/")
+            return cls(bucket, prefix)
     return _FileKV(path)
 
 
@@ -591,13 +851,6 @@ def _meta(kv) -> Optional[Dict[str, Any]]:
     """The ``.zarray`` of an array in ``kv``, or None."""
     data = kv.read(".zarray")
     return None if data is None else json.loads(data)
-
-
-def _open_ts(path: str, writable: bool, why: str) -> Volume:
-    ts = _tensorstore(path, why)
-    spec = {"driver": "zarr", "kvstore": _kvstore_spec(path)}
-    store = ts.open(spec, open=True, read=True, write=writable).result()
-    return Volume(store=_TsStore(store, path), path=path)
 
 
 def open_zarr(path: str, *, component: Optional[str] = None,
@@ -617,9 +870,9 @@ def open_zarr(path: str, *, component: Optional[str] = None,
     if meta is not None:
         if _local_codec(meta):
             return Volume(store=_LocalZarr(full, meta, kv), path=full)
-        return _open_ts(full, writable, "compressor "
-                        f"{meta.get('compressor')}, filters "
-                        f"{meta.get('filters')}")
+        raise _unreadable(full, f"order {meta.get('order')}, compressor "
+                          f"{meta.get('compressor')}, filters "
+                          f"{meta.get('filters')}")
     if component is None and _meta(_kv(f"{path.rstrip('/')}/0")) is not None:
         return open_zarr(path, component="0", writable=writable)
     raise FileNotFoundError(f"no zarr array at {full}")
@@ -639,8 +892,13 @@ def create_zarr(
     """Create a zarr v2 array (bit-compatible with the reference's stores).
     A local path or ``memory://`` (a new in-process store at each call)
     with a compressor ``data/codec.py`` handles needs no package; its
-    ``.zarray`` is the one tensorstore writes. An http(s), s3 or gs URL is
-    read-only: ``OSError``."""
+    ``.zarray`` is the one tensorstore writes. In an s3 or gs bucket,
+    ``delete_existing`` deletes every object under the array's prefix
+    first (as tensorstore, which lists them), and the ``.zarray`` is
+    written only if there is none yet (``If-None-Match: *`` /
+    ``ifGenerationMatch=0``): an existing array raises
+    ``FileExistsError``, or opens with ``allow_existing``. An http(s) URL
+    is read-only: ``OSError``."""
     dt = np.dtype(dtype)
     metadata = {
         "shape": list(shape),
@@ -650,19 +908,26 @@ def create_zarr(
         "fill_value": fill_value,
     }
     if path.startswith(_HTTP):
-        raise OSError(f"{path}: an http(s), s3 or gs store is read-only")
+        raise OSError(f"{path}: an http(s) store is read-only")
     if not codec.supported(compressor):
-        ts = _tensorstore(path, f"compressor {compressor}")
-        spec = {"driver": "zarr", "kvstore": _kvstore_spec(path),
-                "metadata": metadata}
-        store = ts.open(spec, create=True, delete_existing=delete_existing,
-                        open=allow_existing).result()
-        return Volume(store=_TsStore(store, path), path=path)
+        raise _unreadable(path, f"compressor {compressor}")
     metadata.update(compressor=_normalize_compressor(compressor),
                     fill_value=_fill_value(fill_value, dt), zarr_format=2,
                     order="C", filters=None, dimension_separator=".")
+    zarray = json.dumps(metadata, sort_keys=True,
+                        separators=(",", ":")).encode()   # tensorstore's bytes
     if path.startswith("memory://"):
         kv = _MemoryKV()
+    elif path.startswith(tuple(_BUCKETS)):
+        kv = _kv(path)
+        if delete_existing:
+            keys = kv.list()
+            _each(kv.delete, keys)
+        elif allow_existing and _meta(kv) is not None:
+            return open_zarr(path, writable=True)
+        if not kv.write_if(".zarray", zarray, None):
+            raise FileExistsError(f"zarr array exists at {path}")
+        return Volume(store=_LocalZarr(path, metadata, kv), path=path)
     else:
         root = Path(path)
         if root.exists():
@@ -674,7 +939,7 @@ def create_zarr(
                 raise FileExistsError(f"zarr array exists at {path}")
         root.mkdir(parents=True)
         kv = _FileKV(path)
-    kv.write(".zarray", json.dumps(metadata, sort_keys=True).encode())
+    kv.write(".zarray", zarray)
     return Volume(store=_LocalZarr(path, metadata, kv), path=path)
 
 

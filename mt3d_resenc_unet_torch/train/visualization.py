@@ -1,7 +1,9 @@
 """Debug visualization: per-epoch GIF panels and dataloader TIFF dumps.
 
-A copy of ``mt3d_resenc_unet_tpu/train/visualization.py``; imageio stays
-optional (the GIF), and the TIFFs go through cv2 where it is importable and
+A copy of ``mt3d_resenc_unet_tpu/train/visualization.py``; the GIF goes
+through imageio where it is importable and through PIL otherwise (the
+card's machine has no imageio; imageio's GIF writer is Pillow's, so the
+file is the same), and the TIFFs through cv2 where it is importable and
 PIL otherwise, as ``tools/images.py`` writes images (the card's machine has
 cv2).
 
@@ -75,8 +77,9 @@ def save_debug_gif(
     save_path: str,
     fps: int = 8,
 ) -> Optional[str]:
-    """Two-row per-slice panel GIF (reference: plotting.py:172-275)."""
-    if not _HAS_IMAGEIO:
+    """Two-row per-slice panel GIF (reference: plotting.py:172-275);
+    None where neither imageio nor PIL imports."""
+    if not (_HAS_IMAGEIO or _HAS_PIL):
         return None
     inp = _squeeze_batch(input_volume)
     tnames = list(tasks_dict.keys())
@@ -104,8 +107,20 @@ def save_debug_gif(
             np.concatenate([padto(p) for p in bottom], axis=1),
         ], axis=0)
         frames.append(frame)
-    imageio.mimsave(save_path, frames, duration=int(1000 / fps), loop=0)
+    write_gif(save_path, frames, int(1000 / fps))
     return save_path
+
+
+def write_gif(path: str, frames, duration_ms: int) -> None:
+    """(H, W, 3) uint8 frames as a GIF looping forever, ``duration_ms`` a
+    frame: ``imageio.mimsave`` where imageio imports, else the same call
+    of Pillow that imageio's GIF plugin makes."""
+    if _HAS_IMAGEIO:
+        imageio.mimsave(path, frames, duration=duration_ms, loop=0)
+        return
+    images = [Image.fromarray(np.asarray(f)) for f in frames]
+    images[0].save(path, format="GIF", save_all=True,
+                   append_images=images[1:], duration=duration_ms, loop=0)
 
 
 def log_3d_slices_as_images(writer, tag: str, volume: np.ndarray, step: int,

@@ -126,8 +126,8 @@ def test_port_written_store_reads_in_jax_and_back(tmp_path):
 
 def test_compressed_store_needs_tensorstore(tmp_path, monkeypatch):
     """A Blosc store opens without tensorstore (the port's codec), Blosc
-    snappy included; only a store that tensorstore cannot read either
-    (filters) reaches for it, and the error says so."""
+    snappy included; a store that tensorstore cannot read either (filters)
+    raises, and the error says so (the port has no tensorstore path)."""
     path = str(tmp_path / "c.zarr")
     jzio.create_zarr(path, (8, 8, 8), np.uint8, (4, 4, 4))[...] = 3
     assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
@@ -143,7 +143,7 @@ def test_compressed_store_needs_tensorstore(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "tensorstore", None)
     assert int(tzio.open_zarr(path)[...].sum()) == 3 * 512
     assert int(tzio.open_zarr(snappy)[...].sum()) == 5 * 512
-    with pytest.raises(ImportError, match="tensorstore.*cannot read it"):
+    with pytest.raises(ValueError, match="tensorstore.*cannot read it"):
         tzio.open_zarr(str(filtered))
 
 

@@ -19,8 +19,9 @@ test process (no outside network).
 * ``memory://`` behaves as the JAX package's: ``create_zarr`` returns a
   writable array of its own, which ``open_zarr`` and ``zarr_exists`` never
   find.
-* ``s3://`` and ``gs://`` map to their public HTTPS endpoints (no request
-  is made).
+* ``s3://`` and ``gs://`` open the bucket stores at their HTTPS
+  endpoints, writable (no request is made; their reads and writes are
+  ``tests/test_torch_port_remote_auth.py``'s).
 """
 
 import collections
@@ -30,6 +31,7 @@ import http.server
 import json
 import os
 import threading
+import urllib.parse
 from pathlib import Path
 
 import numpy as np
@@ -102,10 +104,9 @@ def _write(zio, path, data, comp, fill=3):
 
 
 def _no_tensorstore(monkeypatch):
-    def refuse(path, why):
-        raise AssertionError(f"tensorstore asked for {path} ({why})")
-
-    monkeypatch.setattr(tzio, "_tensorstore", refuse)
+    """The port reads every store itself: it keeps no tensorstore path
+    (``tests/test_torch_port_yaml.py`` holds that no module imports it)."""
+    assert not any("tensorstore" in name for name in vars(tzio))
 
 
 # snappy over a URL once (bit shuffle); its shuffles are the codec tests'
@@ -181,8 +182,7 @@ def test_writes_raise(server):
     with pytest.raises(OSError, match="read-only"):
         tzio.create_zarr(f"{url}/new.zarr", SHAPE, np.uint8, CHUNKS)
     for remote in ("s3://bucket/x.zarr", "gs://bucket/x.zarr"):
-        with pytest.raises(OSError, match="read-only"):
-            tzio.create_zarr(remote, SHAPE, np.uint8, CHUNKS)
+        assert tzio._kv(remote).writable      # buckets take writes
     assert (root / "ro.zarr" / "0.0.0").is_file()
     assert not (root / "new.zarr").exists()
 
@@ -331,11 +331,27 @@ def test_memory_stores_behave_as_jax(monkeypatch):
 @pytest.mark.parametrize("remote,want", [
     ("s3://bucket/a/b.zarr", "https://bucket.s3.amazonaws.com/a/b.zarr"),
     ("s3://bucket/", "https://bucket.s3.amazonaws.com"),
-    ("gs://bucket/a/b.zarr/", "https://storage.googleapis.com/bucket/a/b.zarr"),
+    ("gs://bucket/a/b.zarr/",
+     "https://storage.googleapis.com/storage/v1/b/bucket/o/a%2Fb.zarr"),
     ("https://host:8443/x.zarr/", "https://host:8443/x.zarr"),
 ])
-def test_s3_and_gs_map_to_public_https(remote, want):
-    assert tzio.http_url(remote) == want
+def test_s3_and_gs_map_to_public_https(monkeypatch, remote, want):
+    """The HTTPS URL of each store's objects, before any request (s3's
+    region not asked yet, no connection open): s3 and gs writable, http(s)
+    read-only."""
+    monkeypatch.delenv("TENSORSTORE_GCS_HTTP_URL", raising=False)
     kv = tzio._kv(remote)
-    assert isinstance(kv, tzio._HttpKV) and kv.url == want and kv.https
-    assert not kv.writable and getattr(kv.local, "conn", None) is None
+    if isinstance(kv, tzio._S3KV):
+        got = "/".join(filter(None, [tzio.s3_endpoint(kv.bucket),
+                                     kv.prefix]))
+        assert kv.region is None
+    elif isinstance(kv, tzio._GcsKV):
+        got = (kv.origin + kv.objects + "/"
+               + urllib.parse.quote(kv.prefix, safe=""))
+        assert kv.https and getattr(kv.local, "conn", None) is None
+    else:
+        got = kv.url
+        assert isinstance(kv, tzio._HttpKV) and kv.https
+        assert getattr(kv.local, "conn", None) is None
+    assert got == want
+    assert kv.writable == remote.startswith(("s3://", "gs://"))

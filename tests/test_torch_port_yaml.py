@@ -275,9 +275,12 @@ def test_refused_input_names_its_line(name):
 
 # ----------------------------------------------------------- no pyyaml
 
-def test_no_module_of_the_port_imports_yaml():
+def _imports_of(top):
+    """Every import of the package ``top`` in the port, chip_smoke.py and
+    the bucket emulator it runs, as ``file:line name``, and the number of
+    files read."""
     files = sorted((ROOT / "mt3d_resenc_unet_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "bucket_emulator.py"]
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -292,5 +295,22 @@ def test_no_module_of_the_port_imports_yaml():
                     and isinstance(node.args[0], ast.Constant)):
                 names = [str(node.args[0].value)]
             found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
-                      for n in names if n.split(".")[0] == "yaml"]
-    assert len(files) > 50 and not found, found
+                      for n in names if n == top
+                      or n.startswith(top + ".")]
+    return found, len(files)
+
+
+def test_no_module_of_the_port_imports_yaml():
+    found, files = _imports_of("yaml")
+    assert files > 50 and not found, found
+
+
+# what the card's machine lacks or the port must not lean on: JAX and its
+# package, tensorstore, the cloud SDKs and HTTP stacks, cryptography
+@pytest.mark.parametrize("top", [
+    "jax", "flax", "optax", "mt3d_resenc_unet_tpu", "tensorstore", "boto3",
+    "botocore", "google.auth", "google.cloud", "requests", "fsspec",
+    "cryptography"])
+def test_no_module_of_the_port_imports(top):
+    found, files = _imports_of(top)
+    assert files > 50 and not found, found
