@@ -25,15 +25,14 @@ order (:meth:`ConvNormAct.normed`), as the JAX package does
 (blocks.py:559, :601-602). A residual block with squeeze-excitation, or
 with DropPath in train mode, splits the tail as JAX does (:594-595): norm
 without activation, DropPath, SE, + residual, LeakyReLU. :class:`Conv`
-sends bf16 activations of the JAX package's kernel classes to the CUDA conv
-through its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``,
+sends bf16 and fp32 activations of the JAX package's kernel classes to the
+CUDA conv through its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``,
 ``Conv3dK3PairFn``, whose backward runs the dx and dW kernels) and the rest
 (the stem, the 128-channel stage, the deep stride-2 convs, the 1x1
 projections, other kernels, strides and ranks) to plain PyTorch,
-differentiated by autograd, as the JAX package sends them to XLA: in bf16
-with fp32 accumulation for a bf16 model (ops/lowp.py), in fp32 for an fp32
-one. An fp32 or fp16 model sends every conv to plain PyTorch (fp16 with
-fp32 accumulation through ops/lowp.py), since the kernels take bf16 only.
+differentiated by autograd, as the JAX package sends them to XLA: in the
+model's dtype with fp32 accumulation (ops/lowp.py). An fp16 model sends
+every conv there, since the kernels take bf16 and fp32 only.
 Squeeze-excitation, dropout and DropPath are XLA in the JAX package and
 plain PyTorch here.
 
@@ -157,12 +156,14 @@ class Conv(nn.Module):
 
     ``forward`` returns ``(y, stats)``: the conv output in the input's
     dtype (plus the bias) and its fp32 (N, 2, co) [sum; sumsq], taken after
-    the bias. bf16 3x3x3 convs in the kernel shape classes go to the CUDA
-    conv through its autograd Functions when ``use_kernels`` (the kernels
-    take bf16 only); everything else runs the same math in plain PyTorch:
-    in fp32 for an fp32 input, and for a bf16 or fp16 one with operands in
-    that dtype and fp32 accumulation, as the JAX package runs these shapes
-    in XLA (ops/lowp.py).
+    the bias. bf16 and fp32 3x3x3 convs in the kernel shape classes go to
+    the CUDA conv through its autograd Functions when ``use_kernels`` (the
+    kernels take both); everything else runs the same math as the JAX
+    package runs these shapes in XLA (ops/lowp.py): with operands in the
+    input's dtype and fp32 accumulation, and its statistics from the
+    norm-act kernels' raw mode where ``use_kernels``. Without
+    ``use_kernels`` an fp32 model's 3x3x3 convs run the kernels' plain
+    version, ``conv3d_k3_plain`` (the fp32 reference model).
     ``pre_pool``: AvgPool(pre_pool) before a 1x1 conv (the ResNet-D skip
     projection, JAX ``_pool_proj``)."""
 
@@ -185,9 +186,10 @@ class Conv(nn.Module):
             torch_uniform_(self.bias, fan_in, generator)
 
     def _kernel_class(self, x: torch.Tensor, w: torch.Tensor) -> bool:
-        """The conv kernels' class: bf16 activations of the JAX package's
-        kernel shapes (an fp32 or fp16 one takes the plain classes)."""
-        if not self.use_kernels or x.dtype != torch.bfloat16:
+        """The conv kernels' class: bf16 or fp32 activations of the JAX
+        package's kernel shapes (an fp16 one takes the plain classes)."""
+        if not self.use_kernels or x.dtype not in (torch.bfloat16,
+                                                   torch.float32):
             return False
         if self.stride == (1, 1, 1):
             return conv_s1_supported(x.shape, w.shape)
@@ -224,9 +226,9 @@ class Conv(nn.Module):
         k3 = (self.kernel_size == (3, 3, 3)
               and self.stride in ((1, 1, 1), (2, 2, 2)))
         stride = self.stride[0] if k3 else self.stride
-        if k3 and x.dtype == torch.float32:
-            # an fp32 model's 3x3x3 convs: the kernels' plain version, which
-            # emits its own statistics
+        if k3 and x.dtype == torch.float32 and not self.use_kernels:
+            # the fp32 reference model's 3x3x3 convs: the kernels' plain
+            # version, which emits its own statistics
             conv = conv3d_k3_plain
         else:
             conv = functools.partial(lowp.conv, use_kernels=self.use_kernels)

@@ -38,11 +38,12 @@ class UpsampleConv(nn.Module):
     flax ``ConvTranspose`` layout (*k, ci, co), which applies the kernel
     spatially flipped: y[k*i + a] = x[i] @ W[k-1-a] (JAX network.py:79-81).
     The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) in
-    bf16 goes to the CUDA upsample through its autograd Function when
-    ``use_kernels``; the flip stays outside it, so autograd takes its
-    gradient. Other shapes and dtypes run the GEMM in plain PyTorch: in
-    fp32 for an fp32 input, in the input's dtype with fp32 accumulation for
-    a bf16 or fp16 one (ops/lowp.py).
+    bf16 or fp32 goes to the CUDA upsample through its autograd Function
+    when ``use_kernels``; the flip stays outside it, so autograd takes its
+    gradient. Other shapes and fp16 run the GEMM in plain PyTorch in the
+    input's dtype with fp32 accumulation (ops/lowp.py); without
+    ``use_kernels`` an fp32 input runs the kernels' plain version,
+    ``upsample_plain`` (the fp32 reference model).
     ``bias`` (with ``conv_bias``) is added in the output's dtype."""
 
     def __init__(self, ci: int, co: int, kernel, use_kernels: bool = False,
@@ -66,10 +67,10 @@ class UpsampleConv(nn.Module):
                         dims=tuple(range(len(self.kernel_size)))).contiguous()
         ci, co = wf.shape[-2:]
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
-                and x.dtype == torch.bfloat16
+                and x.dtype in (torch.bfloat16, torch.float32)
                 and upsample2x_supported(x.shape, ci, co)):
             y = Upsample2xFn.apply(x, wf)
-        elif x.dtype != torch.float32:
+        elif x.dtype != torch.float32 or self.use_kernels:
             y = lowp.upsample(x, wf)
         else:
             y = upsample_plain(x, wf)
@@ -224,8 +225,8 @@ class ResEncUNet(nn.Module):
     """Multi-task network: shared Encoder, one Decoder per task. Starts in
     eval mode.
 
-    ``dtype`` is the compute dtype of the activations (bf16 on the card
-    sends the kernels' classes to the kernels; fp32 and fp16 run the plain
+    ``dtype`` is the compute dtype of the activations (bf16 or fp32 on the
+    card sends the kernels' classes to the kernels; fp16 runs the plain
     classes). ``param_dtype`` is the dtype every parameter is kept in (the
     flax modules' ``param_dtype``): each op casts its parameters to the
     compute dtype at the call, as the JAX model does, so the gradients are
@@ -313,9 +314,8 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
 
     def unfused(ext, ci, co, stride) -> bool:
         """A 3x3x3 conv whose statistics the raw mode takes: outside the
-        conv kernels' class, in a bf16 model (an fp32 model's run
-        conv3d_k3_plain, which emits its own)."""
-        if dtype == torch.float32 or not in_class(co):
+        conv kernels' class."""
+        if not in_class(co):
             return False
         x, w = (n, *ext, ci), (3, 3, 3, ci, co)
         if stride == (1, 1, 1):

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 alone into its own shared library under ``build/torch_kernels/`` at the
 repository root (listed in ``.gitignore``); no PyTorch header is compiled,
 which keeps a build to seconds. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a built one is reused.
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt and a built one is reused.
 ``build_all`` starts one ``nvcc`` per source at once.
 
 Every wrapper counts its kernel launches in :data:`LAUNCHES`, so a caller
@@ -32,7 +33,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
            "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
-           "upsample2x", "upsample2x_bwd", "norm_act")
+           "upsample2x", "upsample2x_bwd", "norm_act", "conv3d_k3_f32",
+           "upsample2x_f32")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,7 +87,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 

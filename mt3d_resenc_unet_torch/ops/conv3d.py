@@ -18,7 +18,15 @@ CUDA tensor always goes to the kernel, or the wrapper raises.
                     replacing ``_dw_kernel``; at stride 2
                     csrc/conv3d_k3_dw_s2.cu, replacing ``_s2_dw_kernel``.
 
-All six kernels are implicit GEMMs on the tensor cores and take their
+At compute dtype float32 the same three wrappers launch the kernels of
+csrc/conv3d_k3_f32.cu, which replace the same Pallas kernels as the JAX
+package runs them in fp32: implicit GEMMs on the tensor cores at fp32
+accuracy (FP64 MMA, csrc/f32_gemm.cuh), tiled by :func:`_f32_rows_plan`
+and :func:`_f32_dw_plan`, with every fusion of the bf16 kernels. Their
+launches count under the bf16 kernel's name with ``_f32`` after it, the
+name of their entry (``conv3d_k3_s1_f32``, ``conv3d_k3_dx_s2_f32``, ...).
+
+The six bf16 kernels are implicit GEMMs on the tensor cores and take their
 tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
 :func:`_dx_s1_plan`, :func:`_dx_s2_plan`, :func:`_dw_s1_plan` and
 :func:`_dw_s2_plan` here; the kernels decode their block indices as the
@@ -103,21 +111,30 @@ def conv_s2_supported(x_shape, w_shape) -> bool:
             and d >= 4 and h >= 4)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working precision: fp32, or fp64 for
+    an fp64 tensor (so a caller can evaluate them exactly as a
+    yardstick)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                     pre: Optional[torch.Tensor] = None,
                     add_to: Optional[torch.Tensor] = None,
                     emit_stats: bool = False,
                     negative_slope: float = 1e-2):
-    """Plain PyTorch version of :func:`conv3d_k3`: the same math in fp32,
-    output in ``x.dtype``."""
-    xf = x.float()
+    """Plain PyTorch version of :func:`conv3d_k3`: the same math in fp32
+    (fp64 for an fp64 x), output in ``x.dtype``."""
+    xf = _wide(x)
     if pre is not None:
+        pre = pre.to(xf.dtype)
         u = xf * pre[:, 0, None, None, None, :] - pre[:, 1, None, None, None, :]
         xf = torch.where(u >= 0, u, u * negative_slope)
-    y = F.conv3d(xf.permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2),
+    y = F.conv3d(xf.permute(0, 4, 1, 2, 3),
+                 w.to(xf.dtype).permute(4, 3, 0, 1, 2),
                  stride=stride, padding=1).permute(0, 2, 3, 4, 1)
     if add_to is not None:
-        y = y + add_to.float()
+        y = y + add_to.to(xf.dtype)
     out = y.to(x.dtype).contiguous()
     if not emit_stats:
         return out
@@ -142,6 +159,31 @@ def _fn(source: str):
         }[source]
         fn.restype = i
         _lib_fns[source] = fn
+    return fn
+
+
+def _kernel_dtype(fn: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype of ``t`` if a kernel takes it (bf16 or fp32), else raise:
+    a CUDA tensor never falls back to the plain version."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{fn}: the kernels take bf16 or fp32, not "
+                         f"{t.dtype}")
+    return t.dtype
+
+
+def _f32_fn(kind: str):
+    """The C launcher ``conv3d_k3_f32_<kind>_launch`` of
+    csrc/conv3d_k3_f32.cu, its argument types set."""
+    key = f"f32_{kind}"
+    fn = _lib_fns.get(key)
+    if fn is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = getattr(_build.load(F32_SOURCE), f"{F32_SOURCE}_{kind}_launch")
+        fn.argtypes = {"fwd": [p] * 7 + [i] * 9 + [f, p],
+                       "dx": [p] * 9 + [i] * 9 + [f, p],
+                       "dw": [p] * 7 + [i] * 9 + [f, p]}[kind]
+        fn.restype = i
+        _lib_fns[key] = fn
     return fn
 
 
@@ -175,16 +217,25 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     if ci % 32 or co % 32:
         raise ValueError(f"conv3d_k3: channels {ci}->{co} not multiples of 32")
     dev = x.device
-    bf16 = torch.bfloat16
-    _check(x, "x", bf16, (n, d, h, wd, ci), dev)
-    _check(w, "w", bf16, (3, 3, 3, ci, co), dev)
+    dt = _kernel_dtype("conv3d_k3", x)
+    _check(x, "x", dt, (n, d, h, wd, ci), dev)
+    _check(w, "w", dt, (3, 3, 3, ci, co), dev)
     _aligned("conv3d_k3", x=x, w=w, add_to=add_to)
     do, ho, wo = ((s - 1) // stride + 1 for s in (d, h, wd))
     if pre is not None:
         _check(pre, "pre", torch.float32, (n, 2, ci), dev)
     if add_to is not None:
-        _check(add_to, "add_to", bf16, (n, do, ho, wo, co), dev)
-    y = torch.empty((n, do, ho, wo, co), dtype=bf16, device=dev)
+        _check(add_to, "add_to", dt, (n, do, ho, wo, co), dev)
+    if dt == torch.float32:
+        with torch.cuda.device(dev):
+            out = _conv3d_k3_f32(x, w, stride, pre, add_to, emit_stats,
+                                 negative_slope, _sm_count(dev),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.count(f"{_KERNEL}_s{stride}_f32", (ci, co, d, h, wd),
+                     pre=pre is not None, addin=add_to is not None,
+                     stats=emit_stats)
+        return out if emit_stats else out[0]
+    y = torch.empty((n, do, ho, wo, co), dtype=dt, device=dev)
     stats = (torch.empty((n, 2, co), dtype=torch.float32, device=dev)
              if emit_stats else None)
     with torch.cuda.device(dev):
@@ -231,12 +282,13 @@ def _leaky(u: torch.Tensor, slope: float) -> torch.Tensor:
 
 def _corrected(gy: torch.Tensor, y: Optional[torch.Tensor],
                gs: Optional[torch.Tensor]) -> torch.Tensor:
-    """``gy + gs[0] + 2 * y * gs[1]`` in fp32: d(sum)/dy = 1 and
-    d(sumsq)/dy = 2y fold the stats' cotangent into the output's (JAX
-    ``_stats_grad_correction``)."""
-    g = gy.float()
+    """``gy + gs[0] + 2 * y * gs[1]`` in fp32 (fp64 for an fp64 gy):
+    d(sum)/dy = 1 and d(sumsq)/dy = 2y fold the stats' cotangent into the
+    output's (JAX ``_stats_grad_correction``)."""
+    g = _wide(gy)
     if gs is not None:
-        g = g + _bc(gs[:, 0]) + 2.0 * y.float() * _bc(gs[:, 1])
+        gs = gs.to(g.dtype)
+        g = g + _bc(gs[:, 0]) + 2.0 * y.to(g.dtype) * _bc(gs[:, 1])
     return g
 
 
@@ -264,21 +316,22 @@ def conv3d_k3_dx_plain(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
                        x: Optional[torch.Tensor] = None,
                        pre: Optional[torch.Tensor] = None, size=None,
                        negative_slope: float = 1e-2):
-    """Plain PyTorch version of :func:`conv3d_k3_dx` in fp32: the
-    transposed conv of the (corrected) cotangent, then the pre-op's
-    backward. The corrected cotangent is rounded to gy's dtype first, as
-    the JAX kernel rounds it before its matrix unit (``_tile_corr_flat``,
-    ``u.astype(gy_val.dtype)``): a no-op in fp32."""
+    """Plain PyTorch version of :func:`conv3d_k3_dx` in fp32 (fp64 for an
+    fp64 gy): the transposed conv of the (corrected) cotangent, then the
+    pre-op's backward. The corrected cotangent is rounded to gy's dtype
+    first, as the JAX kernel rounds it before its matrix unit
+    (``_tile_corr_flat``, ``u.astype(gy_val.dtype)``): a no-op in fp32."""
     _check_corr(y, gs, x, pre, "conv3d_k3_dx")
     n, ci = gy.shape[0], w.shape[3]
-    g = _corrected(gy, y, gs).to(gy.dtype).float()
+    g = _wide(_corrected(gy, y, gs).to(gy.dtype))
     gxn = torch.nn.grad.conv3d_input(
         (n, ci) + _dx_size(gy, stride, x, size),
-        w.float().permute(4, 3, 0, 1, 2), _nc(g), stride=stride,
+        w.to(g.dtype).permute(4, 3, 0, 1, 2), _nc(g), stride=stride,
         padding=1).permute(0, 2, 3, 4, 1)
     if pre is None:
         return gxn.to(gy.dtype).contiguous()
-    xf = x.float()
+    xf = x.to(g.dtype)
+    pre = pre.to(g.dtype)
     scale = _bc(pre[:, 0])
     u = xf * scale - _bc(pre[:, 1])
     du = gxn * torch.where(u >= 0, 1.0, negative_slope)
@@ -292,10 +345,12 @@ def conv3d_k3_dw_plain(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
                        y: Optional[torch.Tensor] = None,
                        gs: Optional[torch.Tensor] = None,
                        negative_slope: float = 1e-2) -> torch.Tensor:
-    """Plain PyTorch version of :func:`conv3d_k3_dw` in fp32."""
+    """Plain PyTorch version of :func:`conv3d_k3_dw` in fp32 (fp64 for an
+    fp64 x)."""
     _check_corr(y, gs, x, pre, "conv3d_k3_dw")
-    xin = x.float()
+    xin = _wide(x)
     if pre is not None:
+        pre = pre.to(xin.dtype)
         xin = _leaky(xin * _bc(pre[:, 0]) - _bc(pre[:, 1]), negative_slope)
     ci, co = x.shape[-1], gy.shape[-1]
     dw = torch.nn.grad.conv3d_weight(_nc(xin), (co, ci, 3, 3, 3),
@@ -319,14 +374,14 @@ def _bwd_args(fn, gy, stride, y, gs, x, pre, d, h, wd, ci):
     n, co = gy.shape[0], gy.shape[-1]
     if ci % 32 or co % 32:
         raise ValueError(f"{fn}: channels {ci}->{co} not multiples of 32")
-    dev, bf16 = gy.device, torch.bfloat16
+    dev, dt = gy.device, _kernel_dtype(fn, gy)
     out = (n,) + tuple((s - 1) // stride + 1 for s in (d, h, wd)) + (co,)
-    _check(gy, "gy", bf16, out, dev, fn)
+    _check(gy, "gy", dt, out, dev, fn)
     if y is not None:
-        _check(y, "y", bf16, out, dev, fn)
+        _check(y, "y", dt, out, dev, fn)
         _check(gs, "gs", torch.float32, (n, 2, co), dev, fn)
     if x is not None:
-        _check(x, "x", bf16, (n, d, h, wd, ci), dev, fn)
+        _check(x, "x", dt, (n, d, h, wd, ci), dev, fn)
     if pre is not None:
         _check(pre, "pre", torch.float32, (n, 2, ci), dev, fn)
     _aligned(fn, gy=gy, y=y, x=x)
@@ -601,8 +656,16 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
     n, co = _bwd_args(fn, gy, stride, y, gs, x if pre is not None else None,
                       pre, d, h, wd, ci)
     dev = gy.device
-    _check(w, "w", torch.bfloat16, (3, 3, 3, ci, co), dev, fn)
+    _check(w, "w", gy.dtype, (3, 3, 3, ci, co), dev, fn)
     post = pre is not None
+    if gy.dtype == torch.float32:
+        with torch.cuda.device(dev):
+            out = _conv3d_k3_dx_f32(gy, w, stride, y, gs, x, pre,
+                                    (d, h, wd), negative_slope, _sm_count(dev),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+        _build.count(f"{fn}_s{stride}_f32", (ci, co, d, h, wd),
+                     corr=y is not None, post=post)
+        return out if post else out[0]
     dx = torch.empty((n, d, h, wd, ci), dtype=torch.bfloat16, device=dev)
     dst = (torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
            if post else None)
@@ -645,6 +708,14 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     d, h, wd, ci = x.shape[1:]
     n, co = _bwd_args(fn, gy, stride, y, gs, x, pre, d, h, wd, ci)
     dev = gy.device
+    if gy.dtype == torch.float32:
+        with torch.cuda.device(dev):
+            dw = _conv3d_k3_dw_f32(x, gy, stride, pre, y, gs, negative_slope,
+                                   _sm_count(dev),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+        _build.count(f"{fn}_s{stride}_f32", (ci, co, d, h, wd),
+                     pre=pre is not None, corr=y is not None)
+        return dw
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=dev)
     plan = (_dw_s1_plan if stride == 1 else _dw_s2_plan)(
         n, (d, h, wd), ci, co, _sm_count(dev))
@@ -660,6 +731,154 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
     _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), pre=pre is not None,
                  corr=y is not None)
+    return dw
+
+
+# the fp32 kernels (csrc/conv3d_k3_f32.cu, tiles of csrc/f32_gemm.cuh): a
+# forward / dx block is 128 x 32 or 64 x 64 (voxels x channels: N = 32 or a
+# multiple of 64) over K chunks of F32_BK; the planners aim at
+# F32_BLOCKS_PER_SM blocks an SM. A dW block is 3 taps x 32 input channels
+# x 32 or 64 output channels and sums at most F32_DW_MAX_CHUNKS chunks of
+# F32_BK voxels (so its fp32 partial sums stay short), its K split across
+# blocks to fill the card
+F32_SOURCE = "conv3d_k3_f32"
+F32_BK = 32
+F32_BLOCKS_PER_SM = 4
+F32_DW_MAX_CHUNKS = 512
+
+
+def _f32_bn(c: int) -> int:
+    return 64 if c % 64 == 0 else 32
+
+
+def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
+    """The static shared memory (bytes) of a bm x bn f32gemm::Tile: a
+    2-stage ring of the staged A (32 rows of bm + 8 floats k-major, else
+    bm rows of 36) and B (32 rows of bn + 8, else bn rows of 36)."""
+    a = 32 * (bm + 8) if a_kmajor else bm * (F32_BK + 4)
+    b = 32 * (bn + 8) if b_kmajor else bn * (F32_BK + 4)
+    return 2 * (a + b) * 4
+
+
+def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
+                   ntiles: Optional[int] = None,
+                   b_kmajor: bool = True) -> dict:
+    """The launch of an fp32 row-tiled kernel (the conv forward and dx, the
+    upsample forward and dx): ``rows`` output rows in each of ``z`` (sample
+    or sample x parity class) groups, ``c`` output channels in ``ntiles``
+    (default c / bn) tiles of ``bn``; m-tiles of ``bm`` rows, ``mtiles`` a
+    group. Block (b, tile, group), b < ``nb``, takes the m-tiles
+    :func:`f32_tile_range` (b, nb, mtiles) and, with statistics, stores its
+    columns' [sum; sumsq] to slot (group, b) of a (z, nb, 2, c) fp32
+    scratch, ``slots`` = z x nb; the slots of a sample are added in order.
+    ``smem``: the block's shared memory, B staged k-major (the weights of
+    the forward) or n-major (dx's)."""
+    bn = _f32_bn(c)
+    bm = 64 if bn == 64 else 128
+    mtiles = -(-rows // bm)
+    nt = c // bn if ntiles is None else ntiles
+    nb = max(1, min(mtiles, -(-F32_BLOCKS_PER_SM * sms // (z * nt))))
+    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb, slots=z * nb,
+                smem=f32_smem(bm, bn, False, b_kmajor))
+
+
+def f32_tile_range(b: int, nb: int, mtiles: int) -> Tuple[int, int]:
+    """The m-tiles [first, end) that block b of nb takes in the fp32
+    row-tiled kernels."""
+    return b * mtiles // nb, (b + 1) * mtiles // nb
+
+
+def _f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
+    """The launch of an fp32 weight-gradient kernel: K = ``k_vox`` voxels
+    in ``nch`` chunks of F32_BK, ``mtiles`` x co / bn output tiles, each
+    split into ``splits`` ranges of chunks, split s taking chunks
+    :func:`f32_tile_range` (s, splits, nch), so that tiles x splits fill
+    F32_BLOCKS_PER_SM blocks an SM and no split sums more than
+    F32_DW_MAX_CHUNKS chunks. Each split stores its partial dW to its own
+    slice of a (splits, taps, Ci, Co) scratch (none at one split), added in
+    split order."""
+    bn = _f32_bn(co)
+    tiles = mtiles * (co // bn)
+    nch = -(-k_vox // F32_BK)
+    splits = max(-(-F32_BLOCKS_PER_SM * sms // tiles),
+                 -(-nch // F32_DW_MAX_CHUNKS))
+    return dict(bn=bn, tiles=tiles, nch=nch, splits=max(1, min(splits, nch)),
+                smem=f32_smem(96, bn, True, True))
+
+
+def _conv3d_k3_f32(x, w, stride, pre, add_to, emit_stats, slope, sms,
+                   stream):
+    """The fp32 forward kernel on checked operands: (y, stats or None)."""
+    n, d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    out = tuple((s - 1) // stride + 1 for s in (d, h, wd))
+    y = torch.empty((n, *out, co), dtype=torch.float32, device=x.device)
+    plan = _f32_rows_plan(math.prod(out), co, n, sms)
+    stats = part = None
+    if emit_stats:
+        stats = torch.empty((n, 2, co), dtype=torch.float32, device=x.device)
+        part = torch.empty(plan["slots"] * 2 * co, dtype=torch.float32,
+                           device=x.device)
+    rc = _f32_fn("fwd")(
+        x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to), y.data_ptr(),
+        _ptr(stats), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
+        plan["nb"], slope, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_k3: fp32 kernel launch failed, CUDA error "
+                           f"{rc}")
+    return y, stats
+
+
+def _dx_classes(size, stride: int) -> Tuple[int, int]:
+    """(rows of the largest group, groups a sample) of the fp32 dx: the dx
+    voxels at stride 1; at stride 2 each of the 8 parity classes (the
+    largest: parity 0 on every axis)."""
+    if stride == 1:
+        return math.prod(size), 1
+    return math.prod((s + 1) // 2 for s in size), 8
+
+
+def _conv3d_k3_dx_f32(gy, w, stride, y, gs, x, pre, size, slope, sms,
+                      stream):
+    """The fp32 dx kernel on checked operands: (dx, dst or None)."""
+    n, co = gy.shape[0], gy.shape[-1]
+    ci = w.shape[3]
+    d, h, wd = size
+    dx = torch.empty((n, d, h, wd, ci), dtype=torch.float32, device=gy.device)
+    rows, classes = _dx_classes(size, stride)
+    plan = _f32_rows_plan(rows, ci, n * classes, sms, b_kmajor=False)
+    dst = part = None
+    if pre is not None:
+        dst = torch.empty((n, 2, ci), dtype=torch.float32, device=gy.device)
+        part = torch.empty(plan["slots"] * 2 * ci, dtype=torch.float32,
+                           device=gy.device)
+    rc = _f32_fn("dx")(
+        gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
+        _ptr(x if pre is not None else None), _ptr(pre), dx.data_ptr(),
+        _ptr(dst), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
+        plan["nb"], slope, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_k3_dx: fp32 kernel launch failed, CUDA "
+                           f"error {rc}")
+    return dx, dst
+
+
+def _conv3d_k3_dw_f32(x, gy, stride, pre, y, gs, slope, sms, stream):
+    """The fp32 dW kernel on checked operands."""
+    n, d, h, wd, ci = x.shape
+    co = gy.shape[-1]
+    k_vox = n * math.prod(gy.shape[1:4])
+    plan = _f32_dw_plan(k_vox, 9 * (ci // 32), co, sms)
+    dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
+    part = (torch.empty((plan["splits"], 27, ci, co), dtype=torch.float32,
+                        device=x.device) if plan["splits"] > 1 else None)
+    rc = _f32_fn("dw")(
+        x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
+        dw.data_ptr(), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
+        plan["splits"], slope, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3d_k3_dw: fp32 kernel launch failed, CUDA "
+                           f"error {rc}")
     return dw
 
 

@@ -25,10 +25,11 @@ stats kernel's raw mode takes them, ``instance_stats``). Everything else is
 plain PyTorch differentiated by autograd, except the stem's weight gradient
 (:class:`StemConvFn`). ``conv3d.conv3d_k3_plain`` and
 ``upsample.upsample_plain`` stay the fp32 path of the kernels' shape
-classes (the fp32 reference model, and the kernels' yardsticks); an fp32
-input comes here only for what no kernel class covers (:func:`conv` of
-another kernel, stride or rank; the pointwise and matmul functions), and is
-computed in fp32.
+classes without kernels (the fp32 reference model, and the kernels'
+yardsticks); an fp32 input comes here for what no kernel class covers
+(with kernels: the stem, the 128-channel stage, the deep stride-2 convs
+and upsamples; always: other kernels, strides and ranks, the pointwise and
+matmul functions), and is computed in fp32.
 """
 
 from __future__ import annotations
@@ -141,8 +142,9 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
     [sum; sumsq] of the result (``instance_stats``: with ``use_kernels``
     the stats kernel's raw mode where the shape is in its class). Returns
     ``y`` or ``(y, stats)``. An fp32 input computes the same in fp32: the
-    fp32 model's convs outside the 3x3x3 class (other kernels, anisotropic
-    strides, 2-D plans)."""
+    fp32 model's convs outside the kernels' classes (with kernels), or
+    outside the 3x3x3 class (other kernels, anisotropic strides, 2-D
+    plans)."""
     if pre is not None:
         x = apply_pre(x, pre, negative_slope)
     w = w.to(x.dtype)

@@ -20,6 +20,13 @@ wrapper raises; one that needs a gradient reaches the kernels only through
 :class:`Upsample2xFn`, the counterpart of the JAX ``custom_vjp``
 ``upsample2x_packed``.
 
+At compute dtype float32 the three wrappers launch the kernels of
+csrc/upsample2x_f32.cu instead, which replace the same Pallas kernels as
+the JAX package runs them in fp32: GEMMs on the tensor cores at fp32
+accuracy (FP64 MMA, csrc/f32_gemm.cuh), tiled by :func:`_up_f32_plan`;
+their launches count as ``upsample2x_f32``, ``upsample2x_dx_f32`` and
+``upsample2x_dw_f32``, the names of their entries.
+
 ``wf`` is the transposed-conv kernel in the JAX layout (*k, Ci, Co) with
 its spatial flip already applied: y[.., k*i + a, ..] = x[.., i, ..] @ wf[a].
 """
@@ -27,11 +34,13 @@ its spatial flip already applied: y[.., k*i + a, ..] = x[.., i, ..] @ wf[a].
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from .conv3d import _sm_count
+from .conv3d import (_f32_bn, _f32_dw_plan, _f32_rows_plan, _ptr,
+                     _sm_count, _wide, f32_smem)
 
 _KERNEL = "upsample2x"
 _lib_fns = {}
@@ -66,9 +75,9 @@ def upsample_gemm(x: torch.Tensor, wf: torch.Tensor, matmul) -> torch.Tensor:
 
 
 def upsample_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: fp32 GEMM plus interleave, output in
-    ``x.dtype``."""
-    y = upsample_gemm(x, wf, lambda a, b: a.float() @ b.float())
+    """Plain PyTorch version: fp32 GEMM (fp64 for an fp64 x) plus
+    interleave, output in ``x.dtype``."""
+    y = upsample_gemm(x, wf, lambda a, b: _wide(a) @ b.to(_wide(a).dtype))
     return y.to(x.dtype).contiguous()
 
 
@@ -201,13 +210,97 @@ def up2_row(ab: int, c: int, vox: int, vw: int, hh: int, k: int) -> int:
     return (2 * ab + c) * vox + hh * vw + k
 
 
-def _check(fn: str, **tensors: torch.Tensor) -> None:
-    dev = next(iter(tensors.values())).device
+def _check(fn: str, **tensors: torch.Tensor) -> torch.dtype:
+    """All ``tensors`` contiguous on one device in one dtype a kernel takes
+    (bf16 or fp32); returns it."""
+    first = next(iter(tensors.values()))
+    dev, dt = first.device, first.dtype
     for name, t in tensors.items():
-        if (t.dtype != torch.bfloat16 or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name} must be contiguous bf16 on "
-                             f"{dev}; got {t.dtype} on {t.device}")
+        if (t.dtype != dt or dt not in (torch.bfloat16, torch.float32)
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be contiguous bf16 or fp32 "
+                             f"on {dev} in the dtype of the others; got "
+                             f"{t.dtype} on {t.device}")
+    return dt
+
+
+F32_SOURCE = "upsample2x_f32"
+
+
+def _f32_fn(kind: str):
+    """The C launcher of csrc/upsample2x_f32.cu for ``kind`` ("", "dx" or
+    "dw"), its argument types set."""
+    key = f"f32_{kind}"
+    fn = _lib_fns.get(key)
+    if fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        entry = F32_SOURCE + (f"_{kind}" if kind else "") + "_launch"
+        fn = getattr(_build.load(F32_SOURCE), entry)
+        fn.argtypes = {"": [p] * 3 + [i] * 8 + [p],
+                       "dx": [p] * 3 + [i] * 8 + [p],
+                       "dw": [p] * 4 + [i] * 9 + [p]}[kind]
+        fn.restype = i
+        _lib_fns[key] = fn
+    return fn
+
+
+def _up_f32_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launches of the fp32 upsample kernels at x (n, *size, ci) -> co:
+    the forward and dx row-tiled as ``conv3d._f32_rows_plan`` says (rows =
+    a sample's coarse voxels; the forward's N = 8 parities x co, a channel
+    tile inside one parity), dW as ``conv3d._f32_dw_plan`` over the
+    batch's coarse voxels with ``bm`` (64 or 32) input channels a tile and
+    one parity, its scratch (splits, 8, ci, co)."""
+    rows = math.prod(size)
+    fwd = _f32_rows_plan(rows, co, n, sms, 8 * co // _f32_bn(co))
+    dx = _f32_rows_plan(rows, ci, n, sms, b_kmajor=False)
+    bm = 64 if ci % 64 == 0 else 32
+    dw = _f32_dw_plan(n * rows, 8 * (ci // bm), co, sms)
+    dw.update(bm=bm, smem=f32_smem(bm, dw["bn"], True, True))
+    return dict(fwd=fwd, dx=dx, dw=dw)
+
+
+def _upsample2x_f32(x, wf, sms, stream):
+    n, d, h, w, ci = x.shape
+    co = wf.shape[-1]
+    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["fwd"]
+    y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=torch.float32,
+                    device=x.device)
+    rc = _f32_fn("")(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w,
+                     ci, co, plan["bn"], plan["nb"], stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample2x: fp32 kernel launch failed, CUDA "
+                           f"error {rc}")
+    return y
+
+
+def _upsample2x_dx_f32(gy, wf, sms, stream):
+    n, d2, h2, w2, co = gy.shape
+    d, h, w, ci = d2 // 2, h2 // 2, w2 // 2, wf.shape[3]
+    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["dx"]
+    dx = torch.empty((n, d, h, w, ci), dtype=torch.float32, device=gy.device)
+    rc = _f32_fn("dx")(gy.data_ptr(), wf.data_ptr(), dx.data_ptr(), n, d, h,
+                       w, ci, co, plan["bn"], plan["nb"], stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample2x_dx: fp32 kernel launch failed, CUDA "
+                           f"error {rc}")
+    return dx
+
+
+def _upsample2x_dw_f32(x, gy, sms, stream):
+    n, d, h, w, ci = x.shape
+    co = gy.shape[-1]
+    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["dw"]
+    dw = torch.empty((2, 2, 2, ci, co), dtype=torch.float32, device=x.device)
+    part = (torch.empty((plan["splits"], 8, ci, co), dtype=torch.float32,
+                        device=x.device) if plan["splits"] > 1 else None)
+    rc = _f32_fn("dw")(x.data_ptr(), gy.data_ptr(), dw.data_ptr(), _ptr(part),
+                       n, d, h, w, ci, co, plan["bm"], plan["bn"],
+                       plan["splits"], stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample2x_dw: fp32 kernel launch failed, CUDA "
+                           f"error {rc}")
+    return dw
 
 
 def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
@@ -224,9 +317,15 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     co = wf.shape[-1]
     if wf.shape[3] != ci or ci % 32 or co % 32:
         raise ValueError(f"upsample2x: unsupported channels {ci}->{co}")
-    _check("upsample2x", x=x, wf=wf)
+    dt = _check("upsample2x", x=x, wf=wf)
     if x.data_ptr() % 16 or wf.data_ptr() % 16:
         raise ValueError("upsample2x: x and wf must be 16-byte aligned")
+    if dt == torch.float32:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            y = _upsample2x_f32(x, wf, _sm_count(x.device), stream)
+        _build.count(f"{_KERNEL}_f32", (ci, co, d, h, w))
+        return y
     plan = _up_fwd_plan(n, (d, h, w), ci, co, _sm_count(x.device))
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=torch.bfloat16,
                     device=x.device)
@@ -243,27 +342,29 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
 
 def _fine_rows(gy: torch.Tensor) -> torch.Tensor:
     """(N, 2D, 2H, 2W, Co) -> (N*D*H*W, 8*Co) with column p*Co + co,
-    p = (a, b, c) the output parity, in fp32."""
+    p = (a, b, c) the output parity, in fp32 (fp64 for an fp64 gy)."""
     n, d2, h2, w2, co = gy.shape
-    g = gy.float().reshape(n, d2 // 2, 2, h2 // 2, 2, w2 // 2, 2, co)
+    g = _wide(gy).reshape(n, d2 // 2, 2, h2 // 2, 2, w2 // 2, 2, co)
     return g.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, 8 * co)
 
 
 def upsample2x_dx_plain(gy: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`upsample2x_dx`, fp32 GEMM, output in
-    ``gy.dtype``."""
+    """Plain PyTorch version of :func:`upsample2x_dx`, fp32 GEMM (fp64 for
+    an fp64 gy), output in ``gy.dtype``."""
     n, d2, h2, w2, co = gy.shape
     ci = wf.shape[3]
-    w2t = wf.float().reshape(8, ci, co).permute(0, 2, 1).reshape(8 * co, ci)
+    w2t = wf.to(_wide(gy).dtype).reshape(8, ci, co).permute(0, 2, 1).reshape(
+        8 * co, ci)
     dx = _fine_rows(gy) @ w2t
     return dx.reshape(n, d2 // 2, h2 // 2, w2 // 2, ci).to(gy.dtype)
 
 
 def upsample2x_dw_plain(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`upsample2x_dw`: (2, 2, 2, Ci, Co)
-    fp32."""
+    fp32 (fp64 for fp64 operands)."""
     ci, co = x.shape[-1], gy.shape[-1]
-    dw = x.float().reshape(-1, ci).t() @ _fine_rows(gy)      # (ci, 8*co)
+    g = _fine_rows(gy)
+    dw = x.to(g.dtype).reshape(-1, ci).t() @ g               # (ci, 8*co)
     return dw.reshape(ci, 8, co).permute(1, 0, 2).reshape(2, 2, 2, ci, co)
 
 
@@ -296,11 +397,18 @@ def upsample2x_dx(gy: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{fn}: needs wf (2, 2, 2, Ci, Co)")
     ci = wf.shape[3]
     n, d, h, w, co = _bwd_shapes(fn, None, gy, ci)
-    _check(fn, gy=gy, wf=wf)
+    dt = _check(fn, gy=gy, wf=wf)
     if wf.shape[4] != co:
         raise ValueError(f"{fn}: wf {tuple(wf.shape)} vs gy channels {co}")
     if wf.data_ptr() % 16:
         raise ValueError(f"{fn}: wf must be 16-byte aligned")
+    if dt == torch.float32:
+        with torch.cuda.device(gy.device):
+            dx = _upsample2x_dx_f32(
+                gy, wf, _sm_count(gy.device),
+                torch.cuda.current_stream(gy.device).cuda_stream)
+        _build.count(f"{fn}_f32", (ci, co, d, h, w))
+        return dx
     plan = _up_bwd_plan(n, (d, h, w), ci, co, _sm_count(gy.device))["dx"]
     if plan["tci"] == 32 and co > UP_DX_MAX_CO:
         raise ValueError(f"{fn}: unsupported channels {ci}->{co} (Co > "
@@ -325,9 +433,16 @@ def upsample2x_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     _build.check_no_grad(fn, x, gy)
     ci = x.shape[-1]
     n, d, h, w, co = _bwd_shapes(fn, x.shape, gy, ci)
-    _check(fn, x=x, gy=gy)
+    dt = _check(fn, x=x, gy=gy)
     if x.data_ptr() % 16:
         raise ValueError(f"{fn}: x must be 16-byte aligned")
+    if dt == torch.float32:
+        with torch.cuda.device(x.device):
+            dw = _upsample2x_dw_f32(
+                x, gy, _sm_count(x.device),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.count(f"{fn}_f32", (ci, co, d, h, w))
+        return dw
     plan = _up_bwd_plan(n, (d, h, w), ci, co, _sm_count(x.device))["dw"]
     dw = torch.empty((2, 2, 2, ci, co), dtype=torch.float32, device=x.device)
     part = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)

@@ -1,11 +1,12 @@
 """Where the time of the flagship training step goes on one NVIDIA GPU.
 
     python -m mt3d_resenc_unet_torch.tools.profile_step [--steps 2]
-        [--squeeze-excitation]
+        [--squeeze-excitation] [--dtype {bfloat16,float32}]
 
 Builds the flagship plan (128^3 patch, 6 stages, sheet + normals heads,
 torch-default weights from seed 0; with ``--squeeze-excitation`` the
-network of ``tasks/sheet_normals.yaml``) in bf16 through the kernels, runs two
+network of ``tasks/sheet_normals.yaml``) in bf16 (or ``--dtype float32``:
+the fp32 kernels, rows 1f-9f) through the kernels, runs two
 warm-up steps of the training step (batch 2, BCEDice + MaskedCosine, clip 3,
 AdamW), then TIMED steps without the profiler (the median step's wall
 ms, patches/s and MFU, as ``chip_smoke.py`` phase 5b measures them, and the
@@ -19,9 +20,10 @@ most device time, and the device's busy share of the wall time. The
 script reads only the package's public entry points, so a copy of it
 profiles an older checkout of the package the same way. The precision is
 ``core.config.set_precision``'s, as the trainer and ``chip_smoke.py`` set
-it; the plain-torch classes run in bf16 with fp32
-accumulation (ops/lowp.py), so the cuDNN / GEMM group should show no fp32
-convolution or GEMM. Needs a CUDA device; exits non-zero without one.
+it; the plain-torch classes run in the compute dtype with fp32
+accumulation (ops/lowp.py), so at bf16 the cuDNN / GEMM group should show
+no fp32 convolution or GEMM. Needs a CUDA device; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -41,6 +43,19 @@ TIMED = 6   # steps timed without the profiler, after the warm-up
 
 # the port's kernels by row of PERF.md's kernel table, then the rest
 GROUPS = (
+    # rows 1-9 at compute dtype float32 (their entries carry the launch
+    # names), before the bf16 rows whose patterns they would match
+    ("row 1f conv3d_k3_s1_f32", r"conv3d_k3_s1_f32"),
+    ("row 2f conv3d_k3_dx_s1_f32", r"conv3d_k3_dx_s1_f32"),
+    ("row 3f conv3d_k3_dw_s1_f32", r"conv3d_k3_dw_s1_f32"),
+    ("row 4f conv3d_k3_s2_f32", r"conv3d_k3_s2_f32"),
+    ("row 5f conv3d_k3_dw_s2_f32", r"conv3d_k3_dw_s2_f32"),
+    ("row 6f conv3d_k3_dx_s2_f32", r"conv3d_k3_dx_s2_f32"),
+    ("row 7f upsample2x_f32", r"upsample2x_f32"),
+    ("row 8f upsample2x_dx_f32", r"upsample2x_dx_f32"),
+    ("row 9f upsample2x_dw_f32", r"upsample2x_dw_f32"),
+    ("rows 1f-9f, their slots' and splits' sums",
+     r"column_sums_finish|split_sums_finish"),
     ("row 1 conv3d_k3_s1", r"conv3d_k3_s1_"),
     ("row 2 conv3d_k3_dx_s1", r"conv3d_k3_dx_s1_"),
     ("row 3 conv3d_k3_dw_s1", r"conv3d_k3_dw_s1_"),
@@ -76,6 +91,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=2)
     parser.add_argument("--squeeze-excitation", action="store_true")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        default="bfloat16")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -98,7 +115,7 @@ def main(argv=None) -> int:
                    TaskHead("normals", 3, "none")],
         model_name="flagship", use_pallas_conv=True,
         squeeze_excitation=args.squeeze_excitation)
-    model = ResEncUNet(plan, dtype=torch.bfloat16, seed=0).to(dev)
+    model = ResEncUNet(plan, dtype=getattr(torch, args.dtype), seed=0).to(dev)
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in {
         "image": rng.random((n,) + patch + (1,), np.float32),

@@ -19,8 +19,16 @@ footprint position in its own row, and every tap's 8 consecutive output w
 in 8 consecutive rows (what their ldmatrix addressing takes). The stride-2
 dx must compute every (dx voxel, tap) pair with i + 1 - k even exactly
 once, reading the cotangent at (i + 1 - k) / 2, and its schedule, run on
-numbers, must give the plain dx.
+numbers, must give the plain dx. The fp32 kernels' planners
+(``_f32_rows_plan``, ``_f32_dw_plan``, csrc/conv3d_k3_f32.cu) at the same
+shapes: every output row and channel tile of the forward, every dx voxel
+(at stride 2 through its parity class) and every (tap, ci, co, output
+voxel) of dW covered exactly once, no dW split over F32_DW_MAX_CHUNKS
+chunks, and each block's shared memory within 48 KiB (static; the H100
+allows 232,448 bytes).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -569,3 +577,139 @@ def test_dx_s2_units_cover_every_cotangent_voxel_once(ci, co, size, sms):
             counts[r % n, r // n, d0:d0 + bd, h0:h0 + bh, w0:w0 + bw] += 1
     assert counts.min() == 1 and counts.max() == 1
     assert counts.shape[2:] >= out
+
+
+# ------------------------------------------------- the fp32 kernels' plans
+#
+# csrc/conv3d_k3_f32.cu: the forward and dx blocks (b, tile, group) take
+# the m-tiles f32_tile_range(b, nb, mtiles) of their group (a sample, or at
+# stride-2 dx a sample's parity class, whose own m-tiles are fewer where
+# the class is smaller), the dW blocks (taps group x ci tile, co tile,
+# split) the K chunks f32_tile_range(split, splits, nch).
+
+F32_SIZES = [(128,) * 3, (64,) * 3, (16,) * 3, (8,) * 3, (4,) * 3,
+             (9, 10, 11), (5, 6, 7)]
+F32_SHAPES = [(s, ci, co, e) for s, ci, co, e in (
+    [(1, ci, co, e) for ci, co, e in SHAPES]
+    + [(2, 32, 64, (128,) * 3), (2, 64, 128, (64,) * 3),
+       (2, 32, 64, (9, 10, 11)), (2, 64, 32, (6, 7, 5))])]
+F32_IDS = [f"s{s}-{ci}-{co}@{'x'.join(map(str, e))}"
+           for s, ci, co, e in F32_SHAPES]
+SMEM_LIMIT = 232448          # what a block may use on the H100
+STATIC_SMEM = 48 * 1024      # the kernels' shared memory is static
+
+
+def f32_rows_counts(plan, group_rows):
+    """How often each row of each group is computed by each channel tile:
+    {(group, tile): counts}, decoded as the kernel decodes its blocks."""
+    out = {}
+    bm, nb = plan["bm"], plan["nb"]
+    for z, rows in enumerate(group_rows):
+        mtiles = min(plan["mtiles"], -(-rows // bm))
+        for nt in range(plan["ntiles"]):
+            counts = np.zeros(rows, np.int32)
+            for b in range(nb):
+                first, end = c3.f32_tile_range(b, nb, mtiles)
+                for mt in range(first, end):
+                    counts[mt * bm:(mt + 1) * bm] += 1
+            out[(z, nt)] = counts
+    return out
+
+
+@pytest.mark.parametrize("sms", [132, 20])
+@pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
+def test_f32_forward_plan_covers_every_output_once(stride, ci, co, size,
+                                                   sms):
+    n = 2
+    out = tuple((s - 1) // stride + 1 for s in size)
+    plan = c3._f32_rows_plan(math.prod(out), co, n, sms)
+    assert plan["ntiles"] * plan["bn"] == co and co % plan["bn"] == 0
+    assert plan["bm"] * plan["bn"] in (128 * 32, 64 * 64)
+    assert 1 <= plan["nb"] <= plan["mtiles"]
+    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
+    counts = f32_rows_counts(plan, [math.prod(out)] * n)
+    assert len(counts) == n * plan["ntiles"]
+    assert all((c == 1).all() for c in counts.values())
+    # the statistics: one slot per (sample, block), each added once
+    assert plan["slots"] == n * plan["nb"]
+
+
+@pytest.mark.parametrize("sms", [132, 20])
+@pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
+def test_f32_dx_plan_covers_every_dx_voxel_once(stride, ci, co, size, sms):
+    """dx voxels (and each dx channel tile) computed exactly once: at
+    stride 2 through the 8 parity classes, class voxel q of parity p being
+    dx voxel 2q + p."""
+    n = 2
+    rows, classes = c3._dx_classes(size, stride)
+    plan = c3._f32_rows_plan(rows, ci, n * classes, sms, b_kmajor=False)
+    assert plan["ntiles"] * plan["bn"] == ci
+    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
+    if stride == 1:
+        group_rows = [math.prod(size)] * n
+    else:
+        ext = [[(e - p + 1) // 2 for e, p in zip(size, (c >> 2, (c >> 1) & 1,
+                                                        c & 1))]
+               for c in range(8)]
+        assert max(math.prod(e) for e in ext) == rows
+        group_rows = [math.prod(ext[c]) for _ in range(n) for c in range(8)]
+    counts = f32_rows_counts(plan, group_rows)
+    for nt in range(plan["ntiles"]):
+        for sample in range(n):
+            vox = np.zeros(size, np.int32)
+            for c in range(classes):
+                got = counts[(sample * classes + c, nt)]
+                if stride == 1:
+                    vox += got.reshape(size)
+                    continue
+                par = (c >> 2, (c >> 1) & 1, c & 1)
+                e = [(s - p + 1) // 2 for s, p in zip(size, par)]
+                vox[par[0]::2, par[1]::2, par[2]::2] += got.reshape(e)
+            assert (vox == 1).all()
+
+
+@pytest.mark.parametrize("sms", [132, 20])
+@pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
+def test_f32_dw_plan_sums_every_voxel_into_every_tap_once(stride, ci, co,
+                                                          size, sms):
+    """Every (tap, ci, co) of dW belongs to one block column (3 taps x 32
+    ci x bn co), whose splits cover the K chunks of all output voxels
+    exactly once, no split more than F32_DW_MAX_CHUNKS of them."""
+    n = 2
+    out = tuple((s - 1) // stride + 1 for s in size)
+    k_vox = n * math.prod(out)
+    plan = c3._f32_dw_plan(k_vox, 9 * (ci // 32), co, sms)
+    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
+    bn, splits, nch = plan["bn"], plan["splits"], plan["nch"]
+    assert (nch - 1) * c3.F32_BK < k_vox <= nch * c3.F32_BK
+    assert 1 <= splits <= nch
+    owner = np.zeros((27, ci, co), np.int32)
+    for mx in range(9 * (ci // 32)):
+        tg, ct = divmod(mx, ci // 32)
+        for nt in range(co // bn):
+            for kw in range(3):
+                owner[tg * 3 + kw, ct * 32:(ct + 1) * 32,
+                      nt * bn:(nt + 1) * bn] += 1
+    assert (owner == 1).all()
+    assert plan["tiles"] == 9 * (ci // 32) * (co // bn)
+    chunks = np.zeros(nch, np.int32)
+    for sp in range(splits):
+        first, end = c3.f32_tile_range(sp, splits, nch)
+        assert end - first <= c3.F32_DW_MAX_CHUNKS
+        chunks[first:end] += 1
+    assert (chunks == 1).all()
+
+
+def test_f32_flagship_plans_fill_the_card():
+    """At the flagship's shapes on 132 SMs every fp32 launch has at least
+    one block an SM."""
+    for stride, ci, co, size in F32_SHAPES[:5] + F32_SHAPES[7:9]:
+        out = tuple((s - 1) // stride + 1 for s in size)
+        fwd = c3._f32_rows_plan(math.prod(out), co, 2, 132)
+        rows, classes = c3._dx_classes(size, stride)
+        dx = c3._f32_rows_plan(rows, ci, 2 * classes, 132, b_kmajor=False)
+        dw = c3._f32_dw_plan(2 * math.prod(out), 9 * (ci // 32), co, 132)
+        assert dw["tiles"] * dw["splits"] >= 132
+        for p, z in ((fwd, 2), (dx, 2 * classes)):
+            assert p["nb"] * p["ntiles"] * z >= min(
+                132, p["mtiles"] * p["ntiles"] * z)

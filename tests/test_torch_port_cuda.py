@@ -17,7 +17,12 @@ kernels against the plain fp32 path: loss within 1e-2 relative and the
 gradients of each top-level module at cosine >= 0.95 (bf16 rounding between
 ~40 instance norms; 0.984 measured for the encoder in the same comparison
 on the CPU; the full-width step's limits and measurements are in
-chip_smoke.py).
+chip_smoke.py). The fp32 kernels (FP64 MMA, csrc/conv3d_k3_f32.cu and
+csrc/upsample2x_f32.cu) against their plain versions evaluated in fp64 on
+the same inputs: relative L2 1e-5 for outputs, dx, dW and the pre-op
+backward's sums, 1e-5 relative for the statistics, bit-equal over two runs;
+an fp32 kernel model's training step launches all nine fp32 kernels and
+its loss is within 1e-5 of the fp32 reference model's.
 """
 
 import dataclasses
@@ -168,7 +173,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 4, 4, 4, 32, device=dev, dtype=torch.bfloat16)
     w = torch.zeros(3, 3, 3, 32, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        conv3d_k3(x.float(), w)                        # not bf16
+        conv3d_k3(x.float(), w)                        # x, w in two dtypes
+    with pytest.raises(ValueError):
+        conv3d_k3(x.half(), w.half())                  # fp16: no kernel
+    with pytest.raises(ValueError):
+        upsample2x(x.half(), torch.zeros(2, 2, 2, 32, 32, device=dev,
+                                         dtype=torch.float16))
     with pytest.raises(ValueError):
         conv3d_k3(x[..., :16].contiguous(), w[:, :, :, :16])  # 16 channels
     with pytest.raises(ValueError):
@@ -466,7 +476,10 @@ def test_model_backward_through_kernels_matches_plain_fp32(dev):
         total.backward()
         totals.append(float(total.detach()))
     assert all(v > 0 for v in _build.LAUNCHES.values())
-    assert len(_build.LAUNCHES) == 9
+    # the nine conv and upsample kernels (the norm-act step modes launch
+    # beside them)
+    assert len([k for k in _build.LAUNCHES
+                if not k.startswith("norm_act")]) == 9
     assert abs(totals[0] - totals[1]) <= 1e-2 * abs(totals[1])
     for (name, a), b in zip(fast.named_children(), plain.children()):
         ga = torch.cat([p.grad.flatten() for p in a.parameters()
@@ -572,3 +585,163 @@ def test_device_prefetch_copies_batches_to_the_card(dev):
     with pytest.raises(ValueError, match="producer failed"):
         for _ in device_prefetch(failing(), dev):
             pass
+
+
+# ------------------------------------------------------ the fp32 kernels
+
+_F32_SHAPES = [(1, 32, 32, 9), (1, 64, 64, 6), (1, 256, 256, 4),
+               (1, 512, 512, 3), (2, 32, 64, 10), (2, 64, 128, 6),
+               (2, 64, 32, 7)]
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def _stats_rel(got, want):
+    scale = torch.maximum(want[:, 0].abs(), want[:, 1].sqrt())
+    return max(float(((got[:, 0] - want[:, 0]).abs() / scale).max()),
+               float(((got[:, 1] - want[:, 1]).abs() / want[:, 1]).max()))
+
+
+def _f64(kw):
+    return {k: v.double() if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()}
+
+
+def _f32_case(dev, stride, ci, co, extent, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    n = 2
+    size = (extent, extent + 1, extent + 2)
+    out = [(s - 1) // stride + 1 for s in size]
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
+    w = (torch.randn(3, 3, 3, ci, co, generator=g) * (27 * ci) ** -0.5).to(dev)
+    pre = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                       torch.randn(n, ci, generator=g)], 1).to(dev)
+    gy, y = (torch.randn(n, *out, co, generator=g).to(dev) for _ in range(2))
+    gs = (torch.randn(n, 2, co, generator=g) * 0.1).to(dev)
+    return x, w, pre, gy, y, gs
+
+
+@pytest.mark.parametrize("mode", ["plain", "stats", "pre_stats",
+                                  "addin_stats"])
+@pytest.mark.parametrize("stride,ci,co,extent", _F32_SHAPES)
+def test_f32_conv_kernel_matches_plain_fp64(dev, stride, ci, co, extent,
+                                            mode):
+    x, w, pre, _, y, _ = _f32_case(dev, stride, ci, co, extent)
+    kw = {"emit_stats": mode != "plain"}
+    if mode == "pre_stats":
+        kw["pre"] = pre
+    if mode == "addin_stats":
+        kw["add_to"] = y
+    name = f"conv3d_k3_s{stride}_f32"
+    before = _build.LAUNCHES[name]
+    got = conv3d_k3(x, w, stride, **kw)
+    want = conv3d_k3_plain(x.double(), w.double(), stride, **_f64(kw))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    if mode == "plain":
+        got, want = (got, None), (want, None)
+    assert got[0].dtype == torch.float32
+    assert _rel_l2(got[0], want[0]) <= 1e-5
+    if got[1] is not None:
+        assert _stats_rel(got[1], want[1]) <= 1e-5
+    again = conv3d_k3(x, w, stride, **kw)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("mode", _DX_MODES)
+@pytest.mark.parametrize("stride,ci,co,extent", _F32_SHAPES)
+def test_f32_conv_dx_kernel_matches_plain_fp64(dev, stride, ci, co, extent,
+                                               mode):
+    x, w, pre, gy, y, gs = _f32_case(dev, stride, ci, co, extent)
+    kw = _dx_kwargs(mode, x, y, gs, pre)
+    got = conv3d_k3_dx(gy, w, stride, **kw)
+    want = conv3d_k3_dx_plain(gy.double(), w.double(), stride, **_f64(kw))
+    again = conv3d_k3_dx(gy, w, stride, **kw)
+    torch.cuda.synchronize()
+    got, want, again = ((t if isinstance(t, tuple) else (t,))
+                        for t in (got, want, again))
+    for g, wv, a in zip(got, want, again):
+        assert g.dtype == torch.float32
+        assert _rel_l2(g, wv) <= 1e-5
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("mode", ["plain", "pre", "corr", "pre_corr"])
+@pytest.mark.parametrize("stride,ci,co,extent", _F32_SHAPES)
+def test_f32_conv_dw_kernel_matches_plain_fp64(dev, stride, ci, co, extent,
+                                               mode):
+    x, w, pre, gy, y, gs = _f32_case(dev, stride, ci, co, extent)
+    kw = {}
+    if "pre" in mode:
+        kw["pre"] = pre
+    if "corr" in mode:
+        kw.update(y=y, gs=gs)
+    got = conv3d_k3_dw(x, gy, stride, **kw)
+    want = conv3d_k3_dw_plain(x.double(), gy.double(), stride, **_f64(kw))
+    again = conv3d_k3_dw(x, gy, stride, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, want) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("ci,co,extent", _UP_BWD)
+def test_f32_upsample_kernels_match_plain_fp64(dev, ci, co, extent):
+    g = torch.Generator().manual_seed(0)
+    n = 2
+    x = torch.randn(n, extent, extent + 1, extent, ci, generator=g).to(dev)
+    wf = (torch.randn(2, 2, 2, ci, co, generator=g) * (8 * co) ** -0.5).to(dev)
+    gy = torch.randn(n, 2 * extent, 2 * extent + 2, 2 * extent, co,
+                     generator=g).to(dev)
+    for fn, ref, args in ((upsample2x, upsample_plain, (x, wf)),
+                          (upsample2x_dx, upsample2x_dx_plain, (gy, wf)),
+                          (upsample2x_dw, upsample2x_dw_plain, (x, gy))):
+        got, again = fn(*args), fn(*args)
+        want = ref(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert _rel_l2(got, want) <= 1e-5, fn.__name__
+        assert torch.equal(got, again), fn.__name__
+
+
+def test_f32_model_step_launches_the_f32_kernels(dev):
+    """An fp32 kernel model's training step at 32^3: all nine fp32 conv and
+    upsample kernels launched, no bf16 one, and the loss and gradients
+    against the fp32 reference model (kernels off) from the same weights."""
+    plan = plan_from_autoconfig(
+        (32, 32, 32), 1,
+        [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
+        max_features=256, use_pallas_conv=True)
+    fast = ResEncUNet(plan, dtype=torch.float32, seed=0).to(dev)
+    plain = ResEncUNet(dataclasses.replace(plan, use_pallas_conv=False),
+                       dtype=torch.float32, seed=0).to(dev)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 32, 32, 32, 1, generator=g).to(dev)
+
+    def loss_and_grads(model):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = model(x)
+        loss = sum(v.float().square().mean() for v in out.values())
+        loss.backward()
+        return float(loss), torch.cat([p.grad.flatten()
+                                       for p in model.parameters()
+                                       if p.grad is not None])
+
+    _build.LAUNCHES.clear()
+    loss, grads = loss_and_grads(fast)
+    names = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x", "conv3d_k3_dx_s1",
+             "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
+             "upsample2x_dx", "upsample2x_dw")
+    assert all(_build.LAUNCHES[f"{k}_f32"] > 0 for k in names), \
+        dict(_build.LAUNCHES)
+    assert not any(_build.LAUNCHES[k] for k in names)
+    want_loss, want_grads = loss_and_grads(plain)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    # gradients at random init move with LeakyReLU inputs within fp32
+    # rounding of 0 (up to ~2% of a deep weight's gradient): all of them
+    # together by relative L2
+    assert _rel_l2(grads, want_grads) <= 1e-2

@@ -2,13 +2,20 @@
 on the CPU.
 
 * Routing by dtype (``use_pallas_conv=True``, a 16^3 three-stage plan whose
-  convs and upsamples lie in the kernels' shape classes): a bf16 model's
-  forward and backward reach ``Conv3dK3Fn``, ``Conv3dK3PairFn`` and
-  ``Upsample2xFn``; an fp32 or fp16 model's reach none of them (the
-  kernels take bf16 only: fp32 goes to ``conv3d_k3_plain`` /
-  ``upsample_plain``, fp16 to ``ops/lowp.py``). The norm-act Functions are
+  convs and upsamples lie in the kernels' shape classes): a bf16 or fp32
+  model's forward and backward reach ``Conv3dK3Fn``, ``Conv3dK3PairFn``
+  and ``Upsample2xFn`` (the kernels take both); an fp16 model's reach none
+  of them (fp16 goes to ``ops/lowp.py``). The norm-act Functions are
   reached exactly as often as ``models/network.py::norm_launches`` derives
   for each dtype (none at fp16).
+* The three Functions at fp32 in every mode (pre-op, stats, stride 1 and
+  2, the split-weight pair with its add-in, the upsample): outputs,
+  statistics and every input's gradient against autograd of the fp32
+  plain functions (FN_F32_TOL), and an fp32 kernel model against the JAX
+  model at fp32 with ``use_pallas_conv=True``, its Pallas kernels in
+  interpret mode: outputs to JAX_FWD_TOL of their max abs, every gradient
+  by relative L2 (JAX_GRAD_TOL) and cosine (JAX_MIN_COS), PERF.md's CPU
+  limits.
 * ``compute_dtype`` float32 and float16: the port's ``Trainer`` (kernels
   on) against the JAX ``Trainer`` (its XLA path) for two SGD steps from
   the JAX trainer's initial parameters, on the same synthetic dataset
@@ -70,6 +77,10 @@ DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
 PATCH = (16, 16, 16)
 FN_BF16_TOL = 6e-2    # 5x the measured 1.2e-2
+# the fp32 Functions against autograd of their plain versions: the same
+# fp32 products summed in another order (relative L2)
+FN_F32_TOL = 1e-5
+JAX_FWD_TOL, JAX_GRAD_TOL, JAX_MIN_COS = 1e-4, 0.1, 0.995
 LR = {"float32": 0.1, "float16": 0.01}
 # (loss relative error, relative L2 of the parameters' change)
 TRAINER_LIMITS = {"float32": (1e-5, 1e-4),     # measured 1.6e-6, 2.3e-5
@@ -164,11 +175,16 @@ def dispatch():
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
-def test_only_bf16_reaches_the_conv_and_upsample_kernels(dispatch, dtype):
+@pytest.mark.parametrize("dtype,reaches", [("float32", True),
+                                           ("float16", False),
+                                           ("bfloat16", True)])
+def test_only_bf16_reaches_the_conv_and_upsample_kernels(dispatch, dtype,
+                                                         reaches):
+    """Which dtypes reach the conv and upsample kernels' Functions: bf16
+    and fp32 (the kernels take both), not fp16."""
     calls = dispatch[dtype][0]
     names = ("Conv3dK3Fn", "Conv3dK3PairFn", "Upsample2xFn")
-    if dtype == "bfloat16":
+    if reaches:
         assert all(calls[n] > 0 for n in names), calls
     else:
         assert all(calls[n] == 0 for n in names), calls
@@ -259,6 +275,167 @@ def test_bf16_functions_backward_matches_autograd_of_plain(monkeypatch):
         assert sc > 0, name
         worst = max(worst, float((g - want[name]).abs().max()) / sc)
     assert worst <= FN_BF16_TOL, worst
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).norm() / want.norm())
+
+
+def _f32_case(mode: str, seed: int = 0):
+    """Inputs of one fp32 Function case, from numpy at ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32)
+                            * scale, requires_grad=True)
+
+    n, ci, co = 2, 32, 64
+    if mode == "upsample":
+        return dict(x=t(n, 3, 4, 4, 64), wf=t(2, 2, 2, 64, 32, scale=0.1))
+    stride = 2 if "s2" in mode else 1
+    ext = (6, 4, 8) if stride == 2 else (5, 4, 6)
+    case = dict(stride=stride, x=t(n, *ext, ci),
+                w=t(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5))
+    if "pre" in mode:
+        pre = np.stack([rng.random((n, ci)) + 0.5,
+                        rng.standard_normal((n, ci))], 1)
+        case["pre"] = torch.tensor(pre.astype(np.float32), requires_grad=True)
+    if mode.startswith("pair"):
+        case["x2"] = t(n, *ext, co)
+        case["w"] = t(3, 3, 3, ci + co, co, scale=(27 * (ci + co)) ** -0.5)
+    return case
+
+
+def _f32_apply(mode, case, fn):
+    """The outputs of one case through the Functions (``fn`` True) or the
+    plain functions under autograd, and a scalar loss of them that weighs
+    y and both statistics."""
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    from mt3d_resenc_unet_torch.ops import upsample as up
+    if mode == "upsample":
+        y = (up.Upsample2xFn.apply(case["x"], case["wf"]) if fn
+             else up.upsample_plain(case["x"], case["wf"]))
+        return (y,), (y * torch.linspace(-1, 1, y.numel()).reshape(
+            y.shape)).sum()
+    s = case["stride"]
+    if mode.startswith("pair"):
+        x1, x2, w = case["x"], case["x2"], case["w"]
+        if fn:
+            y, st = c3.Conv3dK3PairFn.apply(x1, x2, w, s)
+        else:
+            c1 = x1.shape[-1]
+            y1 = c3.conv3d_k3_plain(x1, w[..., :c1, :], s)
+            y, st = c3.conv3d_k3_plain(x2, w[..., c1:, :], s, add_to=y1,
+                                       emit_stats=True)
+    else:
+        pre = case.get("pre")
+        if fn:
+            y, st = c3.Conv3dK3Fn.apply(case["x"], case["w"], pre, s, SLOPE)
+        else:
+            y, st = c3.conv3d_k3_plain(case["x"], case["w"], s, pre=pre,
+                                       emit_stats=True, negative_slope=SLOPE)
+    weights = torch.linspace(-1, 1, y.numel()).reshape(y.shape)
+    loss = (y * weights).sum() + 1e-3 * st[:, 0].sum() + 1e-4 * st[:, 1].sum()
+    return (y, st), loss
+
+
+SLOPE = 1e-2
+F32_MODES = ("stats", "pre_stats", "s2_stats", "s2_pre_stats", "pair",
+             "pair_s2", "upsample")
+
+
+@pytest.mark.parametrize("mode", F32_MODES)
+def test_fp32_functions_match_autograd_of_plain(mode):
+    """Conv3dK3Fn (stats, pre-op, stride 1 and 2), Conv3dK3PairFn (the
+    add-in at stride 1 and 2) and Upsample2xFn at fp32: forward outputs,
+    statistics and the gradients of every input (x, x2, w, wf, pre)
+    against autograd of the fp32 plain functions, by relative L2."""
+    case = _f32_case(mode)
+    got_out, got_loss = _f32_apply(mode, case, True)
+    got_loss.backward()
+    got = {k: v.grad.clone() for k, v in case.items()
+           if isinstance(v, torch.Tensor)}
+    for v in case.values():
+        if isinstance(v, torch.Tensor):
+            v.grad = None
+    want_out, want_loss = _f32_apply(mode, case, False)
+    want_loss.backward()
+    for g, w in zip(got_out, want_out):
+        assert g.dtype == torch.float32
+        assert _rel_l2(g, w) <= FN_F32_TOL
+    for k, v in case.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k] is not None and v.grad is not None, k
+            assert _rel_l2(got[k], v.grad) <= FN_F32_TOL, (k, _rel_l2(
+                got[k], v.grad))
+
+
+@pytest.fixture(scope="module")
+def jax_fp32_kernels():
+    """The 16^3 plan of the routing tests at fp32 with the kernels on in
+    both packages, the JAX model's Pallas kernels in interpret mode; the
+    same numpy weights and batch: (JAX outputs and gradients, the port's,
+    the port's Function applies)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from mt3d_resenc_unet_tpu.core.plan import TaskHead as JTaskHead
+    from mt3d_resenc_unet_tpu.core.plan import plan_from_autoconfig as jplan
+    jp = jplan(PATCH, 1, [JTaskHead("sheet", 1, "sigmoid"),
+                          JTaskHead("normals", 3, "none")], max_features=64,
+               use_pallas_conv=True)
+    jmodel = JaxUNet(plan=jp, dtype=jnp.float32)
+    x = np.random.default_rng(1).random((2,) + PATCH + (1,), np.float32)
+    # the same parameter tree from the XLA plan, whose init is quick
+    xla = JaxUNet(plan=dataclasses.replace(jp, use_pallas_conv=False),
+                  dtype=jnp.float32)
+    params = jax.jit(lambda k: xla.init({"params": k}, jnp.asarray(x),
+                                        train=False))(
+        jax.random.key(0))["params"]
+
+    def loss(p):
+        out = jmodel.apply({"params": p}, jnp.asarray(x), train=True)
+        return sum(jnp.mean(jnp.square(v.astype(jnp.float32)))
+                   for v in out.values()), out
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, jout), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            params)
+    model = ResEncUNet(_plan(), dtype=torch.float32)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    model.train()
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _spy_functions(mp)
+        out = model(torch.from_numpy(x))
+        sum(v.float().square().mean() for v in out.values()).backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return ({k: np.asarray(v) for k, v in jout.items()},
+            params_from_jax(jax.tree.map(np.asarray, jgrads)),
+            {k: v.detach().numpy() for k, v in out.items()}, grads, calls)
+
+
+def test_fp32_kernel_model_matches_jax_pallas_forward(jax_fp32_kernels):
+    jout, _, out, _, calls = jax_fp32_kernels
+    assert all(calls[n] > 0 for n in ("Conv3dK3Fn", "Conv3dK3PairFn",
+                                      "Upsample2xFn")), calls
+    assert sorted(out) == sorted(jout)
+    for k in jout:
+        assert out[k].dtype == np.float32
+        sc = float(np.abs(jout[k]).max())
+        assert float(np.abs(out[k] - jout[k]).max()) <= JAX_FWD_TOL * sc, k
+
+
+def test_fp32_kernel_model_matches_jax_pallas_gradients(jax_fp32_kernels):
+    _, jgrads, _, grads, _ = jax_fp32_kernels
+    assert sorted(grads) == sorted(jgrads)
+    for name, g in grads.items():
+        w = jgrads[name].numpy().ravel()
+        if g is None:   # unused in the forward; JAX's gradient is 0
+            assert not w.any(), name
+            continue
+        g = g.numpy().ravel()
+        dist = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        cos = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+        assert dist <= JAX_GRAD_TOL and cos >= JAX_MIN_COS, (name, dist, cos)
 
 
 # ----------------------------------------------------- trainers against JAX

@@ -17,13 +17,19 @@ output tile owned by exactly one block of each split; the staging map must
 give every fine voxel of a tile its own row, with the 8 consecutive coarse
 voxels of one parity in 8 consecutive rows, and the kernels' XOR swizzle
 must put such 8 rows, and each 8 threads' reads of the forward's staged
-outputs, in 8 distinct shared-memory bank groups.
+outputs, in 8 distinct shared-memory bank groups. The fp32 kernels' plan
+(``_up_f32_plan``, csrc/upsample2x_f32.cu) at the same shapes: every
+output written once, every coarse voxel summed into every (parity, ci,
+co) of dW once, and each block's shared memory within 48 KiB.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from mt3d_resenc_unet_torch.ops import conv3d as c3
 from mt3d_resenc_unet_torch.ops import upsample as up
 
 # (ci, co, coarse extent) of the flagship's upsamples, then odd cases
@@ -341,3 +347,60 @@ def test_fwd_store_reads_spread_over_the_banks(tm, po):
         hhs = {hh for hh, _ in spans}
         pos = sorted(p for _, p in spans)
         assert len(hhs) == 1 and pos == list(range(pos[0], pos[0] + 32))
+
+
+# ------------------------------------------------- the fp32 kernels' plans
+#
+# csrc/upsample2x_f32.cu: the forward's blocks (b, tile, sample), a tile
+# being bn channels of one parity (8 x co / bn tiles), and dx's (bn of ci)
+# take the m-tiles conv3d.f32_tile_range(b, nb, mtiles) of a sample's
+# coarse voxels; dW's blocks (parity x ci tile, co tile, split) the K
+# chunks f32_tile_range(split, splits, nch) of the batch's coarse voxels.
+
+F32_SMEM = 48 * 1024     # static shared memory, under the H100's 232,448
+
+
+def _f32_row_counts(plan, rows, n):
+    counts = np.zeros((n, plan["ntiles"], rows), np.int32)
+    for z in range(n):
+        for nt in range(plan["ntiles"]):
+            for b in range(plan["nb"]):
+                first, end = c3.f32_tile_range(b, plan["nb"], plan["mtiles"])
+                for mt in range(first, end):
+                    counts[z, nt, mt * plan["bm"]:(mt + 1) * plan["bm"]] += 1
+    return counts
+
+
+@pytest.mark.parametrize("sms", [132, 20])
+@pytest.mark.parametrize("ci,co,size", SHAPES, ids=IDS)
+def test_f32_plans_write_every_output_once(ci, co, size, sms):
+    """The forward writes each fine voxel 2q + p's channels once (each
+    coarse row once per (parity, channel tile)), dx each coarse voxel's
+    channels once, and dW sums every coarse voxel into every (parity, ci,
+    co) once, no split summing more than F32_DW_MAX_CHUNKS chunks."""
+    n, rows = 2, math.prod(size)
+    plan = up._up_f32_plan(n, size, ci, co, sms)
+    fwd, dx, dw = plan["fwd"], plan["dx"], plan["dw"]
+    assert fwd["ntiles"] * fwd["bn"] == 8 * co and co % fwd["bn"] == 0
+    assert dx["ntiles"] * dx["bn"] == ci
+    for p in (fwd, dx, dw):
+        assert p["smem"] <= F32_SMEM
+    for p in (fwd, dx):
+        assert 1 <= p["nb"] <= p["mtiles"] == -(-rows // p["bm"])
+        assert (_f32_row_counts(p, rows, n) == 1).all()
+    bm, bn = dw["bm"], dw["bn"]
+    assert ci % bm == 0 and co % bn == 0
+    owner = np.zeros((8, ci, co), np.int32)
+    for mx in range(8 * (ci // bm)):
+        par, ct = divmod(mx, ci // bm)
+        for nt in range(co // bn):
+            owner[par, ct * bm:(ct + 1) * bm, nt * bn:(nt + 1) * bn] += 1
+    assert (owner == 1).all()
+    nch = dw["nch"]
+    assert (nch - 1) * c3.F32_BK < n * rows <= nch * c3.F32_BK
+    chunks = np.zeros(nch, np.int32)
+    for sp in range(dw["splits"]):
+        first, end = c3.f32_tile_range(sp, dw["splits"], nch)
+        assert end - first <= c3.F32_DW_MAX_CHUNKS
+        chunks[first:end] += 1
+    assert (chunks == 1).all()
