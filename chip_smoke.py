@@ -54,7 +54,10 @@ Phases (any failure exits non-zero and prints no result line):
      the same function (``library_ms``: cuDNN through F.conv3d /
      F.conv_transpose3d on the tensors viewed as channels-last NCDHW), the
      kernel's TFLOP/s and its bound (the larger of FLOPs at 989 TFLOP/s and
-     bytes at 3.35 TB/s); (2f) the same cases through the fp32 kernels
+     bytes at 3.35 TB/s); (2h) the same cases through the fp16 kernels
+     (``*_f16``: the bf16 sources instantiated on ``__half``) on fp16
+     tensors against the plain version on them, F16_TOL, library ms of the
+     fp16 cuDNN call; (2f) the same cases through the fp32 kernels
      (``conv3d_k3_*_f32``, ``upsample2x_f32``: FP64 MMA, csrc/
      conv3d_k3_f32.cu and upsample2x_f32.cu) on fp32 tensors, held by
      relative L2 F32_TOL (statistics F32_STATS_TOL) against the plain
@@ -99,7 +102,10 @@ Phases (any failure exits non-zero and prints no result line):
      and tail-backward kernels at the flagship's norm shapes: every output,
      statistic and [sum du*x; sum du] must be bit-equal (they sum in a
      fixed order, without floating-point atomics); (a) and (d) run the
-     nine fp32 kernels too, held as in (2f). (e) The
+     nine fp32 kernels too, held as in (2f), and the nine fp16 ones, held
+     as in (2h) ((a) adds the stride-1 dx and dW from a cotangent at
+     F16_SMALL, fp16 subnormals; (d) the norm-act kernels at fp16 too).
+     (e) The
      flagship with ``squeeze_excitation=True`` (``tasks/sheet_normals.yaml``'s
      network), batch 2: the eval forward against plain fp32 with phase 3's
      limits, then TRAIN_STEPS steps as (b) with every counter zeroed before
@@ -123,7 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
      for rows 10 and 11, whose device kernels are listed once), the bound
      and its share; per kernel the sums over the cases; and the step modes'
      ms, plain ms and bound per training step (phase 5c's launches by shape
-     and mode times these cases);
+     and mode times these cases); then the op, its four kernels and the
+     step modes again at fp16 (cases named ``<kernel>_f16``, F16_TOL);
   7. the trainer: a seeded synthetic sheet + normals dataset written as
      Blosc zstd-5 bit shuffle zarr v2, as the reference writes it (image
      u8 (256, 384, 384), sheet u8, normals u16), whose first 8 samples must
@@ -244,24 +251,28 @@ Phases (any failure exits non-zero and prints no result line):
  18. the flagship step at compute dtype float32 and float16, the plan
      from the config with ``use_pallas_conv`` unset (the kernels on for
      the card), TRAIN_STEPS steps each with every counter zeroed before:
-     at fp32 all nine fp32 conv and upsample kernels launched and no bf16
-     one, at fp16 neither (rows 1-9 take bf16 and fp32); no plain version
-     of a conv or upsample kernel called (``counting_plain``); the
-     norm-act modes exactly as ``norm_launches`` derives for the dtype
-     (fp32 the kernels, fp16 none), the losses finite, the first step's
-     loss and grad_norm within DTYPE_LIMITS of the plain fp32 path's;
-     median ms beside plain's; the fp32 step's launches by shape and mode
-     times the cases of 2f and 5a give each fp32 kernel's ms, library ms
-     and bound per step;
+     all nine conv and upsample kernels of the dtype (``_f32`` / ``_f16``)
+     launched and none of another dtype; no plain version of a conv or
+     upsample kernel called (``counting_plain``); the norm-act modes
+     exactly as ``norm_launches`` derives for the dtype (fp16 as bf16),
+     the losses finite, the first step's loss and grad_norm within
+     DTYPE_LIMITS of the plain fp32 path's; median ms beside plain's; each
+     step's launches by shape and mode times the cases of 2f / 2h and 5a
+     give each fp32 and fp16 kernel's ms, library ms and bound per step,
+     and the fp16 step's norm-act modes times phase 6's fp16 cases;
  19. the flagship step with ``param_dtype`` bfloat16 and bf16 compute:
      two first steps bit-equal, TRAIN_STEPS steps with every counter
      zeroed before, all nine conv and upsample kernels launched and the
      norm-act modes as ``norm_launches`` derives; ms and peak memory
      beside phase 5b's;
- 20. the engine's device pass at compute dtype float32 (the fp32 forward
-     kernels of rows 1, 4 and 7 launch, no bf16 one) and bfloat16 on a
-     seeded (160, 256, 256) u8 Blosc volume from one checkpoint, the
-     finals held by ENGINE_DTYPE_LIMITS;
+ 20. the engine's device pass at compute dtype float32 (the fp32
+     forward kernels of rows 1, 4 and 7 launch, no other), bfloat16 and
+     float16 (run in bf16, as the JAX engine runs it: finals bit-equal to
+     bf16's) on a seeded (160, 256, 256) u8 Blosc volume from one
+     checkpoint, the fp32 finals held against the bf16 ones by
+     ENGINE_DTYPE_LIMITS; then ``predict_volume`` on that volume with an
+     fp16 kernel model (rows 1h, 4h, 7h launched) against the bf16 one,
+     phase 3's limits;
  21. the CLIs as a user runs them (``cli_phase``): ``python -m
      mt3d_resenc_unet_torch.train --config_path FILE --verbose`` and
      ``python -m mt3d_resenc_unet_torch.infer --config_path FILE`` in
@@ -305,7 +316,8 @@ Two processes time-sharing one card measure correctness, not scaling.
 Every worker process has a DIST_TIMEOUT_S limit; its failure fails the
 run.
 Then one JSON line of the thirteen kernels, the three step modes of the
-norm-act kernels and the nine fp32 conv and upsample kernels (launches;
+norm-act kernels, the nine fp32 conv and upsample kernels and all sixteen
+at fp16 (``_f16``; launches;
 ``max_abs_err``, the worst case's: for a bf16 or norm-act kernel its max
 abs difference from the plain version over the plain output's max abs,
 for an fp32 kernel its relative L2 from the plain version evaluated in
@@ -313,9 +325,9 @@ fp64; ``stats_err``, the worst statistics or [sum du*x; sum du] error
 of the same kind as the phase's limit on it, or null where the kernel
 emits none; ms, plain_ms, library_ms and bound_ms summed over each
 kernel's cases; the conv and upsample kernels' launches from phase 7's
-trainer, the fp32 ones' from phase 18's fp32 step, the norm-act op's
-from phase 6, the step modes' from phase 5c) and, last, the device
-line.
+trainer, the fp32 and fp16 ones' and the fp16 step modes' from phase
+18's steps, the norm-act op's from phase 6, the bf16 step modes' from
+phase 5c) and, last, the device line.
 
 Imports torch and the port only: nothing of JAX or of the JAX package.
 """
@@ -370,6 +382,16 @@ DST_TOL = 1e-3             # [sum du*x; sum du] of the pre-op backward
 # in fp32, TF32 off) is printed beside each case
 F32_TOL = 1e-5
 F32_STATS_TOL = 1e-5
+# the fp16 kernels (the bf16 sources on __half) against the plain version on
+# the same fp16 inputs: both round fp32 sums taken in another order to
+# fp16, one fp16 step (2^-11 of a value) apart; statistics as bf16's. From
+# a cotangent at the flagship's ~2e-7 (F16_SMALL: fp16 subnormals) dx is
+# subnormal too, and one step is F16_SUBNORMAL_STEP (2^-24) absolute: on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W) 5% of dx's max abs at 32->32
+# @128^3, so such a case is held to the larger of the two
+F16_TOL = 2e-3
+F16_SMALL = 2e-7
+F16_SUBNORMAL_STEP = 2.0 ** -24
 SEED = 0
 # the card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W):
 # bf16 tensor cores, fp32 outside them, and HBM3
@@ -467,6 +489,16 @@ FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 F32_KERNELS = tuple(f"{k}_f32" for k in CONV_KERNELS)
 F32_FORWARD = tuple(f"{k}_f32" for k in FORWARD)
 REPLACES.update({f"{k}_f32": REPLACES[k] for k in CONV_KERNELS})
+# rows 1-11 at compute dtype float16: the bf16 sources instantiated on
+# __half (csrc/b16.cuh; the conv and upsample wrappers count them as
+# <name>_f16) and the norm-act kernels at fp16 (counted under their own
+# names at every dtype; their fp16 cases here are named <name>_f16)
+F16_KERNELS = tuple(f"{k}_f16" for k in CONV_KERNELS)
+F16_FORWARD = tuple(f"{k}_f16" for k in FORWARD)
+F16_NORM = tuple(f"{k}_f16" for k in NORM_KERNELS)
+F16_TAIL = tuple(f"{k}_f16" for k in TAIL_KERNELS)
+REPLACES.update({f"{k}_f16": REPLACES[k]
+                 for k in CONV_KERNELS + NORM_KERNELS + TAIL_KERNELS})
 _CS = "mt3d_resenc_unet_torch/ops/csrc"
 SOURCES = {
     "conv3d_k3_s1": f"{_CS}/conv3d_k3_s1.cu",
@@ -482,6 +514,19 @@ SOURCES = {
     **{f"{name}_f32": f"{_CS}/upsample2x_f32.cu" if "upsample" in name
        else f"{_CS}/conv3d_k3_f32.cu" for name in CONV_KERNELS},
 }
+SOURCES.update({f"{k}_f16": SOURCES[k]
+                for k in CONV_KERNELS + NORM_KERNELS + TAIL_KERNELS})
+
+
+def dtype_tols(dtype):
+    """(suffix, element bytes, output limit, sums limit) of the kernels at
+    ``dtype``: bf16 KERNEL_TOL, fp16 F16_TOL (both STATS_TOL), fp32
+    F32_TOL / F32_STATS_TOL."""
+    if dtype == torch.float32:
+        return "_f32", 4, F32_TOL, F32_STATS_TOL
+    if dtype == torch.float16:
+        return "_f16", 2, F16_TOL, STATS_TOL
+    return "", 2, KERNEL_TOL, STATS_TOL
 
 
 def median_ms(fn, reps=7, warmup=2):
@@ -652,7 +697,8 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                  timed=True, dtype=None):
     """Phase 2 (and the ink plan's forward cases in phase 10, untimed: no
     ms, and no library call), for the bf16 kernels or, with ``dtype``
-    float32, the fp32 ones (names ending in ``_f32``). Returns (per-case
+    float32 / float16, the fp32 / fp16 ones (names ending in ``_f32`` /
+    ``_f16``; fp16 held by F16_TOL). Returns (per-case
     records, failures). Each record holds the kernel's and the plain
     version's median ms, the library call's in the same dtype
     (``library_ms``: cuDNN through F.conv3d / F.conv_transpose3d on the
@@ -667,8 +713,7 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
     from mt3d_resenc_unet_torch.ops.upsample import upsample2x, upsample_plain
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
-    sfx, esize = ("_f32", 4) if f32 else ("", 2)
-    tol, s_tol = (F32_TOL, F32_STATS_TOL) if f32 else (KERNEL_TOL, STATS_TOL)
+    sfx, esize, tol, s_tol = dtype_tols(dtype)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -933,6 +978,12 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     failures += fails
     lap("2f (fp32 kernels)")
     records += f32
+    # 2h. the fp16 kernels (the bf16 sources on __half) vs plain
+    f16, fails = kernel_cases(dev, gen_dev, conv_cases, s2_cases, up_cases,
+                              dtype=torch.float16)
+    failures += fails
+    lap("2h (fp16 kernels)")
+    records += f16
     smi = card()
     for r in records:
         p_err = ("" if r["plain_err"] is None
@@ -1005,7 +1056,11 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                                   up_cases, dtype=torch.float32)
     failures += fails
     lap("5a (fp32 backward kernels)")
-    bwd += bwd32
+    bwd16, fails = backward_cases(dev, gen_dev, conv_cases, s2_cases,
+                                  up_cases, dtype=torch.float16)
+    failures += fails
+    lap("5a (fp16 backward kernels)")
+    bwd += bwd32 + bwd16
     records += bwd
     for r in bwd:
         dst = "" if r["dst_err"] is None else f" dst {r['dst_err']:.3e}"
@@ -1025,6 +1080,11 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                                     up_cases, dtype=torch.float32)
     torch.cuda.empty_cache()
     lap("5d (fp32 bit-equal)")
+    failures += deterministic_cases(dev, gen_dev, conv_cases, s2_cases,
+                                    up_cases, norm_cases,
+                                    dtype=torch.float16)
+    torch.cuda.empty_cache()
+    lap("5d (fp16 bit-equal)")
 
     # 5b, 5c. the flagship training step
     step_summary, step_launches, step_shapes, fails = training(
@@ -1048,6 +1108,15 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     failures += fails
     tail, fails = norm_tail_cases(dev, gen_dev, norm_cases)
     failures += fails
+    # ... and at fp16 (records named <kernel>_f16)
+    norm16, op16, fails = norm_act_cases(dev, gen_dev, norm_cases,
+                                         torch.float16)
+    failures += fails
+    tail16, fails = norm_tail_cases(dev, gen_dev, norm_cases, torch.float16)
+    failures += fails
+    op_launches.update(op16)
+    norm += norm16
+    tail += tail16
     records += norm + tail
     for r in norm + tail:
         lib = ("" if r["library_ms"] is None
@@ -1056,7 +1125,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
               f"{r['max_abs_err']:.3e}  {r['ms']:.3f} ms  plain "
               f"{r['plain_ms']:.3f} ms{lib}  bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%})")
-    for name in NORM_KERNELS + TAIL_KERNELS:
+    for name in NORM_KERNELS + TAIL_KERNELS + F16_NORM + F16_TAIL:
         mine = [r for r in norm + tail if r["kernel"] == name]
         ms = sum(r["ms"] for r in mine)
         b_ms = sum(r["bound_ms"] for r in mine)
@@ -1074,7 +1143,7 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
                                                         step_rate)
     failures += fails
     launches = {**{k: train_launches.get(k, 0) for k in CONV_KERNELS},
-                **{k: op_launches.get(k, 0) for k in NORM_KERNELS},
+                **{k: op_launches.get(k, 0) for k in NORM_KERNELS + F16_NORM},
                 **{k: step_launches.get(k, 0) for k in TAIL_KERNELS}}
     failures += [f"kernels line: {k} has no launches"
                  for k, v in launches.items() if v <= 0]
@@ -1129,13 +1198,23 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     failures += codec_phase()
 
     # 18. the flagship step at compute dtype float32 and float16
-    fails, f32_launches, f32_shapes = dtype_phase(dev, patch)
+    fails, step_runs = dtype_phase(dev, patch)
     failures += fails
+    f32_launches, f32_shapes = step_runs["float32"]
+    f16_launches, f16_shapes = step_runs["float16"]
     step_table(records, f32_shapes, TRAIN_STEPS, F32_KERNELS,
                "phase 18's fp32 launches x phase 2f / 5a fp32 cases")
-    launches.update(f32_launches)
+    step_table(records, f16_shapes, TRAIN_STEPS, F16_KERNELS,
+               "phase 18's fp16 launches x phase 2h / 5a fp16 cases")
+    norm_step_table(tail, f16_shapes, TRAIN_STEPS, "_f16",
+                    "phase 18's fp16 launches x phase 6 fp16 cases")
+    launches.update({k: f32_launches.get(k, 0) for k in F32_KERNELS})
+    launches.update({k: f16_launches.get(k, 0) for k in F16_KERNELS})
+    launches.update({k + "_f16": f16_launches.get(k, 0)
+                     for k in TAIL_KERNELS})
     failures += [f"kernels line: {k} has no launches"
-                 for k in F32_KERNELS if launches.get(k, 0) <= 0]
+                 for k in F32_KERNELS + F16_KERNELS + F16_TAIL
+                 if launches.get(k, 0) <= 0]
     torch.cuda.empty_cache()
 
     # 19. the flagship step with param_dtype bfloat16
@@ -1186,9 +1265,13 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
 def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                    timed=True, dtype=None):
     """Phase 5a (and the ink plan's backward cases in phase 10, untimed),
-    for the bf16 kernels or, with ``dtype`` float32, the fp32 ones, held
-    as :func:`kernel_cases` holds them (dst, the pre-op backward's [sum
-    du*x; sum du], by DST_TOL or F32_STATS_TOL). Returns (per-case
+    for the bf16 kernels or, with ``dtype`` float32 / float16, the fp32 /
+    fp16 ones, held as :func:`kernel_cases` holds them (dst, the pre-op
+    backward's [sum du*x; sum du], by DST_TOL or F32_STATS_TOL); at fp16
+    also the stride-1 dx and dW of the first shape with the correction from
+    a cotangent at F16_SMALL (mode ``corr_small``, fp16 subnormals; dx held
+    to the larger of F16_TOL and one F16_SUBNORMAL_STEP over its max abs).
+    Returns (per-case
     records, failures). ``library_ms`` is the cuDNN call of the same
     function in the same dtype: ``torch.nn.grad.conv3d_input`` /
     ``conv3d_weight`` for the conv, ``aten.convolution_backward`` of the
@@ -1203,8 +1286,8 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                                                      upsample2x_dx_plain)
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
-    sfx, esize = ("_f32", 4) if f32 else ("", 2)
-    tol, d_tol = (F32_TOL, F32_STATS_TOL) if f32 else (KERNEL_TOL, DST_TOL)
+    sfx, esize, tol, _ = dtype_tols(dtype)
+    d_tol = F32_STATS_TOL if f32 else DST_TOL
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -1225,16 +1308,20 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
     todo += [(s, ci, co, e, "dx", m) for s, ci, co, e in s2_cases
              for m in S2_DX_MODES]
     todo += [(s, ci, co, e, "dw", "corr") for s, ci, co, e in s2_cases]
+    if dtype == torch.float16 and conv_cases:
+        todo += [tuple(conv_cases[0]) + (op, "corr_small")
+                 for op in ("dx", "dw")]
     lib_ms = {}
     for stride, ci, co, extent, op, mode in todo:
         eo = tuple(e // stride for e in _ext(extent))
+        small = F16_SMALL if mode == "corr_small" else 1.0
         x = randn(n, *_ext(extent), ci).to(dtype)
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(dtype)
-        gy = randn(n, *eo, co).to(dtype)
+        gy = randn(n, *eo, co, scale=small).to(dtype)
         kw = {}
         if "corr" in mode:
             kw.update(y=randn(n, *eo, co).to(dtype),
-                      gs=randn(n, 2, co, scale=0.1))
+                      gs=randn(n, 2, co, scale=0.1 * small))
         if mode in ("pre", "pre_corr", "corr_post"):
             kw["pre"] = torch.stack(
                 [torch.rand(n, ci, generator=gen, device=gen.device) * 1.5
@@ -1298,7 +1385,19 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                             library_ms=lib_ms.get(key), bound_ms=b_ms,
                             bound_by=b_by,
                             tflops=flops / ms / 1e9 if timed else None))
-        if not err <= tol or (dst_err is not None and not dst_err <= d_tol):
+        ok = err <= tol
+        if mode == "corr_small":
+            # the absolute difference in fp64, exact for fp16 values
+            top = float(want.abs().max())
+            diff = float((got.double() - want.double()).abs().max())
+            limit = max(tol * top, F16_SUBNORMAL_STEP if op == "dx" else 0)
+            ok = diff <= limit
+            print(f"  {name} {case}: gy max {float(gy.abs().max()):.3e} "
+                  f"(fp16 subnormal below 6.1e-5), {op} max {top:.3e}, "
+                  f"max abs diff {diff:.3e} (limit {limit:.3e})")
+            if not float(got.abs().max()) > 0:
+                failures.append(f"{name} {case}: all zero")
+        if not ok or (dst_err is not None and not dst_err <= d_tol):
             failures.append(f"{name} {case}: err {err} dst {dst_err}")
         del x, w, gy, kw, got, want, fn, ref, ref64
     for ci, co, extent in up_cases:
@@ -1357,9 +1456,10 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases,
     kernel in both modes, the bwd-stats kernel, and the tail forward and
     backward with a residual through (a, b). Every output, statistic and
     [sum du*x; sum du] must be bit-equal: the kernels sum in a fixed
-    order, without floating-point atomics. With ``dtype`` float32 the fp32
-    conv and upsample kernels (names ending in ``_f32``). Returns the
-    failures."""
+    order, without floating-point atomics. With ``dtype`` float32 /
+    float16 the fp32 / fp16 conv and upsample kernels (names ending in
+    ``_f32`` / ``_f16``) and the norm-act kernels in that dtype. Returns
+    the failures."""
     from mt3d_resenc_unet_torch.ops.conv3d import (conv3d_k3, conv3d_k3_dw,
                                                    conv3d_k3_dx)
     from mt3d_resenc_unet_torch.ops.upsample import (upsample2x,
@@ -1367,7 +1467,7 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases,
                                                      upsample2x_dx)
     failures, n = [], 2
     dtype = dtype or torch.bfloat16
-    sfx = "_f32" if dtype == torch.float32 else ""
+    sfx = dtype_tols(dtype)[0]
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=gen.device)
@@ -1419,19 +1519,19 @@ def deterministic_cases(dev, gen, conv_cases, s2_cases, up_cases,
         del x, wf, gy
     from mt3d_resenc_unet_torch.ops import norm_act as na
     for extent, c in norm_cases:
-        x2, r2, g2 = (randn(n, extent ** 3, c).bfloat16() for _ in range(3))
+        x2, r2, g2 = (randn(n, extent ** 3, c).to(dtype) for _ in range(3))
         inv, a = (torch.rand(n, c, generator=gen, device=gen.device).to(dev)
                   + 0.5 for _ in range(2))
         shift, b = randn(n, c), randn(n, c)
         st = na.norm_act_stats(x2)
         shape = f"{extent}^3 x {c}"
-        check("norm_act_stats", shape, lambda: na.norm_act_stats(x2))
-        check("norm_act_raw_stats", shape, lambda: na.raw_stats(x2))
-        check("norm_act_bwd_stats", shape,
+        check(f"norm_act_stats{sfx}", shape, lambda: na.norm_act_stats(x2))
+        check(f"norm_act_raw_stats{sfx}", shape, lambda: na.raw_stats(x2))
+        check(f"norm_act_bwd_stats{sfx}", shape,
               lambda: na.norm_act_bwd_stats(x2, st, g2))
-        check("norm_act_tail", f"{shape} residual_pre_act",
+        check(f"norm_act_tail{sfx}", f"{shape} residual_pre_act",
               lambda: na.norm_tail(x2, inv, shift, r2, a, b))
-        check("norm_act_tail_bwd", f"{shape} residual_pre_act",
+        check(f"norm_act_tail_bwd{sfx}", f"{shape} residual_pre_act",
               lambda: na.norm_tail_bwd(x2, r2, inv, shift, a, b, g2))
         del x2, r2, g2, st
     return failures
@@ -1874,9 +1974,10 @@ def sums_err(got, want):
                for k in range(want.shape[1]))
 
 
-def norm_tail_cases(dev, gen, cases):
+def norm_tail_cases(dev, gen, cases, dtype=None):
     """Phase 6, the step's modes: at each (extent, C) of ``cases``, N=2
-    bf16, the raw statistics (mode (a)), the tail forward (b) and the tail
+    bf16 (or ``dtype``: fp16's records named ``<kernel>_f16``, held by
+    F16_TOL), the raw statistics (mode (a)), the tail forward (b) and the tail
     backward (c) in each of TAIL_MODES with act on and off, each against
     its plain version on the same inputs (errors: KERNEL_TOL on the
     outputs and cotangents, STATS_TOL on the fp32 sums), timed against it
@@ -1887,14 +1988,16 @@ def norm_tail_cases(dev, gen, cases):
     from mt3d_resenc_unet_torch.ops import norm_act as na
     slope, n = 1e-2, 2
     records, failures = [], []
+    dtype = dtype or torch.bfloat16
+    sfx, _, tol, _ = dtype_tols(dtype)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
     for extent, c in cases:
         s = extent ** 3
-        x2 = (randn(n, s, c) * 2 + 0.5).bfloat16()
-        r2, g2 = (randn(n, s, c).bfloat16() for _ in range(2))
+        x2 = (randn(n, s, c) * 2 + 0.5).to(dtype)
+        r2, g2 = (randn(n, s, c).to(dtype) for _ in range(2))
         inv, a = (torch.rand(n, c, generator=gen, device=dev) + 0.5
                   for _ in range(2))
         shift, b = (randn(n, c) for _ in range(2))
@@ -1906,7 +2009,7 @@ def norm_tail_cases(dev, gen, cases):
             err = stats_err(got, want)
             b_ms, b_by = bound(3 * x2.numel(), tensor + 2 * vec, PEAK_FP32)
             records.append(dict(
-                kernel="norm_act_raw_stats", case=at, shape=(n, s, c),
+                kernel="norm_act_raw_stats" + sfx, case=at, shape=(n, s, c),
                 mode="plain", max_abs_err=err,
                 ms=median_ms(lambda: na.raw_stats(x2)),
                 plain_ms=median_ms(lambda: na.raw_stats_plain(x2)),
@@ -1936,11 +2039,12 @@ def norm_tail_cases(dev, gen, cases):
                 e_bwd = max([rel_err(dy, dy0)]
                             + ([rel_err(dr, dr0)] if res else []))
                 e_sums = sums_err(sm, sm0)
-                print(f"norm tail {label}: out err {e_fwd:.3e} (bit-equal "
+                print(f"norm tail {dtype} {label}: out err {e_fwd:.3e} "
+                      f"(bit-equal "
                       f"{torch.equal(y, y0)}), dy/dr err {e_bwd:.3e} "
                       f"(bit-equal {torch.equal(dy, dy0)}), sums err "
                       f"{e_sums:.3e}")
-                if not (e_fwd <= KERNEL_TOL and e_bwd <= KERNEL_TOL
+                if not (e_fwd <= tol and e_bwd <= tol
                         and e_sums <= STATS_TOL):
                     failures.append(f"norm tail {label}: out {e_fwd} "
                                     f"dy/dr {e_bwd} sums {e_sums}")
@@ -1950,7 +2054,7 @@ def norm_tail_cases(dev, gen, cases):
                 b_ms, b_by = bound(ops * x2.numel(), (1 + res) * tensor
                                    + tensor + (2 + 2 * pre) * vec, PEAK_FP32)
                 records.append(dict(
-                    kernel="norm_act_tail", case=label, shape=(n, s, c),
+                    kernel="norm_act_tail" + sfx, case=label, shape=(n, s, c),
                     mode=mode, max_abs_err=e_fwd, ms=median_ms(fwd),
                     plain_ms=median_ms(fwd0), library_ms=None,
                     bound_ms=b_ms, bound_by=b_by))
@@ -1959,7 +2063,8 @@ def norm_tail_cases(dev, gen, cases):
                                    + (2 + 2 * pre) * vec + k * vec,
                                    PEAK_FP32)
                 records.append(dict(
-                    kernel="norm_act_tail_bwd", case=label, shape=(n, s, c),
+                    kernel="norm_act_tail_bwd" + sfx, case=label,
+                    shape=(n, s, c),
                     mode=mode, max_abs_err=max(e_bwd, e_sums),
                     ms=median_ms(bwd), plain_ms=median_ms(bwd0),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by))
@@ -1969,16 +2074,17 @@ def norm_tail_cases(dev, gen, cases):
     return records, failures
 
 
-def norm_step_table(records, shapes, steps):
+def norm_step_table(records, shapes, steps, sfx="",
+                    source="phase 5c launches x phase 6 cases"):
     """Rows 10-11's modes per training step: each kernel's launches per
-    step (phase 5c's counts by (N, S, C) and mode) times phase 6's case of
-    the same shape and mode: kernel ms, plain ms and bound per step.
+    step (phase 5c's counts by (N, S, C) and mode, or phase 18's fp16
+    step's with ``sfx`` "_f16") times phase 6's case of the same shape and
+    mode (named with ``sfx``): kernel ms, plain ms and bound per step.
     Returns {kernel: (launches, ms, plain ms, bound ms)} per step."""
     cases = {(r["kernel"], r["shape"], r["mode"]): r for r in records
              if "shape" in r}
     out = {}
-    print("rows 10-11's modes per training step (phase 5c launches x "
-          "phase 6 cases):")
+    print(f"rows 10-11's modes per training step ({source}) [{card()}]:")
     for name in TAIL_KERNELS:
         tot = collections.Counter()
         for (kname, shape, mode), count in sorted(shapes.items()):
@@ -1986,7 +2092,7 @@ def norm_step_table(records, shapes, steps):
                 continue
             per = count / steps
             tot["launches"] += per
-            r = cases.get((name, tuple(shape), mode))
+            r = cases.get((name + sfx, tuple(shape), mode))
             if r is None:
                 tot["uncovered"] += per
                 continue
@@ -1996,38 +2102,41 @@ def norm_step_table(records, shapes, steps):
                         for (kname, shape, mode), c in sorted(shapes.items())
                         if kname == name)
         print(f"  {name} launches per step by shape and mode: {mix}")
-        print(f"  {name:18s} {tot['launches']:5.1f} launches  kernel "
+        print(f"  {name + sfx:22s} {tot['launches']:5.1f} launches  kernel "
               f"{tot['ms']:8.3f} ms  plain {tot['plain_ms']:8.3f} ms  bound "
               f"{tot['bound_ms']:7.3f} ms (bytes)"
               + (f"  uncovered {tot['uncovered']:.1f}" if tot["uncovered"]
                  else ""))
-        out[name] = (tot["launches"], tot["ms"], tot["plain_ms"],
-                     tot["bound_ms"])
+        out[name + sfx] = (tot["launches"], tot["ms"], tot["plain_ms"],
+                           tot["bound_ms"])
     return out
 
 
-def norm_act_cases(dev, gen, cases):
-    """Phase 6. Returns (per-kernel records, the op path's launch counts,
-    failures)."""
+def norm_act_cases(dev, gen, cases, dtype=None):
+    """Phase 6, at bf16 (or ``dtype``: fp16's records and launch counts
+    named ``<kernel>_f16``, held by F16_TOL). Returns (per-kernel records,
+    the op path's launch counts, failures)."""
     import collections
     from mt3d_resenc_unet_torch.ops import _build
     from mt3d_resenc_unet_torch.ops import norm_act as na
     eps, slope, n = 1e-5, 1e-2, 2
     records, failures = [], []
+    dtype = dtype or torch.bfloat16
+    sfx, _, kernel_tol, _ = dtype_tols(dtype)
     op_launches = collections.Counter()
     todo = [(e, c, act, False) for e, c in cases for act in (True, False)]
     todo.insert(1, (cases[0][0], cases[0][1], True, True))
     for extent, c, act, affine in todo:
         shape = (n, extent, extent, extent, c)
         x = (torch.randn(*shape, generator=gen, device=dev) * 2
-             + 0.5).bfloat16()
-        gy = torch.randn(*shape, generator=gen, device=dev).bfloat16()
+             + 0.5).to(dtype)
+        gy = torch.randn(*shape, generator=gen, device=dev).to(dtype)
         scale = bias = None
         if affine:
             scale = torch.rand(c, generator=gen, device=dev) + 0.5
             bias = torch.randn(c, generator=gen, device=dev)
-        label = (f"{extent}^3 x {c} " + ("affine" if affine else
-                                         "act" if act else "no act"))
+        label = (f"{extent}^3 x {c} {dtype} " + ("affine" if affine else
+                                                  "act" if act else "no act"))
         # the op path: forward and backward through NormActFn
         before = dict(_build.LAUNCHES)
         xg = x.clone().requires_grad_()
@@ -2079,7 +2188,8 @@ def norm_act_cases(dev, gen, cases):
                                    * x.element_size() + vecs * 8 * n * c,
                                    PEAK_FP32)
                 records.append(dict(
-                    kernel=name, case=label, max_abs_err=errs[name], ms=ms,
+                    kernel=name + sfx, case=label, max_abs_err=errs[name],
+                    ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms.get(name),
                     bound_ms=b_ms, bound_by=b_by,
                     gbs=tensors * x.numel() * x.element_size() / ms / 1e6))
@@ -2087,16 +2197,17 @@ def norm_act_cases(dev, gen, cases):
         print(f"norm-act {label}: y err {y_err:.3e} dx err {dx_err:.3e} "
               + " ".join(f"{k.removeprefix('norm_act_')} {v:.3e}"
                          for k, v in errs.items()))
-        if not (y_err <= KERNEL_TOL and dx_err <= KERNEL_TOL):
+        if not (y_err <= kernel_tol and dx_err <= kernel_tol):
             failures.append(f"norm-act op {label}: y {y_err} dx {dx_err}")
         for name, err in errs.items():
-            if not err <= tol.get(name, KERNEL_TOL):
+            if not err <= tol.get(name, kernel_tol):
                 failures.append(f"{name} {label}: err {err}")
         del x, gy, xg, y, y0, st0, dx0, st, gs, pairs
     for name in NORM_KERNELS:
         if op_launches.get(name, 0) <= 0:
-            failures.append(f"norm-act: kernel {name} was never launched")
-    return records, {k: op_launches[k] for k in NORM_KERNELS}, failures
+            failures.append(f"norm-act {dtype}: kernel {name} was never "
+                            "launched")
+    return records, {k + sfx: op_launches[k] for k in NORM_KERNELS}, failures
 
 
 def sheet_normals_config(work, volume_paths, patch, max_epoch,
@@ -3848,15 +3959,14 @@ def dtype_phase(dev, patch):
     """Phase 18: TRAIN_STEPS flagship steps at batch 2 for each of compute
     dtype float32 and float16, the plan from the config with
     ``use_pallas_conv`` unset (the kernels on), every counter zeroed
-    before: at fp32 each of the nine fp32 conv and upsample kernels
-    launched and no bf16 one, at fp16 none of either (rows 1-9 take bf16
-    and fp32); no plain version of a conv or upsample kernel called
-    (``counting_plain``); the norm-act modes exactly as ``norm_launches``
-    derives for the dtype (fp32: the norm-act kernels; fp16: none); finite
-    losses, and the first step's loss and grad_norm within DTYPE_LIMITS of
-    the plain fp32 path's from the same weights and batch; median ms of
-    each beside the plain path's. Returns (failures, the fp32 run's
-    launches, its launches by shape and mode)."""
+    before: each of the nine conv and upsample kernels of the dtype
+    (``_f32`` / ``_f16``) launched and none of another dtype; no plain
+    version of a conv or upsample kernel called (``counting_plain``); the
+    norm-act modes exactly as ``norm_launches`` derives for the dtype
+    (more than 0); finite losses, and the first step's loss and grad_norm
+    within DTYPE_LIMITS of the plain fp32 path's from the same weights and
+    batch; median ms of each beside the plain path's. Returns (failures,
+    {dtype name: (its launches, its launches by shape and mode)})."""
     import dataclasses
     from mt3d_resenc_unet_torch.core.config import ConfigManager
     from mt3d_resenc_unet_torch.models.network import ResEncUNet, norm_launches
@@ -3878,7 +3988,7 @@ def dtype_phase(dev, patch):
     want = want[0]
     del plain
     torch.cuda.empty_cache()
-    f32_launches, f32_shapes = {}, {}
+    runs = {}
     for name, (loss_tol, gnorm_tol) in DTYPE_LIMITS.items():
         model = ResEncUNet(plan, dtype=getattr(torch, name), seed=SEED).to(dev)
         _build.clear_counts()
@@ -3887,14 +3997,14 @@ def dtype_phase(dev, patch):
                 model, batch, TRAIN_STEPS, f"phase 18 {name} (kernels on)",
                 FLAGSHIP_LOSSES)
         launches = dict(_build.LAUNCHES)
-        if name == "float32":
-            f32_launches = {k: launches.get(k, 0) for k in F32_KERNELS}
-            f32_shapes = dict(_build.LAUNCH_SHAPES)
+        runs[name] = (launches, dict(_build.LAUNCH_SHAPES))
         del model
         torch.cuda.empty_cache()
         m = metrics[0]
-        conv = {k: launches.get(k, 0) for k in CONV_KERNELS}
-        conv32 = {k: launches.get(k, 0) for k in F32_KERNELS}
+        mine = F32_KERNELS if name == "float32" else F16_KERNELS
+        conv = {k: launches.get(k, 0) for k in mine}
+        other = {k: launches.get(k, 0) for k in CONV_KERNELS + F32_KERNELS
+                 + F16_KERNELS if k not in mine and launches.get(k, 0)}
         implied = {k: v * TRAIN_STEPS for k, v in norm_launches(
             plan, patch, 2, getattr(torch, name)).items()}
         modes = {k: launches.get(k, 0) for k in implied}
@@ -3905,31 +4015,28 @@ def dtype_phase(dev, patch):
         print(f"phase 18 {name} step [{smi}]: {ms:.1f} ms median (plain "
               f"fp32 {plain_ms:.1f} ms), peak "
               f"{peak / 2 ** 30:.2f} GiB; conv/upsample launches {conv}, "
-              f"fp32 kernels {conv32}; plain versions called "
+              f"of another dtype {other}; plain versions called "
               f"{dict(plain_calls)}; "
               f"norm-act modes {modes}, norm_launches {implied}; against "
               f"plain fp32: total loss rel diff {loss_diff:.3e} (limit "
               f"{loss_tol}), grad_norm rel diff {gn_diff:.3e} (limit "
               f"{gnorm_tol}); finite {finite}")
-        if any(conv.values()):
-            failures.append(f"phase 18 {name}: bf16 conv kernels launched "
-                            f"{conv}")
-        if name == "float32" and not all(conv32.values()):
-            failures.append(f"phase 18 fp32: fp32 kernels {conv32}")
-        if name != "float32" and any(conv32.values()):
-            failures.append(f"phase 18 {name}: fp32 kernels launched "
-                            f"{conv32}")
+        if not all(conv.values()):
+            failures.append(f"phase 18 {name}: its kernels {conv}")
+        if other:
+            failures.append(f"phase 18 {name}: kernels of another dtype "
+                            f"launched {other}")
         if plain_calls:
             failures.append(f"phase 18 {name}: plain versions called "
                             f"{dict(plain_calls)}")
-        if modes != implied:
+        if modes != implied or not all(implied.values()):
             failures.append(f"phase 18 {name}: norm-act modes {modes}, "
                             f"norm_launches {implied}")
         if not (finite and loss_diff <= loss_tol and gn_diff <= gnorm_tol):
             failures.append(f"phase 18 {name}: loss diff {loss_diff} "
                             f"grad_norm diff {gn_diff} finite {finite}")
     print(f"phase 18 (compute dtypes): {time.perf_counter() - t_phase:.1f} s")
-    return failures, f32_launches, f32_shapes
+    return failures, runs
 
 
 def param_dtype_phase(dev, patch, base):
@@ -3989,18 +4096,24 @@ def param_dtype_phase(dev, patch, base):
 def engine_dtype_phase(patch, volume):
     """Phase 20: the engine's device pass at compute dtype float32 (the
     kernels left on: the fp32 forward kernels of rows 1, 4 and 7 and the
-    fp32 norm-act kernels run, no bf16 conv kernel) and at bfloat16 on a
-    seeded u8 Blosc volume from the same checkpoint; the fp32 finals held
-    against the bf16 ones with
+    norm-act kernels run, no conv kernel of another dtype), bfloat16 and
+    float16 (which the engine, as the JAX engine, runs in bf16: finals
+    bit-equal to bf16's) on a seeded u8 Blosc volume from the same
+    checkpoint; then ``predict_volume`` on the same volume with an fp16
+    kernel model (rows 1h, 4h and 7h launched, no other conv kernel)
+    against the bf16 one, phase 3's limits; the fp32 finals held against
+    the bf16 ones with
     ENGINE_DTYPE_LIMITS (5x one seed's measurement on the card: phase 8's
     limits are for two orders of the same sums, and bf16 against fp32
     compute moves the normals further). Returns the failures."""
+    import dataclasses
     import os
     import shutil
     from pathlib import Path
     from mt3d_resenc_unet_torch.core.plan import TaskHead, plan_from_autoconfig
-    from mt3d_resenc_unet_torch.data.zio import create_zarr
-    from mt3d_resenc_unet_torch.infer.engine import ZarrInferenceEngine
+    from mt3d_resenc_unet_torch.data.zio import create_zarr, open_zarr
+    from mt3d_resenc_unet_torch.infer.engine import (ZarrInferenceEngine,
+                                                     predict_volume)
     from mt3d_resenc_unet_torch.models.network import ResEncUNet
     from mt3d_resenc_unet_torch.ops import _build
     from mt3d_resenc_unet_torch.train.checkpoint import save_params
@@ -4017,11 +4130,15 @@ def engine_dtype_phase(patch, volume):
         ckpt = work / "flagship.pt"
         save_params(ckpt, ResEncUNet(plan, seed=SEED).state_dict())
         img = work / "image.zarr"
-        create_zarr(str(img), volume, np.uint8, patch)[...] = \
-            np.random.default_rng(SEED + 1).integers(0, 256, volume,
-                                                     dtype=np.uint8)
+        vol = np.random.default_rng(SEED + 1).integers(0, 256, volume,
+                                                       dtype=np.uint8)
+        create_zarr(str(img), volume, np.uint8, patch)[...] = vol
         stores = {}
-        for name in ("bfloat16", "float32"):
+        # the engine maps compute_dtype float16 to bf16, as the JAX engine
+        # does (its _DTYPES, mt3d_resenc_unet_tpu/infer/engine.py:52, 246)
+        forward = {"bfloat16": FORWARD, "float32": F32_FORWARD,
+                   "float16": FORWARD}
+        for name in ("bfloat16", "float32", "float16"):
             cfg = engine_config(ckpt, img, work / name, patch, True)
             cfg["tr_config"]["compute_dtype"] = name
             _build.clear_counts()
@@ -4039,19 +4156,53 @@ def engine_dtype_phase(patch, volume):
             if engine.last_mode != "device":
                 failures.append(f"phase 20 {name}: the {engine.last_mode} "
                                 "pass ran, not the device pass")
-            conv = {k: launches.get(k, 0) for k in CONV_KERNELS}
-            if name == "float32" and any(conv.values()):
-                failures.append(f"phase 20 fp32: bf16 conv kernels launched "
-                                f"{conv}")
-            if name == "float32" and not all(launches.get(k, 0)
-                                             for k in F32_FORWARD):
-                failures.append(f"phase 20 fp32: fp32 forward kernels "
-                                f"{launches}")
-            if name == "bfloat16" and not all(launches.get(k, 0)
-                                              for k in FORWARD):
-                failures.append(f"phase 20 bf16: forward kernels {launches}")
+            other = {k: v for k, v in launches.items()
+                     if k in CONV_KERNELS + F32_KERNELS + F16_KERNELS
+                     and k not in forward[name]}
+            if other or not all(launches.get(k, 0) for k in forward[name]):
+                failures.append(f"phase 20 {name}: forward kernels "
+                                f"{launches}, of another dtype {other}")
         outputs_close(stores["float32"], stores["bfloat16"],
                       "phase 20 fp32 vs bf16", failures, ENGINE_DTYPE_LIMITS)
+        same = all(np.array_equal(
+            open_zarr(os.path.join(stores["float16"], f"{t}_final"))
+            .read_all(), open_zarr(os.path.join(stores["bfloat16"],
+                                                f"{t}_final")).read_all())
+            for t in ("sheet", "normals"))
+        print(f"phase 20 engine float16: finals bit-equal to bf16's {same} "
+              "(the engine runs bf16 for it, as the JAX engine does)")
+        if not same:
+            failures.append("phase 20 float16: finals differ from bf16's")
+        # the fp16 forward kernels serving: predict_volume with an fp16
+        # kernel model against the bf16 one, same weights and volume
+        dev = engine.device
+        served = {}
+        for name in ("bfloat16", "float16"):
+            model = ResEncUNet(dataclasses.replace(plan, use_pallas_conv=True),
+                               dtype=getattr(torch, name), seed=SEED).to(dev)
+            _build.clear_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served[name] = predict_volume(model, vol, patch, 0.25, 2, dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            want = FORWARD if name == "bfloat16" else F16_FORWARD
+            print(f"phase 20 predict_volume {name} [{smi}]: {dt:.2f} s; "
+                  f"launches {launches}")
+            other = {k: v for k, v in launches.items()
+                     if k in CONV_KERNELS + F32_KERNELS + F16_KERNELS
+                     and k not in want}
+            if other or not all(launches.get(k, 0) for k in want):
+                failures.append(f"phase 20 predict_volume {name}: "
+                                f"launches {launches}")
+            del model
+        compare_outputs({k: torch.from_numpy(v)
+                         for k, v in served["float16"].items()},
+                        {k: torch.from_numpy(v)
+                         for k, v in served["bfloat16"].items()},
+                        f"phase 20 predict_volume {vol.shape} fp16 vs bf16 "
+                        "kernels", failures)
         for name, store in stores.items():
             print(f"phase 20 {name} stores on disk: " + ", ".join(
                 f"{k} {store_bytes(os.path.join(store, k))}"
@@ -4352,7 +4503,7 @@ FIXTURES = os.path.join(ROOT, "tests", "data", "remote_auth")
 BUCKET_KEY = "AKIDEXAMPLE"
 BUCKET_SECRET = "wJalrXUtnFEMI/K7MDENG+bPxRfiCYEXAMPLEKEY"
 BUCKET_LIST_PAGE = 100      # keys a list page: the continuation path runs
-BUCKET_SLOW_S = 0.005       # a "slow-" bucket's object reads age this long
+BUCKET_MEET_S = 30.0        # a "slow-" bucket's first read waits for a 2nd
 CAS_ROUNDS = 20
 BUCKET_ENGINE_CUT = "(160, 256, 256) of phase 8's (256, 512, 512)"
 
@@ -4384,7 +4535,7 @@ def bucket_emulator(work):
                    "jwt_n": manifest["jwt"]["public_n"],
                    "jwt_e": manifest["jwt"]["public_e"],
                    "jwt_iss": sa["client_email"], "strict": True,
-                   "page": BUCKET_LIST_PAGE, "slow_s": BUCKET_SLOW_S}, f)
+                   "page": BUCKET_LIST_PAGE, "meet_s": BUCKET_MEET_S}, f)
     proc = subprocess.Popen([sys.executable, "-u",
                              emulator_module().__file__, conf],
                             stdout=subprocess.PIPE, text=True)

@@ -25,14 +25,13 @@ order (:meth:`ConvNormAct.normed`), as the JAX package does
 (blocks.py:559, :601-602). A residual block with squeeze-excitation, or
 with DropPath in train mode, splits the tail as JAX does (:594-595): norm
 without activation, DropPath, SE, + residual, LeakyReLU. :class:`Conv`
-sends bf16 and fp32 activations of the JAX package's kernel classes to the
-CUDA conv through its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``,
+sends bf16, fp16 and fp32 activations of the JAX package's kernel classes
+to the CUDA conv through its autograd Functions (ops/conv3d.py ``Conv3dK3Fn``,
 ``Conv3dK3PairFn``, whose backward runs the dx and dW kernels) and the rest
 (the stem, the 128-channel stage, the deep stride-2 convs, the 1x1
 projections, other kernels, strides and ranks) to plain PyTorch,
 differentiated by autograd, as the JAX package sends them to XLA: in the
-model's dtype with fp32 accumulation (ops/lowp.py). An fp16 model sends
-every conv there, since the kernels take bf16 and fp32 only.
+model's dtype with fp32 accumulation (ops/lowp.py).
 Squeeze-excitation, dropout and DropPath are XLA in the JAX package and
 plain PyTorch here.
 
@@ -156,9 +155,9 @@ class Conv(nn.Module):
 
     ``forward`` returns ``(y, stats)``: the conv output in the input's
     dtype (plus the bias) and its fp32 (N, 2, co) [sum; sumsq], taken after
-    the bias. bf16 and fp32 3x3x3 convs in the kernel shape classes go to
-    the CUDA conv through its autograd Functions when ``use_kernels`` (the
-    kernels take both); everything else runs the same math as the JAX
+    the bias. bf16, fp16 and fp32 3x3x3 convs in the kernel shape classes
+    go to the CUDA conv through its autograd Functions when
+    ``use_kernels`` (the kernels take all three); everything else runs the same math as the JAX
     package runs these shapes in XLA (ops/lowp.py): with operands in the
     input's dtype and fp32 accumulation, and its statistics from the
     norm-act kernels' raw mode where ``use_kernels``. Without
@@ -186,9 +185,10 @@ class Conv(nn.Module):
             torch_uniform_(self.bias, fan_in, generator)
 
     def _kernel_class(self, x: torch.Tensor, w: torch.Tensor) -> bool:
-        """The conv kernels' class: bf16 or fp32 activations of the JAX
-        package's kernel shapes (an fp16 one takes the plain classes)."""
+        """The conv kernels' class: bf16, fp16 or fp32 activations of the
+        JAX package's kernel shapes (its dispatch is by shape alone)."""
         if not self.use_kernels or x.dtype not in (torch.bfloat16,
+                                                   torch.float16,
                                                    torch.float32):
             return False
         if self.stride == (1, 1, 1):

@@ -38,9 +38,9 @@ class UpsampleConv(nn.Module):
     flax ``ConvTranspose`` layout (*k, ci, co), which applies the kernel
     spatially flipped: y[k*i + a] = x[i] @ W[k-1-a] (JAX network.py:79-81).
     The 2x cube at the JAX package's Pallas shapes (128->64, 64->32) in
-    bf16 or fp32 goes to the CUDA upsample through its autograd Function
-    when ``use_kernels``; the flip stays outside it, so autograd takes its
-    gradient. Other shapes and fp16 run the GEMM in plain PyTorch in the
+    bf16, fp16 or fp32 goes to the CUDA upsample through its autograd
+    Function when ``use_kernels``; the flip stays outside it, so autograd
+    takes its gradient. Other shapes run the GEMM in plain PyTorch in the
     input's dtype with fp32 accumulation (ops/lowp.py); without
     ``use_kernels`` an fp32 input runs the kernels' plain version,
     ``upsample_plain`` (the fp32 reference model).
@@ -67,7 +67,7 @@ class UpsampleConv(nn.Module):
                         dims=tuple(range(len(self.kernel_size)))).contiguous()
         ci, co = wf.shape[-2:]
         if (self.use_kernels and self.kernel_size == (2, 2, 2)
-                and x.dtype in (torch.bfloat16, torch.float32)
+                and x.dtype in (torch.bfloat16, torch.float16, torch.float32)
                 and upsample2x_supported(x.shape, ci, co)):
             y = Upsample2xFn.apply(x, wf)
         elif x.dtype != torch.float32 or self.use_kernels:
@@ -225,9 +225,8 @@ class ResEncUNet(nn.Module):
     """Multi-task network: shared Encoder, one Decoder per task. Starts in
     eval mode.
 
-    ``dtype`` is the compute dtype of the activations (bf16 or fp32 on the
-    card sends the kernels' classes to the kernels; fp16 runs the plain
-    classes). ``param_dtype`` is the dtype every parameter is kept in (the
+    ``dtype`` is the compute dtype of the activations (bf16, fp16 or fp32:
+    on the card each sends the kernels' classes to the kernels). ``param_dtype`` is the dtype every parameter is kept in (the
     flax modules' ``param_dtype``): each op casts its parameters to the
     compute dtype at the call, as the JAX model does, so the gradients are
     in ``param_dtype`` too. Parameters start from torch's default init
@@ -293,8 +292,9 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
     backward launches ``norm_act_tail_bwd`` once for each tail. Derived
     from the plan's stages and the conv kernels' shape classes, not from
     the model, so that a run can hold its launch counts against it, for
-    each compute ``dtype``: the norm-act kernels take bf16 and fp32 (8 and
-    4 channels a 16-byte vector), and an fp16 model launches none. For a
+    each compute ``dtype``: the norm-act kernels take bf16, fp16 and fp32
+    (8, 8 and 4 channels a 16-byte vector), so an fp16 model launches as a
+    bf16 one does. For a
     residual BasicBlockD encoder and a ConvBlock decoder without conv bias,
     affine norm or dropout in 3-D (the flagship's and ``tasks/ink.yaml``'s
     plans); raises on another plan."""
@@ -304,10 +304,11 @@ def norm_launches(plan: NetworkPlan, patch, n: int,
             and p.basic_decoder_block == "ConvBlock" and p.do_stem
             and not (p.conv_bias or p.norm_affine or p.dropout_p > 0.0)):
         raise NotImplementedError("norm_launches: not a plan it counts")
-    if not p.use_pallas_conv or dtype not in (torch.bfloat16, torch.float32):
+    if not p.use_pallas_conv or dtype not in (torch.bfloat16, torch.float16,
+                                              torch.float32):
         return {"norm_act_tail": 0, "norm_act_raw_stats": 0,
                 "norm_act_tail_bwd": 0}
-    vec = 8 if dtype == torch.bfloat16 else 4
+    vec = 4 if dtype == torch.float32 else 8
 
     def in_class(c: int) -> bool:
         return c % vec == 0 and c // vec <= 256

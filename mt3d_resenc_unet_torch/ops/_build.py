@@ -38,6 +38,12 @@ SOURCES = ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
+# the dtype codes the C launchers take (csrc/b16.cuh DT_*): the 16-bit
+# tensor-core kernels take the first two, norm_act.cu all three
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# a kernel's launches at each dtype count under its name with this suffix
+SUFFIX = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
+
 # kernel name -> launches since the last clear(); wrappers add one per launch
 LAUNCHES: Dict[str, int] = collections.Counter()
 # (kernel name, shape, mode) -> launches since the last clear(), beside

@@ -26,6 +26,11 @@ and :func:`_f32_dw_plan`, with every fusion of the bf16 kernels. Their
 launches count under the bf16 kernel's name with ``_f32`` after it, the
 name of their entry (``conv3d_k3_s1_f32``, ``conv3d_k3_dx_s2_f32``, ...).
 
+At compute dtype float16 the six tensor-core kernels below run as they run
+bf16, instantiated on ``__half`` (csrc/b16.cuh: the fp16 MMA and
+conversions, the same tiles and plans); their launches count under the
+bf16 name with ``_f16`` after it (``conv3d_k3_s1_f16``, ...).
+
 The six bf16 kernels are implicit GEMMs on the tensor cores and take their
 tiling from the planners :func:`_s1_plan`, :func:`_s2_plan`,
 :func:`_dx_s1_plan`, :func:`_dx_s2_plan`, :func:`_dw_s1_plan` and
@@ -150,12 +155,12 @@ def _fn(source: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(_build.load(source), f"{source}_ndhwc_launch")
         fn.argtypes = {
-            "conv3d_k3_dx_s1": [p] * 9 + [i] * 8 + [f, p],
-            "conv3d_k3_dx_s2": [p] * 9 + [i] * 7 + [f, p],
-            "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, p],
-            "conv3d_k3_s2": [p] * 7 + [i] * 7 + [f, p],
-            "conv3d_k3_dw_s1": [p] * 7 + [i] * 7 + [f, p],
-            "conv3d_k3_dw_s2": [p] * 7 + [i] * 7 + [f, p],
+            "conv3d_k3_dx_s1": [p] * 9 + [i] * 8 + [f, i, p],
+            "conv3d_k3_dx_s2": [p] * 9 + [i] * 7 + [f, i, p],
+            "conv3d_k3_s1": [p] * 7 + [i] * 8 + [f, i, p],
+            "conv3d_k3_s2": [p] * 7 + [i] * 7 + [f, i, p],
+            "conv3d_k3_dw_s1": [p] * 7 + [i] * 7 + [f, i, p],
+            "conv3d_k3_dw_s2": [p] * 7 + [i] * 7 + [f, i, p],
         }[source]
         fn.restype = i
         _lib_fns[source] = fn
@@ -163,10 +168,10 @@ def _fn(source: str):
 
 
 def _kernel_dtype(fn: str, t: torch.Tensor) -> torch.dtype:
-    """The dtype of ``t`` if a kernel takes it (bf16 or fp32), else raise:
-    a CUDA tensor never falls back to the plain version."""
-    if t.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{fn}: the kernels take bf16 or fp32, not "
+    """The dtype of ``t`` if a kernel takes it (bf16, fp16 or fp32), else
+    raise: a CUDA tensor never falls back to the plain version."""
+    if t.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{fn}: the kernels take bf16, fp16 or fp32, not "
                          f"{t.dtype}")
     return t.dtype
 
@@ -248,7 +253,8 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             rc = _fn("conv3d_k3_s1")(
                 x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
                 y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
-                plan["splits"], plan["grid"], negative_slope, stream)
+                plan["splits"], plan["grid"], negative_slope,
+                _build.DTYPE_CODES[dt], stream)
         else:
             plan = _s2_plan(n, (d, h, wd), ci, co, _sm_count(dev),
                             pre is not None)
@@ -257,10 +263,10 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             rc = _fn("conv3d_k3_s2")(
                 x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to),
                 y.data_ptr(), _ptr(stats), _ptr(part), n, d, h, wd, ci, co,
-                plan["grid"], negative_slope, stream)
+                plan["grid"], negative_slope, _build.DTYPE_CODES[dt], stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3: kernel launch failed, CUDA error {rc}")
-    _build.count(f"{_KERNEL}_s{stride}", (ci, co, d, h, wd),
+    _build.count(f"{_KERNEL}_s{stride}{_build.SUFFIX[dt]}", (ci, co, d, h, wd),
                  pre=pre is not None, addin=add_to is not None,
                  stats=emit_stats)
     return (y, stats) if emit_stats else y
@@ -346,15 +352,20 @@ def conv3d_k3_dw_plain(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
                        gs: Optional[torch.Tensor] = None,
                        negative_slope: float = 1e-2) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv3d_k3_dw` in fp32 (fp64 for an
-    fp64 x)."""
+    fp64 x). The corrected cotangent is rounded to gy's dtype first, as
+    the JAX kernel rounds it before its matrix unit (``_dw_kernel``,
+    ``.astype(gy_ref.dtype)``) and as :func:`conv3d_k3_dx_plain` does. At
+    fp16 the flagship's ~2e-7 cotangents are subnormals, where that
+    rounding moves dW by up to a quarter of its max abs (H100, the card
+    tests' cases at cotangents of 2e-7)."""
     _check_corr(y, gs, x, pre, "conv3d_k3_dw")
     xin = _wide(x)
     if pre is not None:
         pre = pre.to(xin.dtype)
         xin = _leaky(xin * _bc(pre[:, 0]) - _bc(pre[:, 1]), negative_slope)
     ci, co = x.shape[-1], gy.shape[-1]
-    dw = torch.nn.grad.conv3d_weight(_nc(xin), (co, ci, 3, 3, 3),
-                                     _nc(_corrected(gy, y, gs)),
+    g = _wide(_corrected(gy, y, gs).to(gy.dtype))
+    dw = torch.nn.grad.conv3d_weight(_nc(xin), (co, ci, 3, 3, 3), _nc(g),
                                      stride=stride, padding=1)
     return dw.permute(2, 3, 4, 1, 0).contiguous()
 
@@ -666,7 +677,7 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
         _build.count(f"{fn}_s{stride}_f32", (ci, co, d, h, wd),
                      corr=y is not None, post=post)
         return out if post else out[0]
-    dx = torch.empty((n, d, h, wd, ci), dtype=torch.bfloat16, device=dev)
+    dx = torch.empty((n, d, h, wd, ci), dtype=gy.dtype, device=dev)
     dst = (torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
            if post else None)
     if stride == 1:
@@ -682,11 +693,12 @@ def conv3d_k3_dx(gy: torch.Tensor, w: torch.Tensor, stride: int = 1,
             gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
             _ptr(x if post else None), _ptr(pre), dx.data_ptr(), _ptr(dst),
             _ptr(part), n, d, h, wd, ci, co, *tail, negative_slope,
+            _build.DTYPE_CODES[gy.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), corr=y is not None,
-                 post=post)
+    _build.count(f"{fn}_s{stride}{_build.SUFFIX[gy.dtype]}",
+                 (ci, co, d, h, wd), corr=y is not None, post=post)
     return (dx, dst) if post else dx
 
 
@@ -725,12 +737,12 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
         rc = _fn(f"conv3d_k3_dw_s{stride}")(
             x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
             dw.data_ptr(), part.data_ptr(), n, d, h, wd, ci, co,
-            plan["splits"], negative_slope,
+            plan["splits"], negative_slope, _build.DTYPE_CODES[gy.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.count(f"{fn}_s{stride}", (ci, co, d, h, wd), pre=pre is not None,
-                 corr=y is not None)
+    _build.count(f"{fn}_s{stride}{_build.SUFFIX[gy.dtype]}",
+                 (ci, co, d, h, wd), pre=pre is not None, corr=y is not None)
     return dw
 
 

@@ -21,7 +21,7 @@
 // 0.16-0.24 ms of HBM).
 //
 // Design: 27 GEMMs, one per tap, dW[k] (Ci x Co) = X_k^T G, with K the
-// voxels, on mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+// voxels, on mma.sync.m16n8k16 (T in, fp32 accumulate).
 //   Tiles. A block owns all 27 taps of a 32 ci x 32 co tile: 9 warps, one
 //     per (kd, kh), each holding the three kw taps' 32 x 32 sums (96 fp32
 //     registers a thread), for the whole K range it is given.
@@ -51,10 +51,11 @@
 //
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned x, gy, y.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -100,15 +101,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Geom {
   int N, D, H, W, Ci, Co;
   int nbh, nbw, NB;   // bricks per axis (h, w) and per sample
@@ -135,11 +127,11 @@ __device__ __forceinline__ bool inside(const Geom& g, int d, int h, int w) {
   return d >= 0 && d < g.D && h >= 0 && h < g.H && w >= 0 && w < g.W;
 }
 
-template <bool CORR>
+template <class T, bool CORR>
 __device__ __forceinline__ void stage_loads(
     const Geom& g, const Brick& t, int ci0, int co0, unsigned char* st,
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ gy,
-    const __nv_bfloat16* __restrict__ y) {
+    const T* __restrict__ x, const T* __restrict__ gy,
+    const T* __restrict__ y) {
   const uint32_t xs = smem_u32(st);
   const uint32_t gs = xs + X_BYTES;
   const uint32_t ys = gs + G_BYTES;
@@ -168,7 +160,7 @@ __device__ __forceinline__ void stage_loads(
   }
 }
 
-template <bool PRE, bool CORR>
+template <class T, bool PRE, bool CORR>
 __device__ __forceinline__ void prologues(const Geom& g, const Brick& t,
                                           int ci0, int co0, unsigned char* st,
                                           const float* __restrict__ pre,
@@ -184,14 +176,14 @@ __device__ __forceinline__ void prologues(const Geom& g, const Brick& t,
         continue;
       uint4* p = reinterpret_cast<uint4*>(st + swz(r, c));
       uint4 q = *p;
-      __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
+      b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k = c * 8 + 2 * j;
-        const float2 a = __bfloat1622float2(v[j]);
+        const float2 a = to_f2(v[j]);
         const float u0 = a.x * sc[k] - sh[k], u1 = a.y * sc[k + 1] - sh[k + 1];
-        v[j] = __floats2bfloat162_rn(u0 >= 0.f ? u0 : u0 * slope,
-                                     u1 >= 0.f ? u1 : u1 * slope);
+        v[j] = pack2<T>(u0 >= 0.f ? u0 : u0 * slope,
+                        u1 >= 0.f ? u1 : u1 * slope);
       }
       *p = q;
     }
@@ -208,27 +200,27 @@ __device__ __forceinline__ void prologues(const Geom& g, const Brick& t,
       uint4* p = reinterpret_cast<uint4*>(gb + swz(r, c));
       const uint4 yq = *reinterpret_cast<const uint4*>(gb + G_BYTES + swz(r, c));
       uint4 q = *p;
-      __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
-      const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&yq);
+      b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
+      const b16x2<T>* yv = reinterpret_cast<const b16x2<T>*>(&yq);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k = c * 8 + 2 * j;
-        const float2 a = __bfloat1622float2(v[j]);
-        const float2 b = __bfloat1622float2(yv[j]);
-        v[j] = __floats2bfloat162_rn(a.x + gs0[k] + 2.f * b.x * gs1[k],
-                                     a.y + gs0[k + 1] + 2.f * b.y * gs1[k + 1]);
+        const float2 a = to_f2(v[j]);
+        const float2 b = to_f2(yv[j]);
+        v[j] = pack2<T>(a.x + gs0[k] + 2.f * b.x * gs1[k],
+                        a.y + gs0[k + 1] + 2.f * b.y * gs1[k + 1]);
       }
       *p = q;
     }
   }
 }
 
-template <bool PRE, bool CORR>
+template <class T, bool PRE, bool CORR>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ gy,
+conv3d_k3_dw_s1_mma(const T* __restrict__ x,
+                    const T* __restrict__ gy,
                     const float* __restrict__ pre,
-                    const __nv_bfloat16* __restrict__ y,
+                    const T* __restrict__ y,
                     const float* __restrict__ gsv, float* __restrict__ part,
                     Geom g, int splits, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -266,7 +258,7 @@ conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     if (s < iters)
-      stage_loads<CORR>(g, decode(g, b0 + s), ci0, co0, smem + s * STAGE, x,
+      stage_loads<T, CORR>(g, decode(g, b0 + s), ci0, co0, smem + s * STAGE, x,
                         gy, y);
     cp_commit();
   }
@@ -277,7 +269,7 @@ conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
     cp_wait1();
     __syncthreads();
     if (PRE || CORR) {
-      prologues<PRE, CORR>(g, t, ci0, co0, st, pre, gsv, slope);
+      prologues<T, PRE, CORR>(g, t, ci0, co0, st, pre, gsv, slope);
       __syncthreads();
     }
     const uint32_t xs = smem_u32(st), gs = xs + X_BYTES;
@@ -299,13 +291,13 @@ conv3d_k3_dw_s1_mma(const __nv_bfloat16* __restrict__ x,
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma16816(acc[kw][mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
-                     b[nt >> 1][(nt & 1) * 2 + 1]);
+            mma16816<T>(acc[kw][mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+                        b[nt >> 1][(nt & 1) * 2 + 1]);
       }
     }
     __syncthreads();  // every warp is done with this stage
     if (it + 2 < iters)
-      stage_loads<CORR>(g, decode(g, b0 + it + 2), ci0, co0, st, x, gy, y);
+      stage_loads<T, CORR>(g, decode(g, b0 + it + 2), ci0, co0, st, x, gy, y);
     cp_commit();
   }
 
@@ -340,19 +332,19 @@ conv3d_k3_dw_s1_sum(const float* __restrict__ part, float* __restrict__ dw,
   dw[i] = s;
 }
 
-template <bool P, bool C>
+template <class T, bool P, bool C>
 cudaError_t launch(int grid, cudaStream_t st, const void* x, const void* gy,
                    const void* pre, const void* y, const void* gs, void* part,
                    const Geom& g, int splits, float slope) {
   const int smem = 2 * (X_BYTES + (C ? 2 : 1) * G_BYTES);
   cudaError_t e = cudaFuncSetAttribute(
-      conv3d_k3_dw_s1_mma<P, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3d_k3_dw_s1_mma<T, P, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
-  conv3d_k3_dw_s1_mma<P, C><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(gy), static_cast<const float*>(pre),
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(gs),
+  conv3d_k3_dw_s1_mma<T, P, C><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(x),
+      static_cast<const T*>(gy), static_cast<const float*>(pre),
+      static_cast<const T*>(y), static_cast<const float*>(gs),
       static_cast<float*>(part), g, splits, slope);
   return cudaGetLastError();
 }
@@ -371,35 +363,38 @@ extern "C" int conv3d_k3_dw_s1_ndhwc_launch(const void* x, const void* gy,
                                             const void* gs, void* dw,
                                             void* part, int N, int D, int H,
                                             int W, int Ci, int Co, int splits,
-                                            float slope, void* stream) {
-  if (Ci % CT != 0 || Co % CT != 0 || N < 1 || D < 1 || H < 1 || W < 1 ||
-      splits < 1 || (!y) != (!gs) || !part)
-    return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
-  g.nbh = (H + BH - 1) / BH;
-  g.nbw = (W + BW - 1) / BW;
-  g.NB = ((D + BD - 1) / BD) * g.nbh * g.nbw;
-  const long long blocks = (long long)(Ci / CT) * (Co / CT) * splits;
-  const long long size = 27LL * Ci * Co;
-  if (splits > N * g.NB || blocks > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  const int grid = (int)blocks;
-  if (pre)
-    e = y ? launch<true, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
-                               slope)
-          : launch<true, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
-                                slope);
-  else
-    e = y ? launch<false, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
-                                slope)
-          : launch<false, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
-                                 slope);
-  if (e != cudaSuccess) return (int)e;
-  conv3d_k3_dw_s1_sum<<<(unsigned)((size + SUM_THREADS - 1) / SUM_THREADS),
-                        SUM_THREADS, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), size, splits);
-  return (int)cudaGetLastError();
+                                            float slope, int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    if (Ci % CT != 0 || Co % CT != 0 || N < 1 || D < 1 || H < 1 || W < 1 ||
+        splits < 1 || (!y) != (!gs) || !part)
+      return (int)cudaErrorInvalidValue;
+    Geom g;
+    g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
+    g.nbh = (H + BH - 1) / BH;
+    g.nbw = (W + BW - 1) / BW;
+    g.NB = ((D + BD - 1) / BD) * g.nbh * g.nbw;
+    const long long blocks = (long long)(Ci / CT) * (Co / CT) * splits;
+    const long long size = 27LL * Ci * Co;
+    if (splits > N * g.NB || blocks > 0x7fffffff)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    const int grid = (int)blocks;
+    if (pre)
+      e = y ? launch<T, true, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
+                                 slope)
+            : launch<T, true, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
+                                  slope);
+    else
+      e = y ? launch<T, false, true>(grid, st, x, gy, pre, y, gs, part, g, splits,
+                                  slope)
+            : launch<T, false, false>(grid, st, x, gy, pre, y, gs, part, g, splits,
+                                   slope);
+    if (e != cudaSuccess) return (int)e;
+    conv3d_k3_dw_s1_sum<<<(unsigned)((size + SUM_THREADS - 1) / SUM_THREADS),
+                          SUM_THREADS, 0, st>>>(
+        static_cast<const float*>(part), static_cast<float*>(dw), size, splits);
+    return (int)cudaGetLastError();
+  });
 }

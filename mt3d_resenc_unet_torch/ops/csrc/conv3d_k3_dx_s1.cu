@@ -30,7 +30,7 @@
 //
 // Design: conv3d_k3_s1.cu's implicit GEMM with the roles of x and y
 // swapped: M = dx voxels, N = Ci, K = 27 taps x Co, on mma.sync.m16n8k16
-// (bf16 in, fp32 accumulate).
+// (T in, fp32 accumulate).
 //   Tiles. A unit is a brick of 8 x 8 x 8 = 512 dx voxels of one sample and
 //     32 dx channels; each of the 16 warps owns 4 lines of 8 voxels (two
 //     16-row MMA tiles) x 32 channels (four 8-column tiles).
@@ -88,10 +88,11 @@
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned gy, y, x, w; Ci <= 2048 where K
 // is split.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -146,15 +147,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // the pre-op's backward at one element: du = acc * leaky'(x*scale - shift)
 // (u rounded as the plain version rounds it, no fused multiply-add)
 __device__ __forceinline__ float post_du(float acc, float xv, float sc,
@@ -203,9 +195,10 @@ __device__ __forceinline__ bool halo_inside(const Geom& g, const Unit& t,
 }
 
 // the halo'd brick of one chunk of src (gy or y), zero outside the volume
+template <class T>
 __device__ __forceinline__ void stage_brick(const Geom& g, const Unit& t,
                                             int chunk, uint32_t dst,
-                                            const __nv_bfloat16* src) {
+                                            const T* src) {
   const int co0 = chunk * KC;
   for (int i = threadIdx.x; i < 2 * HALO; i += THREADS) {
     const int r = i >> 1, c = i & 1;
@@ -218,9 +211,10 @@ __device__ __forceinline__ void stage_brick(const Geom& g, const Unit& t,
 
 // the 27 taps' weights of the unit's 32 dx channels and the chunk's 16 co:
 // row tap * 32 + ci
+template <class T>
 __device__ __forceinline__ void stage_weights(const Geom& g, const Unit& t,
                                               int chunk, uint32_t dst,
-                                              const __nv_bfloat16* w) {
+                                              const T* w) {
   const int co0 = chunk * KC;
   for (int i = threadIdx.x; i < 2 * 27 * BN; i += THREADS) {
     const int r = i >> 1, c = i & 1;
@@ -234,6 +228,7 @@ __device__ __forceinline__ void stage_weights(const Geom& g, const Unit& t,
 // CORR: the staged gy brick becomes bf16(gy + gs0 + 2*y*gs1) in place,
 // inside the volume only (rows outside stay 0). A thread always handles
 // piece tid & 1 of its rows, so it reads its 8 channels' gs once.
+template <class T>
 __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
                                         int chunk, unsigned char* gb,
                                         const unsigned char* yb,
@@ -253,12 +248,12 @@ __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
     uint4* p = reinterpret_cast<uint4*>(gb + swz(r, c));
     const uint4 yq = *reinterpret_cast<const uint4*>(yb + swz(r, c));
     uint4 q = *p;
-    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
-    const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&yq);
+    b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
+    const b16x2<T>* yv = reinterpret_cast<const b16x2<T>*>(&yq);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 a = __bfloat1622float2(v[j]), b = __bfloat1622float2(yv[j]);
-      v[j] = __floats2bfloat162_rn(
+      const float2 a = to_f2(v[j]), b = to_f2(yv[j]);
+      v[j] = pack2<T>(
           __fadd_rn(__fadd_rn(a.x, g0[2 * j]),
                     __fmul_rn(2.f * b.x, g1[2 * j])),
           __fadd_rn(__fadd_rn(a.y, g0[2 * j + 1]),
@@ -268,17 +263,18 @@ __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
   }
 }
 
+template <class T>
 struct Args {
-  const __nv_bfloat16 *gy, *w, *y, *x;
+  const T *gy, *w, *y, *x;
   const float *gs, *pre;
-  __nv_bfloat16* dx;
+  T* dx;
   float* part;
   float slope;
 };
 
-template <bool CORR, bool POST, bool SPLIT>
+template <class T, bool CORR, bool POST, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3d_k3_dx_s1_mma(Args a, Geom g, int units) {
+conv3d_k3_dx_s1_mma(Args<T> a, Geom g, int units) {
   constexpr int STAGE = stage_bytes<CORR>();
   constexpr int W_OFF = STAGE - W_BYTES;  // the weights' offset in a stage
   extern __shared__ __align__(128) unsigned char smem[];
@@ -334,7 +330,7 @@ conv3d_k3_dx_s1_mma(Args a, Geom g, int units) {
     cp_wait1();  // this stage's copies are done; the next stage's may not be
     __syncthreads();
     if (CORR) {
-      correct(g, t, t.c0 + chunk_i, st, st + G_BYTES, a.gs);
+      correct<T>(g, t, t.c0 + chunk_i, st, st + G_BYTES, a.gs);
       __syncthreads();
     }
     const uint32_t gsm = smem_u32(st);
@@ -355,8 +351,8 @@ conv3d_k3_dx_s1_mma(Args a, Geom g, int units) {
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          mma16816(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
-                   bf[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(acc[mt][nt], af[mt], bf[nt >> 1][(nt & 1) * 2],
+                      bf[nt >> 1][(nt & 1) * 2 + 1]);
     }
 
     if (chunk_i == g.cps - 1) {
@@ -384,8 +380,8 @@ conv3d_k3_dx_s1_mma(Args a, Geom g, int units) {
               continue;
             }
             if (POST) {
-              const float2 xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(a.x + off + ci));
+              const float2 xv = to_f2(
+                  *reinterpret_cast<const b16x2<T>*>(a.x + off + ci));
               const float du0 = post_du(v0, xv.x, sc[ci], sc[g.Ci + ci],
                                         a.slope);
               const float du1 = post_du(v1, xv.y, sc[ci + 1],
@@ -397,8 +393,8 @@ conv3d_k3_dx_s1_mma(Args a, Geom g, int units) {
               v0 = du0 * sc[ci];
               v1 = du1 * sc[ci + 1];
             }
-            *reinterpret_cast<__nv_bfloat162*>(a.dx + off + ci) =
-                __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<b16x2<T>*>(a.dx + off + ci) =
+                pack2<T>(v0, v1);
           }
         }
 #pragma unroll
@@ -482,9 +478,9 @@ conv3d_k3_dx_s1_dst(const float* __restrict__ part, float* __restrict__ dst,
 // through the pre-op's backward, and then the block's [sum du*x; sum du]
 // per channel (its threads' partial sums added in row order) to slot
 // (n, block) of fpart
-template <bool POST>
+template <class T, bool POST>
 __global__ void __launch_bounds__(FIN_THREADS)
-conv3d_k3_dx_s1_finish(Args a, float* __restrict__ fpart, long long S, int Ci,
+conv3d_k3_dx_s1_finish(Args<T> a, float* __restrict__ fpart, long long S, int Ci,
                        int splits, long long slice) {
   extern __shared__ float red[];  // [rows][2 Ci] in POST mode
   // thread (row, group): 8 channels c0.. of every rows-th voxel, so its
@@ -510,10 +506,10 @@ conv3d_k3_dx_s1_finish(Args a, float* __restrict__ fpart, long long S, int Ci,
     }
     if (POST) {
       const uint4 xq = *reinterpret_cast<const uint4*>(a.x + off);
-      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xq);
+      const b16x2<T>* xv = reinterpret_cast<const b16x2<T>*>(&xq);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float2 xf = __bfloat1622float2(xv[j]);
+        const float2 xf = to_f2(xv[j]);
         const float xs[2] = {xf.x, xf.y};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -526,10 +522,10 @@ conv3d_k3_dx_s1_finish(Args a, float* __restrict__ fpart, long long S, int Ci,
       }
     }
     uint4 out;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+    b16x2<T>* o = reinterpret_cast<b16x2<T>*>(&out);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      o[j] = __floats2bfloat162_rn(r[2 * j], r[2 * j + 1]);
+      o[j] = pack2<T>(r[2 * j], r[2 * j + 1]);
     *reinterpret_cast<uint4*>(a.dx + off) = out;
   }
   if (POST) {
@@ -563,15 +559,15 @@ conv3d_k3_dx_s1_fdst(const float* __restrict__ fpart, float* __restrict__ dst,
   dst[i] = t;
 }
 
-template <bool C, bool P, bool S>
-cudaError_t launch_main(int grid, cudaStream_t st, const Args& a,
+template <class T, bool C, bool P, bool S>
+cudaError_t launch_main(int grid, cudaStream_t st, const Args<T>& a,
                         const Geom& g, int units) {
   const int smem = 2 * stage_bytes<C>();
   cudaError_t e = cudaFuncSetAttribute(
-      conv3d_k3_dx_s1_mma<C, P, S>,
+      conv3d_k3_dx_s1_mma<T, C, P, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  conv3d_k3_dx_s1_mma<C, P, S><<<grid, THREADS, smem, st>>>(a, g, units);
+  conv3d_k3_dx_s1_mma<T, C, P, S><<<grid, THREADS, smem, st>>>(a, g, units);
   return cudaGetLastError();
 }
 
@@ -591,72 +587,75 @@ extern "C" int conv3d_k3_dx_s1_ndhwc_launch(
     const void* gy, const void* w, const void* y, const void* gs,
     const void* x, const void* pre, void* dx, void* dst, void* part, int N,
     int D, int H, int W, int Ci, int Co, int splits, int grid, float slope,
-    void* stream) {
-  const bool corr = y != nullptr, post = pre != nullptr;
-  if (Ci % BN != 0 || Co % (2 * KC) != 0 || N < 1 || N > 65535 || D < 1 ||
-      H < 1 || W < 1 || splits < 1 || (Co / KC) % splits != 0 || grid < 1 ||
-      corr != (gs != nullptr) || post != (x != nullptr) ||
-      post != (dst != nullptr) || (splits > 1 || post) != (part != nullptr) ||
-      (splits > 1 && Ci > 8 * FIN_THREADS))
-    return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
-  const int nbd = (D + BD - 1) / BD;
-  g.nbh = (H + BH - 1) / BH;
-  g.nbw = (W + BW - 1) / BW;
-  g.NB = nbd * g.nbh * g.nbw;
-  g.NT = Ci / BN;
-  g.cps = (Co / KC) / splits;
-  g.groups = g.NT * N;
-  const long long S = (long long)D * H * W;
-  g.slice = N * S * Ci;
-  const long long units = (long long)splits * g.NT * N * g.NB;
-  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (grid > units) grid = (int)units;
-  const Args a{static_cast<const __nv_bfloat16*>(gy),
-               static_cast<const __nv_bfloat16*>(w),
-               static_cast<const __nv_bfloat16*>(y),
-               static_cast<const __nv_bfloat16*>(x),
-               static_cast<const float*>(gs),
-               static_cast<const float*>(pre),
-               static_cast<__nv_bfloat16*>(dx),
-               static_cast<float*>(part),
-               slope};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (splits == 1) {
-    if (corr)
-      e = post ? launch_main<true, true, false>(grid, st, a, g, (int)units)
-               : launch_main<true, false, false>(grid, st, a, g, (int)units);
-    else
-      e = post ? launch_main<false, true, false>(grid, st, a, g, (int)units)
-               : launch_main<false, false, false>(grid, st, a, g,
-                                                  (int)units);
+    int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    const bool corr = y != nullptr, post = pre != nullptr;
+    if (Ci % BN != 0 || Co % (2 * KC) != 0 || N < 1 || N > 65535 || D < 1 ||
+        H < 1 || W < 1 || splits < 1 || (Co / KC) % splits != 0 || grid < 1 ||
+        corr != (gs != nullptr) || post != (x != nullptr) ||
+        post != (dst != nullptr) || (splits > 1 || post) != (part != nullptr) ||
+        (splits > 1 && Ci > 8 * FIN_THREADS))
+      return (int)cudaErrorInvalidValue;
+    Geom g;
+    g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
+    const int nbd = (D + BD - 1) / BD;
+    g.nbh = (H + BH - 1) / BH;
+    g.nbw = (W + BW - 1) / BW;
+    g.NB = nbd * g.nbh * g.nbw;
+    g.NT = Ci / BN;
+    g.cps = (Co / KC) / splits;
+    g.groups = g.NT * N;
+    const long long S = (long long)D * H * W;
+    g.slice = N * S * Ci;
+    const long long units = (long long)splits * g.NT * N * g.NB;
+    if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    if (grid > units) grid = (int)units;
+    const Args<T> a{static_cast<const T*>(gy),
+                 static_cast<const T*>(w),
+                 static_cast<const T*>(y),
+                 static_cast<const T*>(x),
+                 static_cast<const float*>(gs),
+                 static_cast<const float*>(pre),
+                 static_cast<T*>(dx),
+                 static_cast<float*>(part),
+                 slope};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (splits == 1) {
+      if (corr)
+        e = post ? launch_main<T, true, true, false>(grid, st, a, g, (int)units)
+                 : launch_main<T, true, false, false>(grid, st, a, g, (int)units);
+      else
+        e = post ? launch_main<T, false, true, false>(grid, st, a, g, (int)units)
+                 : launch_main<T, false, false, false>(grid, st, a, g,
+                                                    (int)units);
+      if (e != cudaSuccess || !post) return (int)e;
+      conv3d_k3_dx_s1_dst<<<g.groups, DST_THREADS, 0, st>>>(
+          a.part, static_cast<float*>(dst), N, g.NB, g.groups, (int)units,
+          grid, Ci);
+      return (int)cudaGetLastError();
+    }
+    e = corr ? launch_main<T, true, false, true>(grid, st, a, g, (int)units)
+             : launch_main<T, false, false, true>(grid, st, a, g, (int)units);
+    if (e != cudaSuccess) return (int)e;
+    const int nblk = (int)((S + FIN_VOX - 1) / FIN_VOX);
+    const dim3 fgrid((unsigned)nblk, N);
+    float* fpart = a.part + splits * g.slice;
+    if (post) {
+      const int rows = FIN_THREADS / (Ci / 8);
+      conv3d_k3_dx_s1_finish<T, true>
+          <<<fgrid, FIN_THREADS, rows * 2 * Ci * sizeof(float), st>>>(
+              a, fpart, S, Ci, splits, g.slice);
+    } else {
+      conv3d_k3_dx_s1_finish<T, false><<<fgrid, FIN_THREADS, 0, st>>>(
+          a, fpart, S, Ci, splits, g.slice);
+    }
+    e = cudaGetLastError();
     if (e != cudaSuccess || !post) return (int)e;
-    conv3d_k3_dx_s1_dst<<<g.groups, DST_THREADS, 0, st>>>(
-        a.part, static_cast<float*>(dst), N, g.NB, g.groups, (int)units,
-        grid, Ci);
+    conv3d_k3_dx_s1_fdst<<<(N * 2 * Ci + FIN_THREADS - 1) / FIN_THREADS,
+                           FIN_THREADS, 0, st>>>(fpart, static_cast<float*>(dst),
+                                                 N, nblk, Ci);
     return (int)cudaGetLastError();
-  }
-  e = corr ? launch_main<true, false, true>(grid, st, a, g, (int)units)
-           : launch_main<false, false, true>(grid, st, a, g, (int)units);
-  if (e != cudaSuccess) return (int)e;
-  const int nblk = (int)((S + FIN_VOX - 1) / FIN_VOX);
-  const dim3 fgrid((unsigned)nblk, N);
-  float* fpart = a.part + splits * g.slice;
-  if (post) {
-    const int rows = FIN_THREADS / (Ci / 8);
-    conv3d_k3_dx_s1_finish<true>
-        <<<fgrid, FIN_THREADS, rows * 2 * Ci * sizeof(float), st>>>(
-            a, fpart, S, Ci, splits, g.slice);
-  } else {
-    conv3d_k3_dx_s1_finish<false><<<fgrid, FIN_THREADS, 0, st>>>(
-        a, fpart, S, Ci, splits, g.slice);
-  }
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !post) return (int)e;
-  conv3d_k3_dx_s1_fdst<<<(N * 2 * Ci + FIN_THREADS - 1) / FIN_THREADS,
-                         FIN_THREADS, 0, st>>>(fpart, static_cast<float*>(dst),
-                                               N, nblk, Ci);
-  return (int)cudaGetLastError();
+  });
 }

@@ -19,7 +19,7 @@
 // from 128^3, N=2, 58 GFLOP against 0.40 GB with CORR (0.059 ms of bf16
 // peak, 0.12 ms of HBM).
 //
-// Design: an implicit GEMM per parity class on mma.sync.m16n8k16 (bf16 in,
+// Design: an implicit GEMM per parity class on mma.sync.m16n8k16 (T in,
 // fp32 accumulate), fed by a 2-stage cp.async ring over chunks of 16
 // cotangent channels.
 //   Parity classes. Along an axis a dx voxel i = 2q + p takes tap k = 1
@@ -66,10 +66,11 @@
 //
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned gy, y, x, w.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -123,15 +124,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float post_du(float acc, float xv, float sc,
                                          float sh, float slope) {
   const float u = __fsub_rn(__fmul_rn(xv, sc), sh);
@@ -175,7 +167,7 @@ __device__ __forceinline__ void class_tap(int c, int t, int* tap,
 // the products of one chunk for the warp's MMA tile of the 4 classes of
 // set SET: per class and tap, the tap's shifted footprint rows (A) times
 // its weight rows w[k, ci, co] (B, already the "col" operand)
-template <int SET>
+template <class T, int SET>
 __device__ __forceinline__ void class_products(float (&acc)[4][4][4],
                                                uint32_t gsm, uint32_t wsm,
                                                int a_row, int a_half,
@@ -193,8 +185,8 @@ __device__ __forceinline__ void class_products(float (&acc)[4][4][4],
         ldsm_x4(wsm + swz(tap * BN + 16 * j + b_row, b_half), bf[j]);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
-        mma16816(acc[s][nt], af, bf[nt >> 1][(nt & 1) * 2],
-                 bf[nt >> 1][(nt & 1) * 2 + 1]);
+        mma16816<T>(acc[s][nt], af, bf[nt >> 1][(nt & 1) * 2],
+                    bf[nt >> 1][(nt & 1) * 2 + 1]);
     }
   }
 }
@@ -235,9 +227,10 @@ __device__ __forceinline__ bool foot_inside(const Geom& g, const Unit& t,
   return true;
 }
 
+template <class T>
 __device__ __forceinline__ void stage_foot(const Geom& g, const Unit& t,
                                            int chunk, uint32_t dst,
-                                           const __nv_bfloat16* src) {
+                                           const T* src) {
   const int co0 = chunk * KC;
   for (int i = threadIdx.x; i < 2 * FOOT; i += THREADS) {
     const int r = i >> 1, c = i & 1;
@@ -250,9 +243,10 @@ __device__ __forceinline__ void stage_foot(const Geom& g, const Unit& t,
 
 // the 27 taps' weights of the unit's 32 dx channels and the chunk's 16 co:
 // row tap * 32 + ci
+template <class T>
 __device__ __forceinline__ void stage_weights(const Geom& g, const Unit& t,
                                               int chunk, uint32_t dst,
-                                              const __nv_bfloat16* w) {
+                                              const T* w) {
   const int co0 = chunk * KC;
   for (int i = threadIdx.x; i < 2 * 27 * BN; i += THREADS) {
     const int r = i >> 1, c = i & 1;
@@ -265,6 +259,7 @@ __device__ __forceinline__ void stage_weights(const Geom& g, const Unit& t,
 
 // CORR: the staged gy footprint becomes bf16(gy + gs0 + 2*y*gs1) in place,
 // inside the volume only (rows past its end stay 0)
+template <class T>
 __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
                                         int chunk, unsigned char* gb,
                                         const unsigned char* yb,
@@ -284,12 +279,12 @@ __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
     uint4* p = reinterpret_cast<uint4*>(gb + swz(r, c));
     const uint4 yq = *reinterpret_cast<const uint4*>(yb + swz(r, c));
     uint4 q = *p;
-    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
-    const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&yq);
+    b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
+    const b16x2<T>* yv = reinterpret_cast<const b16x2<T>*>(&yq);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 a = __bfloat1622float2(v[j]), b = __bfloat1622float2(yv[j]);
-      v[j] = __floats2bfloat162_rn(
+      const float2 a = to_f2(v[j]), b = to_f2(yv[j]);
+      v[j] = pack2<T>(
           __fadd_rn(__fadd_rn(a.x, g0[2 * j]),
                     __fmul_rn(2.f * b.x, g1[2 * j])),
           __fadd_rn(__fadd_rn(a.y, g0[2 * j + 1]),
@@ -299,17 +294,18 @@ __device__ __forceinline__ void correct(const Geom& g, const Unit& t,
   }
 }
 
+template <class T>
 struct Args {
-  const __nv_bfloat16 *gy, *w, *y, *x;
+  const T *gy, *w, *y, *x;
   const float *gs, *pre;
-  __nv_bfloat16* dx;
+  T* dx;
   float* part;
   float slope;
 };
 
-template <bool CORR, bool POST>
+template <class T, bool CORR, bool POST>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3d_k3_dx_s2_mma(Args a, Geom g, int units) {
+conv3d_k3_dx_s2_mma(Args<T> a, Geom g, int units) {
   constexpr int STAGE = stage_bytes<CORR>();
   constexpr int W_OFF = STAGE - W_BYTES;  // the weights' offset in a stage
   extern __shared__ __align__(128) unsigned char smem[];
@@ -357,15 +353,15 @@ conv3d_k3_dx_s2_mma(Args a, Geom g, int units) {
     cp_wait1();  // this stage's copies are done; the next stage's may not be
     __syncthreads();
     if (CORR) {
-      correct(g, t, chunk, st, st + G_BYTES, a.gs);
+      correct<T>(g, t, chunk, st, st + G_BYTES, a.gs);
       __syncthreads();
     }
     const uint32_t gsm = smem_u32(st);
     const uint32_t wsm = gsm + W_OFF;
     if (set)
-      class_products<1>(acc, gsm, wsm, a_row, a_half, b_row, b_half);
+      class_products<T, 1>(acc, gsm, wsm, a_row, a_half, b_row, b_half);
     else
-      class_products<0>(acc, gsm, wsm, a_row, a_half, b_row, b_half);
+      class_products<T, 0>(acc, gsm, wsm, a_row, a_half, b_row, b_half);
 
     if (chunk == g.cps - 1) {
       // epilogue of unit u: rows g and g + 8 of the tile are lines 2*mt +
@@ -394,8 +390,8 @@ conv3d_k3_dx_s2_mma(Args a, Geom g, int units) {
             const int ci = nt * 8 + tc;
             float v0 = acc[s][nt][2 * hv], v1 = acc[s][nt][2 * hv + 1];
             if (POST) {
-              const float2 xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(a.x + off + ci));
+              const float2 xv = to_f2(
+                  *reinterpret_cast<const b16x2<T>*>(a.x + off + ci));
               const float du0 = post_du(v0, xv.x, sc[ci], sc[g.Ci + ci],
                                         a.slope);
               const float du1 = post_du(v1, xv.y, sc[ci + 1],
@@ -407,8 +403,8 @@ conv3d_k3_dx_s2_mma(Args a, Geom g, int units) {
               v0 = du0 * sc[ci];
               v1 = du1 * sc[ci + 1];
             }
-            *reinterpret_cast<__nv_bfloat162*>(a.dx + off + ci) =
-                __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<b16x2<T>*>(a.dx + off + ci) =
+                pack2<T>(v0, v1);
           }
         }
       }
@@ -475,15 +471,15 @@ conv3d_k3_dx_s2_dst(const float* __restrict__ part, float* __restrict__ dst,
   }
 }
 
-template <bool C, bool P>
-cudaError_t launch_main(int grid, cudaStream_t st, const Args& a,
+template <class T, bool C, bool P>
+cudaError_t launch_main(int grid, cudaStream_t st, const Args<T>& a,
                         const Geom& g, int units) {
   const int smem = 2 * stage_bytes<C>();
   cudaError_t e = cudaFuncSetAttribute(
-      conv3d_k3_dx_s2_mma<C, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3d_k3_dx_s2_mma<T, C, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
-  conv3d_k3_dx_s2_mma<C, P><<<grid, THREADS, smem, st>>>(a, g, units);
+  conv3d_k3_dx_s2_mma<T, C, P><<<grid, THREADS, smem, st>>>(a, g, units);
   return cudaGetLastError();
 }
 
@@ -501,43 +497,46 @@ extern "C" int conv3d_k3_dx_s2_ndhwc_launch(
     const void* gy, const void* w, const void* y, const void* gs,
     const void* x, const void* pre, void* dx, void* dst, void* part, int N,
     int D, int H, int W, int Ci, int Co, int grid, float slope,
-    void* stream) {
-  const bool corr = y != nullptr, post = pre != nullptr;
-  if (Ci % BN != 0 || Co % (2 * KC) != 0 || N < 1 || D < 1 || H < 1 ||
-      W < 1 || grid < 1 || corr != (gs != nullptr) ||
-      post != (x != nullptr) || post != (dst != nullptr) ||
-      post != (part != nullptr))
-    return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
-  g.Do = (D - 1) / 2 + 1, g.Ho = (H - 1) / 2 + 1, g.Wo = (W - 1) / 2 + 1;
-  const int nbd = (g.Do + BD - 1) / BD;
-  g.nbh = (g.Ho + BH - 1) / BH;
-  g.nbw = (g.Wo + BW - 1) / BW;
-  g.NB = nbd * g.nbh * g.nbw;
-  g.cps = Co / KC;
-  const long long units = (long long)(Ci / BN) * N * g.NB;
-  if (units * WARPS * SLOT > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (grid > units) grid = (int)units;
-  const Args a{static_cast<const __nv_bfloat16*>(gy),
-               static_cast<const __nv_bfloat16*>(w),
-               static_cast<const __nv_bfloat16*>(y),
-               static_cast<const __nv_bfloat16*>(x),
-               static_cast<const float*>(gs),
-               static_cast<const float*>(pre),
-               static_cast<__nv_bfloat16*>(dx),
-               static_cast<float*>(part),
-               slope};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (corr)
-    e = post ? launch_main<true, true>(grid, st, a, g, (int)units)
-             : launch_main<true, false>(grid, st, a, g, (int)units);
-  else
-    e = post ? launch_main<false, true>(grid, st, a, g, (int)units)
-             : launch_main<false, false>(grid, st, a, g, (int)units);
-  if (e != cudaSuccess || !post) return (int)e;
-  conv3d_k3_dx_s2_dst<<<N * (Ci / BN), DST_THREADS, 0, st>>>(
-      a.part, static_cast<float*>(dst), N, g.NB, Ci);
-  return (int)cudaGetLastError();
+    int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    const bool corr = y != nullptr, post = pre != nullptr;
+    if (Ci % BN != 0 || Co % (2 * KC) != 0 || N < 1 || D < 1 || H < 1 ||
+        W < 1 || grid < 1 || corr != (gs != nullptr) ||
+        post != (x != nullptr) || post != (dst != nullptr) ||
+        post != (part != nullptr))
+      return (int)cudaErrorInvalidValue;
+    Geom g;
+    g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
+    g.Do = (D - 1) / 2 + 1, g.Ho = (H - 1) / 2 + 1, g.Wo = (W - 1) / 2 + 1;
+    const int nbd = (g.Do + BD - 1) / BD;
+    g.nbh = (g.Ho + BH - 1) / BH;
+    g.nbw = (g.Wo + BW - 1) / BW;
+    g.NB = nbd * g.nbh * g.nbw;
+    g.cps = Co / KC;
+    const long long units = (long long)(Ci / BN) * N * g.NB;
+    if (units * WARPS * SLOT > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (grid > units) grid = (int)units;
+    const Args<T> a{static_cast<const T*>(gy),
+                 static_cast<const T*>(w),
+                 static_cast<const T*>(y),
+                 static_cast<const T*>(x),
+                 static_cast<const float*>(gs),
+                 static_cast<const float*>(pre),
+                 static_cast<T*>(dx),
+                 static_cast<float*>(part),
+                 slope};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (corr)
+      e = post ? launch_main<T, true, true>(grid, st, a, g, (int)units)
+               : launch_main<T, true, false>(grid, st, a, g, (int)units);
+    else
+      e = post ? launch_main<T, false, true>(grid, st, a, g, (int)units)
+               : launch_main<T, false, false>(grid, st, a, g, (int)units);
+    if (e != cudaSuccess || !post) return (int)e;
+    conv3d_k3_dx_s2_dst<<<N * (Ci / BN), DST_THREADS, 0, st>>>(
+        a.part, static_cast<float*>(dst), N, g.NB, Ci);
+    return (int)cudaGetLastError();
+  });
 }

@@ -21,7 +21,7 @@
 // 0.54 GB, 0.235 ms of bf16 peak against 0.16 ms of HBM).
 //
 // Design: an implicit GEMM, M = output voxels, N = Co, K = 27 taps x Ci,
-// on mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+// on mma.sync.m16n8k16 (T in, fp32 accumulate).
 //   Tiles. A unit is a brick of 4 x 8 x 8 = 256 output voxels of one sample
 //     and 32 output channels; each of the 8 warps owns 4 lines of 8 voxels
 //     (two 16-row MMA tiles) x 32 channels (four 8-column tiles).
@@ -86,10 +86,11 @@
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned x, w, add_to; Co <= 2048 where
 // K is split.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -149,15 +150,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Geom {
   int N, D, H, W, Ci, Co;
   int nbh, nbw, NB;     // bricks per axis (h, w) and per sample
@@ -196,9 +188,10 @@ __device__ __forceinline__ bool halo_inside(const Geom& g, const Unit& t,
   return true;
 }
 
+template <class T>
 __device__ __forceinline__ void stage_loads(
     const Geom& g, const Unit& t, int chunk, unsigned char* st,
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w) {
+    const T* __restrict__ x, const T* __restrict__ w) {
   const int ci0 = chunk * KC;
   const uint32_t xs = smem_u32(st);
   const uint32_t ws = xs + X_BYTES;
@@ -220,6 +213,7 @@ __device__ __forceinline__ void stage_loads(
 // xin = leaky(x*scale - shift) on the staged brick, inside the volume (the
 // zero padding stays zero): hi = bf16(xin) in place, lo = bf16(xin - hi)
 // into the brick `lo` (zero outside the volume)
+template <class T>
 __device__ __forceinline__ void pre_op(const Geom& g, const Unit& t, int chunk,
                                        unsigned char* st, unsigned char* lo,
                                        const float* __restrict__ pre,
@@ -236,31 +230,31 @@ __device__ __forceinline__ void pre_op(const Geom& g, const Unit& t, int chunk,
     }
     uint4* p = reinterpret_cast<uint4*>(st + swx(r, c));
     uint4 q = *p, ql;
-    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
-    __nv_bfloat162* vl = reinterpret_cast<__nv_bfloat162*>(&ql);
+    b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
+    b16x2<T>* vl = reinterpret_cast<b16x2<T>*>(&ql);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = c * 8 + 2 * j;
-      const float2 a = __bfloat1622float2(v[j]);
+      const float2 a = to_f2(v[j]);
       float u0 = a.x * sc[k] - sh[k], u1 = a.y * sc[k + 1] - sh[k + 1];
       u0 = u0 >= 0.f ? u0 : u0 * slope;
       u1 = u1 >= 0.f ? u1 : u1 * slope;
-      v[j] = __floats2bfloat162_rn(u0, u1);
-      const float2 h = __bfloat1622float2(v[j]);
-      vl[j] = __floats2bfloat162_rn(u0 - h.x, u1 - h.y);
+      v[j] = pack2<T>(u0, u1);
+      const float2 h = to_f2(v[j]);
+      vl[j] = pack2<T>(u0 - h.x, u1 - h.y);
     }
     *p = q;
     *lp = ql;
   }
 }
 
-template <bool PRE, bool STATS, bool ADDIN, bool SPLIT>
+template <class T, bool PRE, bool STATS, bool ADDIN, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 2)
-conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w,
+conv3d_k3_s1_mma(const T* __restrict__ x,
+                 const T* __restrict__ w,
                  const float* __restrict__ pre,
-                 const __nv_bfloat16* __restrict__ add_to,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                 const T* __restrict__ add_to,
+                 T* __restrict__ y, float* __restrict__ part,
                  Geom g, int units, float slope) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -311,7 +305,7 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
     cp_wait1();
     __syncthreads();
     if (PRE) {
-      pre_op(g, t, t.c0 + chunk_i, st, smem + 2 * STAGE, pre, slope);
+      pre_op<T>(g, t, t.c0 + chunk_i, st, smem + 2 * STAGE, pre, slope);
       __syncthreads();
     }
     const uint32_t xs = smem_u32(st);
@@ -332,8 +326,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
-                     b[nt >> 1][(nt & 1) * 2 + 1]);
+            mma16816<T>(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+                        b[nt >> 1][(nt & 1) * 2 + 1]);
         continue;
       }
       // PRE: the tap's hi and lo products go to a fresh fragment, added to
@@ -345,10 +339,10 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           float p[4] = {0.f, 0.f, 0.f, 0.f};
-          mma16816(p, a[mt], b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
-          mma16816(p, lo, b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(p, a[mt], b[nt >> 1][(nt & 1) * 2],
+                      b[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(p, lo, b[nt >> 1][(nt & 1) * 2],
+                      b[nt >> 1][(nt & 1) * 2 + 1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += p[e];
         }
@@ -378,8 +372,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
               continue;
             }
             if (ADDIN) {
-              const float2 av = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(add_to + off + co));
+              const float2 av = to_f2(
+                  *reinterpret_cast<const b16x2<T>*>(add_to + off + co));
               v0 += av.x;
               v1 += av.y;
             }
@@ -389,8 +383,8 @@ conv3d_k3_s1_mma(const __nv_bfloat16* __restrict__ x,
               qsum[nt][0] += v0 * v0;
               qsum[nt][1] += v1 * v1;
             }
-            *reinterpret_cast<__nv_bfloat162*>(y + off + co) =
-                __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<b16x2<T>*>(y + off + co) =
+                pack2<T>(v0, v1);
           }
         }
 #pragma unroll
@@ -471,11 +465,11 @@ conv3d_k3_s1_stats(const float* __restrict__ part, float* __restrict__ stats,
 // split mode: y = bf16(the splits' slices added in split order + ADDIN);
 // with STATS the block's [sum; sumsq] per channel (its threads' partial
 // sums added in row order) to slot (n, block) of fpart
-template <bool STATS, bool ADDIN>
+template <class T, bool STATS, bool ADDIN>
 __global__ void __launch_bounds__(THREADS)
 conv3d_k3_s1_finish(const float* __restrict__ part,
-                    const __nv_bfloat16* __restrict__ add_to,
-                    __nv_bfloat16* __restrict__ y, float* __restrict__ fpart,
+                    const T* __restrict__ add_to,
+                    T* __restrict__ y, float* __restrict__ fpart,
                     long long S, int Co, int splits, long long slice) {
   extern __shared__ float red[];  // [rows][2 Co] in STATS mode
   // thread (row, group): 8 channels c0.. of every rows-th voxel, so its
@@ -499,10 +493,10 @@ conv3d_k3_s1_finish(const float* __restrict__ part,
     }
     if (ADDIN) {
       const uint4 aq = *reinterpret_cast<const uint4*>(add_to + off);
-      const __nv_bfloat162* av = reinterpret_cast<const __nv_bfloat162*>(&aq);
+      const b16x2<T>* av = reinterpret_cast<const b16x2<T>*>(&aq);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float2 a = __bfloat1622float2(av[j]);
+        const float2 a = to_f2(av[j]);
         r[2 * j] += a.x;
         r[2 * j + 1] += a.y;
       }
@@ -515,10 +509,10 @@ conv3d_k3_s1_finish(const float* __restrict__ part,
       }
     }
     uint4 out;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+    b16x2<T>* o = reinterpret_cast<b16x2<T>*>(&out);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      o[j] = __floats2bfloat162_rn(r[2 * j], r[2 * j + 1]);
+      o[j] = pack2<T>(r[2 * j], r[2 * j + 1]);
     *reinterpret_cast<uint4*>(y + off) = out;
   }
   if (STATS) {
@@ -558,44 +552,44 @@ struct Args {
   float slope;
 };
 
-template <bool P, bool ST, bool A, bool S>
+template <class T, bool P, bool ST, bool A, bool S>
 cudaError_t launch_main(int grid, cudaStream_t st, const Args& a,
                         const Geom& g, int units) {
   const int smem = 2 * STAGE + (P ? X_BYTES : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      conv3d_k3_s1_mma<P, ST, A, S>,
+      conv3d_k3_s1_mma<T, P, ST, A, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  conv3d_k3_s1_mma<P, ST, A, S><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.x),
-      static_cast<const __nv_bfloat16*>(a.w),
+  conv3d_k3_s1_mma<T, P, ST, A, S><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(a.x),
+      static_cast<const T*>(a.w),
       static_cast<const float*>(a.pre),
-      static_cast<const __nv_bfloat16*>(a.add_to),
-      static_cast<__nv_bfloat16*>(a.y), static_cast<float*>(a.part), g, units,
+      static_cast<const T*>(a.add_to),
+      static_cast<T*>(a.y), static_cast<float*>(a.part), g, units,
       a.slope);
   return cudaGetLastError();
 }
 
-template <bool P>
+template <class T, bool P>
 cudaError_t launch_direct(int key, int grid, cudaStream_t st, const Args& a,
                           const Geom& g, int units) {
   switch (key) {
-    case 0: return launch_main<P, false, false, false>(grid, st, a, g, units);
-    case 1: return launch_main<P, false, true, false>(grid, st, a, g, units);
-    case 2: return launch_main<P, true, false, false>(grid, st, a, g, units);
-    default: return launch_main<P, true, true, false>(grid, st, a, g, units);
+    case 0: return launch_main<T, P, false, false, false>(grid, st, a, g, units);
+    case 1: return launch_main<T, P, false, true, false>(grid, st, a, g, units);
+    case 2: return launch_main<T, P, true, false, false>(grid, st, a, g, units);
+    default: return launch_main<T, P, true, true, false>(grid, st, a, g, units);
   }
 }
 
-template <bool ST, bool A>
+template <class T, bool ST, bool A>
 cudaError_t launch_finish(dim3 grid, cudaStream_t st, const Args& a,
                           long long S, const Geom& g, int splits) {
   const int rows = THREADS / (g.Co / 8);
-  conv3d_k3_s1_finish<ST, A>
+  conv3d_k3_s1_finish<T, ST, A>
       <<<grid, THREADS, ST ? rows * 2 * g.Co * sizeof(float) : 0, st>>>(
           static_cast<const float*>(a.part),
-          static_cast<const __nv_bfloat16*>(a.add_to),
-          static_cast<__nv_bfloat16*>(a.y),
+          static_cast<const T*>(a.add_to),
+          static_cast<T*>(a.y),
           static_cast<float*>(a.part) + splits * g.slice, S, g.Co, splits,
           g.slice);
   return cudaGetLastError();
@@ -618,55 +612,58 @@ extern "C" int conv3d_k3_s1_ndhwc_launch(const void* x, const void* w,
                                          void* y, void* stats, void* part,
                                          int N, int D, int H, int W, int Ci,
                                          int Co, int splits, int grid,
-                                         float slope, void* stream) {
-  if (Ci % (2 * KC) != 0 || Co % BN != 0 || N < 1 || D < 1 || H < 1 ||
-      W < 1 || splits < 1 || (Ci / KC) % splits != 0 || grid < 1 ||
-      (splits > 1 || stats) != (part != nullptr) ||
-      (splits > 1 && Co > 8 * THREADS))
-    return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
-  const int nbd = (D + BD - 1) / BD;
-  g.nbh = (H + BH - 1) / BH;
-  g.nbw = (W + BW - 1) / BW;
-  g.NB = nbd * g.nbh * g.nbw;
-  g.NT = Co / BN;
-  g.cps = (Ci / KC) / splits;
-  g.groups = g.NT * N;
-  const long long S = (long long)D * H * W;
-  g.slice = N * S * Co;
-  const long long units = (long long)splits * g.NT * N * g.NB;
-  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (grid > units) grid = (int)units;
-  const Args a{x, w, pre, add_to, y, part, slope};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (splits == 1) {
-    const int key = (stats ? 2 : 0) | (add_to ? 1 : 0);
-    e = pre ? launch_direct<true>(key, grid, st, a, g, (int)units)
-            : launch_direct<false>(key, grid, st, a, g, (int)units);
+                                         float slope, int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    if (Ci % (2 * KC) != 0 || Co % BN != 0 || N < 1 || D < 1 || H < 1 ||
+        W < 1 || splits < 1 || (Ci / KC) % splits != 0 || grid < 1 ||
+        (splits > 1 || stats) != (part != nullptr) ||
+        (splits > 1 && Co > 8 * THREADS))
+      return (int)cudaErrorInvalidValue;
+    Geom g;
+    g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
+    const int nbd = (D + BD - 1) / BD;
+    g.nbh = (H + BH - 1) / BH;
+    g.nbw = (W + BW - 1) / BW;
+    g.NB = nbd * g.nbh * g.nbw;
+    g.NT = Co / BN;
+    g.cps = (Ci / KC) / splits;
+    g.groups = g.NT * N;
+    const long long S = (long long)D * H * W;
+    g.slice = N * S * Co;
+    const long long units = (long long)splits * g.NT * N * g.NB;
+    if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    if (grid > units) grid = (int)units;
+    const Args a{x, w, pre, add_to, y, part, slope};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (splits == 1) {
+      const int key = (stats ? 2 : 0) | (add_to ? 1 : 0);
+      e = pre ? launch_direct<T, true>(key, grid, st, a, g, (int)units)
+              : launch_direct<T, false>(key, grid, st, a, g, (int)units);
+      if (e != cudaSuccess || !stats) return (int)e;
+      conv3d_k3_s1_stats<<<g.groups, STAT_THREADS, 0, st>>>(
+          static_cast<const float*>(part), static_cast<float*>(stats), N, g.NB,
+          g.groups, (int)units, grid, Co);
+      return (int)cudaGetLastError();
+    }
+    e = pre ? launch_main<T, true, false, false, true>(grid, st, a, g, (int)units)
+            : launch_main<T, false, false, false, true>(grid, st, a, g,
+                                                     (int)units);
+    if (e != cudaSuccess) return (int)e;
+    const int nblk = (int)((S + FIN_VOX - 1) / FIN_VOX);
+    const dim3 fgrid((unsigned)nblk, N);
+    if (stats)
+      e = add_to ? launch_finish<T, true, true>(fgrid, st, a, S, g, splits)
+                 : launch_finish<T, true, false>(fgrid, st, a, S, g, splits);
+    else
+      e = add_to ? launch_finish<T, false, true>(fgrid, st, a, S, g, splits)
+                 : launch_finish<T, false, false>(fgrid, st, a, S, g, splits);
     if (e != cudaSuccess || !stats) return (int)e;
-    conv3d_k3_s1_stats<<<g.groups, STAT_THREADS, 0, st>>>(
-        static_cast<const float*>(part), static_cast<float*>(stats), N, g.NB,
-        g.groups, (int)units, grid, Co);
+    conv3d_k3_s1_fstats<<<(N * 2 * Co + THREADS - 1) / THREADS, THREADS, 0,
+                          st>>>(
+        static_cast<const float*>(part) + splits * g.slice,
+        static_cast<float*>(stats), N, nblk, Co);
     return (int)cudaGetLastError();
-  }
-  e = pre ? launch_main<true, false, false, true>(grid, st, a, g, (int)units)
-          : launch_main<false, false, false, true>(grid, st, a, g,
-                                                   (int)units);
-  if (e != cudaSuccess) return (int)e;
-  const int nblk = (int)((S + FIN_VOX - 1) / FIN_VOX);
-  const dim3 fgrid((unsigned)nblk, N);
-  if (stats)
-    e = add_to ? launch_finish<true, true>(fgrid, st, a, S, g, splits)
-               : launch_finish<true, false>(fgrid, st, a, S, g, splits);
-  else
-    e = add_to ? launch_finish<false, true>(fgrid, st, a, S, g, splits)
-               : launch_finish<false, false>(fgrid, st, a, S, g, splits);
-  if (e != cudaSuccess || !stats) return (int)e;
-  conv3d_k3_s1_fstats<<<(N * 2 * Co + THREADS - 1) / THREADS, THREADS, 0,
-                        st>>>(
-      static_cast<const float*>(part) + splits * g.slice,
-      static_cast<float*>(stats), N, nblk, Co);
-  return (int)cudaGetLastError();
+  });
 }

@@ -19,7 +19,7 @@
 // N=2, 58 GFLOP against 0.34 GB (0.059 ms of bf16 peak, 0.10 ms of HBM).
 //
 // Design: conv3d_k3_s1.cu's implicit GEMM (M = output voxels, N = Co,
-// K = 27 taps x Ci) on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), fed by
+// K = 27 taps x Ci) on mma.sync.m16n8k16 (T in, fp32 accumulate), fed by
 // a 2-stage cp.async ring over chunks of 16 input channels, with the input
 // staged by parity.
 //   Parity split. The input footprint of an output brick of BD x 8 x 8 is
@@ -53,10 +53,11 @@
 //
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned x, w, add_to.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -136,15 +137,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Geom {
   int N, D, H, W, Ci, Co;
   int Do, Ho, Wo;       // output extents
@@ -192,10 +184,10 @@ __device__ __forceinline__ void for_foot(const Geom& g, const Unit& t, F f) {
   }
 }
 
-template <int BD>
+template <class T, int BD>
 __device__ __forceinline__ void stage_loads(
     const Geom& g, const Unit& t, int chunk, unsigned char* st,
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w) {
+    const T* __restrict__ x, const T* __restrict__ w) {
   const int ci0 = chunk * KC;
   const uint32_t xs = smem_u32(st);
   const uint32_t ws = xs + Tile<BD>::X_BYTES;
@@ -214,7 +206,7 @@ __device__ __forceinline__ void stage_loads(
 // xin = leaky(x*scale - shift) on the staged footprint, inside the volume
 // (the zero padding stays zero): hi = bf16(xin) in place, lo = bf16(xin -
 // hi) into the footprint `lo` (zero outside the volume)
-template <int BD>
+template <class T, int BD>
 __device__ __forceinline__ void pre_op(const Geom& g, const Unit& t,
                                        int chunk, unsigned char* st,
                                        unsigned char* lo,
@@ -230,34 +222,34 @@ __device__ __forceinline__ void pre_op(const Geom& g, const Unit& t,
     }
     uint4* p = reinterpret_cast<uint4*>(st + swx(row, c));
     uint4 q = *p, ql;
-    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&q);
-    __nv_bfloat162* vl = reinterpret_cast<__nv_bfloat162*>(&ql);
+    b16x2<T>* v = reinterpret_cast<b16x2<T>*>(&q);
+    b16x2<T>* vl = reinterpret_cast<b16x2<T>*>(&ql);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int k = c * 8 + 2 * j;
-      const float2 a = __bfloat1622float2(v[j]);
+      const float2 a = to_f2(v[j]);
       float u0 = a.x * sc[k] - sh[k], u1 = a.y * sc[k + 1] - sh[k + 1];
       u0 = u0 >= 0.f ? u0 : u0 * slope;
       u1 = u1 >= 0.f ? u1 : u1 * slope;
-      v[j] = __floats2bfloat162_rn(u0, u1);
-      const float2 h = __bfloat1622float2(v[j]);
-      vl[j] = __floats2bfloat162_rn(u0 - h.x, u1 - h.y);
+      v[j] = pack2<T>(u0, u1);
+      const float2 h = to_f2(v[j]);
+      vl[j] = pack2<T>(u0 - h.x, u1 - h.y);
     }
     *p = q;
     *lp = ql;
   });
 }
 
-template <int BD, bool PRE, bool STATS, bool ADDIN>
+template <class T, int BD, bool PRE, bool STATS, bool ADDIN>
 __global__ void __launch_bounds__(THREADS, 1)
-conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w,
+conv3d_k3_s2_mma(const T* __restrict__ x,
+                 const T* __restrict__ w,
                  const float* __restrict__ pre,
-                 const __nv_bfloat16* __restrict__ add_to,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                 const T* __restrict__ add_to,
+                 T* __restrict__ y, float* __restrict__ part,
                  Geom g, int units, float slope) {
-  using T = Tile<BD>;
-  constexpr int MT = T::MT;
+  using TL = Tile<BD>;
+  constexpr int MT = TL::MT;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
@@ -291,24 +283,24 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     if (s < iters)
-      stage_loads<BD>(g, decode<BD>(g, u0 + s / g.cps), s % g.cps,
-                      smem + s * T::STAGE, x, w);
+      stage_loads<T, BD>(g, decode<BD>(g, u0 + s / g.cps), s % g.cps,
+                      smem + s * TL::STAGE, x, w);
     cp_commit();
   }
 
   for (int it = 0; it < iters; ++it) {
-    unsigned char* st = smem + (it & 1) * T::STAGE;
+    unsigned char* st = smem + (it & 1) * TL::STAGE;
     const int u = u0 + it / g.cps, chunk = it % g.cps;
     const Unit t = decode<BD>(g, u);
     cp_wait1();
     __syncthreads();
     if (PRE) {
-      pre_op<BD>(g, t, chunk, st, smem + 2 * T::STAGE, pre, slope);
+      pre_op<T, BD>(g, t, chunk, st, smem + 2 * TL::STAGE, pre, slope);
       __syncthreads();
     }
     const uint32_t xs = smem_u32(st);
-    const uint32_t ws = xs + T::X_BYTES;
-    const uint32_t ls = smem_u32(smem + 2 * T::STAGE);
+    const uint32_t ws = xs + TL::X_BYTES;
+    const uint32_t ls = smem_u32(smem + 2 * TL::STAGE);
 #pragma unroll
     for (int tap = 0; tap < 27; ++tap) {
       // tap k along an axis reads parity k == 1 at m = o - o0 + (k == 2)
@@ -329,8 +321,8 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
-                     b[nt >> 1][(nt & 1) * 2 + 1]);
+            mma16816<T>(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+                        b[nt >> 1][(nt & 1) * 2 + 1]);
         continue;
       }
       // PRE: the tap's hi and lo products go to a fresh fragment, added to
@@ -342,10 +334,10 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           float p[4] = {0.f, 0.f, 0.f, 0.f};
-          mma16816(p, a[mt], b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
-          mma16816(p, lo, b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(p, a[mt], b[nt >> 1][(nt & 1) * 2],
+                      b[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(p, lo, b[nt >> 1][(nt & 1) * 2],
+                      b[nt >> 1][(nt & 1) * 2 + 1]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += p[e];
         }
@@ -376,8 +368,8 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
             const int co = nt * 8 + tc;
             float v0 = acc[mt][nt][2 * hv], v1 = acc[mt][nt][2 * hv + 1];
             if (ADDIN) {
-              const float2 av = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(add_to + off + co));
+              const float2 av = to_f2(
+                  *reinterpret_cast<const b16x2<T>*>(add_to + off + co));
               v0 += av.x;
               v1 += av.y;
             }
@@ -387,8 +379,8 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
               qsum[nt][0] += v0 * v0;
               qsum[nt][1] += v1 * v1;
             }
-            *reinterpret_cast<__nv_bfloat162*>(y + off + co) =
-                __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<b16x2<T>*>(y + off + co) =
+                pack2<T>(v0, v1);
           }
         }
 #pragma unroll
@@ -421,7 +413,7 @@ conv3d_k3_s2_mma(const __nv_bfloat16* __restrict__ x,
     __syncthreads();  // every warp is done with this stage
     if (it + 2 < iters) {
       const int nx = it + 2;
-      stage_loads<BD>(g, decode<BD>(g, u0 + nx / g.cps), nx % g.cps, st, x,
+      stage_loads<T, BD>(g, decode<BD>(g, u0 + nx / g.cps), nx % g.cps, st, x,
                       w);
     }
     cp_commit();
@@ -458,32 +450,32 @@ struct Args {
   float slope;
 };
 
-template <int BD, bool P, bool ST, bool A>
+template <class T, int BD, bool P, bool ST, bool A>
 cudaError_t launch_main(int grid, cudaStream_t st, const Args& a,
                         const Geom& g, int units) {
   const int smem = 2 * Tile<BD>::STAGE + (P ? Tile<BD>::X_BYTES : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      conv3d_k3_s2_mma<BD, P, ST, A>,
+      conv3d_k3_s2_mma<T, BD, P, ST, A>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  conv3d_k3_s2_mma<BD, P, ST, A><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.x),
-      static_cast<const __nv_bfloat16*>(a.w),
+  conv3d_k3_s2_mma<T, BD, P, ST, A><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(a.x),
+      static_cast<const T*>(a.w),
       static_cast<const float*>(a.pre),
-      static_cast<const __nv_bfloat16*>(a.add_to),
-      static_cast<__nv_bfloat16*>(a.y), static_cast<float*>(a.part), g, units,
+      static_cast<const T*>(a.add_to),
+      static_cast<T*>(a.y), static_cast<float*>(a.part), g, units,
       a.slope);
   return cudaGetLastError();
 }
 
-template <int BD, bool P>
+template <class T, int BD, bool P>
 cudaError_t launch_mode(int key, int grid, cudaStream_t st, const Args& a,
                         const Geom& g, int units) {
   switch (key) {
-    case 0: return launch_main<BD, P, false, false>(grid, st, a, g, units);
-    case 1: return launch_main<BD, P, false, true>(grid, st, a, g, units);
-    case 2: return launch_main<BD, P, true, false>(grid, st, a, g, units);
-    default: return launch_main<BD, P, true, true>(grid, st, a, g, units);
+    case 0: return launch_main<T, BD, P, false, false>(grid, st, a, g, units);
+    case 1: return launch_main<T, BD, P, false, true>(grid, st, a, g, units);
+    case 2: return launch_main<T, BD, P, true, false>(grid, st, a, g, units);
+    default: return launch_main<T, BD, P, true, true>(grid, st, a, g, units);
   }
 }
 
@@ -501,32 +493,35 @@ extern "C" int conv3d_k3_s2_ndhwc_launch(const void* x, const void* w,
                                          void* y, void* stats, void* part,
                                          int N, int D, int H, int W, int Ci,
                                          int Co, int grid, float slope,
-                                         void* stream) {
-  if (Ci % (2 * KC) != 0 || Co % BN != 0 || N < 1 || D < 1 || H < 1 ||
-      W < 1 || grid < 1 || (stats == nullptr) != (part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int BD = pre ? 2 : 4;
-  Geom g;
-  g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
-  g.Do = (D - 1) / 2 + 1, g.Ho = (H - 1) / 2 + 1, g.Wo = (W - 1) / 2 + 1;
-  const int nbd = (g.Do + BD - 1) / BD;
-  g.nbh = (g.Ho + BH - 1) / BH;
-  g.nbw = (g.Wo + BW - 1) / BW;
-  g.NB = nbd * g.nbh * g.nbw;
-  g.NT = Co / BN;
-  g.cps = Ci / KC;
-  const long long units = (long long)g.NT * N * g.NB;
-  if (units * WARPS * SLOT > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (grid > units) grid = (int)units;
-  const Args a{x, w, pre, add_to, y, part, slope};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int key = (stats ? 2 : 0) | (add_to ? 1 : 0);
-  cudaError_t e = pre ? launch_mode<2, true>(key, grid, st, a, g, (int)units)
-                      : launch_mode<4, false>(key, grid, st, a, g,
-                                              (int)units);
-  if (e != cudaSuccess || !stats) return (int)e;
-  conv3d_k3_s2_stats<<<N * g.NT, FIN_THREADS, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(stats), N, g.NB,
-      WARPS, Co);
-  return (int)cudaGetLastError();
+                                         int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    if (Ci % (2 * KC) != 0 || Co % BN != 0 || N < 1 || D < 1 || H < 1 ||
+        W < 1 || grid < 1 || (stats == nullptr) != (part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const int BD = pre ? 2 : 4;
+    Geom g;
+    g.N = N, g.D = D, g.H = H, g.W = W, g.Ci = Ci, g.Co = Co;
+    g.Do = (D - 1) / 2 + 1, g.Ho = (H - 1) / 2 + 1, g.Wo = (W - 1) / 2 + 1;
+    const int nbd = (g.Do + BD - 1) / BD;
+    g.nbh = (g.Ho + BH - 1) / BH;
+    g.nbw = (g.Wo + BW - 1) / BW;
+    g.NB = nbd * g.nbh * g.nbw;
+    g.NT = Co / BN;
+    g.cps = Ci / KC;
+    const long long units = (long long)g.NT * N * g.NB;
+    if (units * WARPS * SLOT > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (grid > units) grid = (int)units;
+    const Args a{x, w, pre, add_to, y, part, slope};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int key = (stats ? 2 : 0) | (add_to ? 1 : 0);
+    cudaError_t e = pre ? launch_mode<T, 2, true>(key, grid, st, a, g, (int)units)
+                        : launch_mode<T, 4, false>(key, grid, st, a, g,
+                                                (int)units);
+    if (e != cudaSuccess || !stats) return (int)e;
+    conv3d_k3_s2_stats<<<N * g.NT, FIN_THREADS, 0, st>>>(
+        static_cast<const float*>(part), static_cast<float*>(stats), N, g.NB,
+        WARPS, Co);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,6 +1,7 @@
 // Instance norm + LeakyReLU over (N, S, C) channels-last tensors, forward
-// and backward, and the model's norm tail, for Hopper (sm_90a). bf16 or fp32
-// in, fp32 statistics. Plain C interface, bound with ctypes (ops/norm_act.py).
+// and backward, and the model's norm tail, for Hopper (sm_90a). bf16, fp16
+// or fp32 in, fp32 statistics. Plain C interface, bound with ctypes
+// (ops/norm_act.py).
 //
 // Replaces the TPU's Pallas kernels of
 //   mt3d_resenc_unet_tpu/ops/pallas_norm_act.py
@@ -27,8 +28,8 @@
 // handful of fp32 operations per element, far under the card's 67 TFLOP/s
 // of fp32 for 3.35 TB/s of HBM. The design keeps enough bytes in flight:
 //   * the channel dimension is innermost, so a warp's threads run along C
-//     with one 16-byte vector each (8 bf16 or 4 fp32 channels) and a block
-//     covers rows = 256 / (C / vec) voxels at a time;
+//     with one 16-byte vector each (8 bf16 / fp16 or 4 fp32 channels) and a
+//     block covers rows = 256 / (C / vec) voxels at a time;
 //   * the grid is sized to the card (ops/norm_act.py::_chunks: about two
 //     blocks an SM over N x chunks, each of at least 128 KB of the tensor),
 //     and each thread issues UNROLL (STATS_UNROLL) independent 16-byte
@@ -54,9 +55,7 @@
 // aligned, C a multiple of the vector width with C / vec <= 256; (N, C)
 // fp32 vectors; counters of at least N ints, zero at the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -71,16 +70,22 @@ struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
 };
 template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+};
+template <>
 struct Vec<float> {
   static constexpr int N = 4;
 };
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+// the 16-bit types: 8 channels a vector, as 4 pairs
+template <class T>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
   const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  const b16x2<T>* h = reinterpret_cast<const b16x2<T>*>(&q);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
+    const float2 f = to_f2(h[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
@@ -94,11 +99,12 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
   v[3] = q.w;
 }
 
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+template <class T>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
   uint4 q;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+  b16x2<T>* h = reinterpret_cast<b16x2<T>*>(&q);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  for (int i = 0; i < 4; ++i) h[i] = pack2<T>(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = q;
 }
 
@@ -106,19 +112,19 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// One 16-byte vector kept packed in registers until it is used (8 bf16 in
-// 4 registers, not 8), so that UNROLL of them per tensor are in flight.
+// One 16-byte vector kept packed in registers until it is used (8 bf16 or
+// fp16 in 4 registers, not 8), so that UNROLL of them per tensor are in flight.
 template <typename T>
 __device__ __forceinline__ uint4 ld16(const T* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-__device__ __forceinline__ void unpack(const uint4& q, float* v,
-                                       const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+template <class T>
+__device__ __forceinline__ void unpack(const uint4& q, float* v, const T*) {
+  const b16x2<T>* h = reinterpret_cast<const b16x2<T>*>(&q);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
+    const float2 f = to_f2(h[i]);
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
@@ -135,6 +141,9 @@ __device__ __forceinline__ void unpack(const uint4& q, float* v,
 // v rounded to T and back: the rounding of one operation in T's arithmetic
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float round_to(float v, const __half*) {
+  return __half2float(__float2half_rn(v));
 }
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 
@@ -864,86 +873,89 @@ int bwd_dx_impl(const void* x, const void* stats, const void* gsums,
   return (int)cudaGetLastError();
 }
 
+// the launcher's body for dtype `code` (fp32 or a 16-bit type)
+template <class F>
+int dtype_dispatch(int code, F f) {
+  return code == DT_F32 ? f(float()) : b16_dispatch(code, f);
+}
+
 }  // namespace
 
 // Each launcher runs on `stream` and returns the cudaGetLastError() code of
-// its launch. Tensors are (N, S, C) in bf16 (is_bf16) or fp32; stats and
-// gsums are (N, 2, C) fp32; inv, shift, a, b are (N, C) fp32 (a, b and the
-// residual may be null); part is (N, nchunk, K, C) fp32 scratch; counter
-// holds N ints that are 0 at the launch and 0 again after it.
+// its launch. Tensors are (N, S, C) in fp32, bf16 or fp16 (`dtype`, a
+// DT_* code of b16.cuh); stats and gsums are (N, 2, C) fp32; inv, shift, a,
+// b are (N, C) fp32 (a, b and the residual may be null); part is (N,
+// nchunk, K, C) fp32 scratch; counter holds N ints that are 0 at the launch
+// and 0 again after it.
 
 extern "C" int norm_act_stats_launch(const void* x, void* part, void* counter,
                                      void* out, int N, long long S, int C,
                                      int nchunk, float eps, int raw,
-                                     int is_bf16, void* stream) {
+                                     int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? stats_impl<__nv_bfloat16>(x, part, counter, out, N, S, C,
-                                             nchunk, eps, raw, st)
-                 : stats_impl<float>(x, part, counter, out, N, S, C, nchunk,
-                                     eps, raw, st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return stats_impl<decltype(t)>(x, part, counter, out, N, S, C, nchunk, eps,
+                                   raw, st);
+  });
 }
 
 extern "C" int norm_act_norm_launch(const void* x, const void* stats, void* y,
                                     int N, long long S, int C, int nchunk,
-                                    float slope, int act, int is_bf16,
+                                    float slope, int act, int dtype,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? norm_impl<__nv_bfloat16>(x, stats, y, N, S, C, nchunk,
-                                            slope, act, st)
-                 : norm_impl<float>(x, stats, y, N, S, C, nchunk, slope, act,
-                                    st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return norm_impl<decltype(t)>(x, stats, y, N, S, C, nchunk, slope, act, st);
+  });
 }
 
 extern "C" int norm_act_tail_launch(const void* y, const void* res,
                                     const void* inv, const void* shift,
                                     const void* a, const void* b, void* out,
                                     int N, long long S, int C, int nchunk,
-                                    float slope, int act, int is_bf16,
+                                    float slope, int act, int dtype,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? tail_impl<__nv_bfloat16>(y, res, inv, shift, a, b, out, N,
-                                            S, C, nchunk, slope, act, st)
-                 : tail_impl<float>(y, res, inv, shift, a, b, out, N, S, C,
-                                    nchunk, slope, act, st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return tail_impl<decltype(t)>(y, res, inv, shift, a, b, out, N, S, C,
+                                  nchunk, slope, act, st);
+  });
 }
 
 extern "C" int norm_act_tail_bwd_launch(
     const void* y, const void* res, const void* inv, const void* shift,
     const void* a, const void* b, const void* gy, void* dy, void* dr,
     void* part, void* counter, void* sums, int N, long long S, int C,
-    int nchunk, float slope, int act, int is_bf16, void* stream) {
+    int nchunk, float slope, int act, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? tail_bwd_impl<__nv_bfloat16>(y, res, inv, shift, a, b, gy, dy,
-                                            dr, part, counter, sums, N, S, C,
-                                            nchunk, slope, act, st)
-             : tail_bwd_impl<float>(y, res, inv, shift, a, b, gy, dy, dr,
-                                    part, counter, sums, N, S, C, nchunk,
-                                    slope, act, st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return tail_bwd_impl<decltype(t)>(y, res, inv, shift, a, b, gy, dy, dr,
+                                      part, counter, sums, N, S, C, nchunk,
+                                      slope, act, st);
+  });
 }
 
 extern "C" int norm_act_bwd_stats_launch(const void* x, const void* stats,
                                          const void* g, void* part,
                                          void* counter, void* gsums, int N,
                                          long long S, int C, int nchunk,
-                                         float slope, int act, int is_bf16,
+                                         float slope, int act, int dtype,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_stats_impl<__nv_bfloat16>(x, stats, g, part, counter,
-                                                 gsums, N, S, C, nchunk,
-                                                 slope, act, st)
-                 : bwd_stats_impl<float>(x, stats, g, part, counter, gsums, N,
-                                         S, C, nchunk, slope, act, st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return bwd_stats_impl<decltype(t)>(x, stats, g, part, counter, gsums, N, S,
+                                       C, nchunk, slope, act, st);
+  });
 }
 
 extern "C" int norm_act_bwd_dx_launch(const void* x, const void* stats,
                                       const void* gsums, const void* g,
                                       void* dx, int N, long long S, int C,
                                       int nchunk, float slope, int act,
-                                      int is_bf16, void* stream) {
+                                      int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_dx_impl<__nv_bfloat16>(x, stats, gsums, g, dx, N, S, C,
-                                              nchunk, slope, act, st)
-                 : bwd_dx_impl<float>(x, stats, gsums, g, dx, N, S, C, nchunk,
-                                      slope, act, st);
+  return dtype_dispatch(dtype, [&](auto t) {
+    return bwd_dx_impl<decltype(t)>(x, stats, gsums, g, dx, N, S, C, nchunk,
+                                    slope, act, st);
+  });
 }

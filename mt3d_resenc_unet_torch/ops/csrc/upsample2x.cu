@@ -22,7 +22,7 @@
 // pieces of contiguous fine rows, and overlaps the loads with the stores.
 //
 // Design: the mirror image of the backward's dx (upsample2x_bwd.cu), a GEMM
-// on mma.sync.m16n8k16 (bf16 in, fp32 accumulate) over coarse-voxel tiles
+// on mma.sync.m16n8k16 (T in, fp32 accumulate) over coarse-voxel tiles
 // of VH x 16 voxels of one (n, d) (ops/upsample.py _up_fwd_plan). A block
 // owns TCO output channels of all eight parities, the four (a, b) pairs in
 // turn, both c of each, so every x byte it loads serves all of them.
@@ -57,10 +57,11 @@
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % TCO == 0, contiguous 16-byte aligned x, wf, y; the launcher also
 // refuses a plan whose shared memory or tile count is not its own.
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -110,15 +111,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct Geom {
   int N, D, H, W, Ci, Co;  // coarse extents and channels
   int nhg, nwg;            // tiles along h and w
@@ -164,11 +156,11 @@ struct FwdCfg {
   static_assert(NS * THREADS == VH * 2 * VW * PO, "whole stores");
 };
 
-template <int TM, int TCO, int CI>
+template <class T, int TM, int TCO, int CI>
 __global__ void __launch_bounds__(THREADS, 1)
-upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ wf,
-                     __nv_bfloat16* __restrict__ y, Geom g, int units) {
+upsample2x_ndhwc_mma(const T* __restrict__ x,
+                     const T* __restrict__ wf,
+                     T* __restrict__ y, Geom g, int units) {
   using C = FwdCfg<TM, TCO, CI>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -208,7 +200,7 @@ upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
       ti = i / (4 * nch);
     }
     const Tile t = decode(g, u0 + ti, C::VH);
-    const __nv_bfloat16* src =
+    const T* src =
         x + ((((size_t)t.n * g.D + t.d) * g.H + t.h0) * g.W + t.w0) * Ci +
         ch * C::KC;
     const uint32_t to = smem_u32(ring + slot * C::STAGE);
@@ -245,7 +237,7 @@ upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
   // next pair's products (one slice per k-step of its first chunk), so the
   // stores stream while the tensor cores work; `pend` is the pending
   // pair's first fine row, ph / pw its tile's extent left in h and w.
-  __nv_bfloat16* pend = nullptr;
+  T* pend = nullptr;
   int ph = 0, pw = 0;
   auto store = [&](int s) {
     const int i = threadIdx.x + s * THREADS;
@@ -308,8 +300,8 @@ upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
                     a);
 #pragma unroll
             for (int nt = 0; nt < C::NT; ++nt)
-              mma16816(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
-                       b[nt >> 1][(nt & 1) * 2 + 1]);
+              mma16816<T>(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
+                          b[nt >> 1][(nt & 1) * 2 + 1]);
           }
           if (ch == 0 && pend) {
 #pragma unroll
@@ -331,10 +323,10 @@ upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = wn * TM + wm * C::WTM + 16 * mt + gr + 8 * h;
-            *reinterpret_cast<__nv_bfloat162*>(out + swz(r, nt, C::PO) +
+            *reinterpret_cast<b16x2<T>*>(out + swz(r, nt, C::PO) +
                                                2 * tc) =
-                __floats2bfloat162_rn(acc[mt][nt][2 * h],
-                                      acc[mt][nt][2 * h + 1]);
+                pack2<T>(acc[mt][nt][2 * h],
+                         acc[mt][nt][2 * h + 1]);
           }
       __syncthreads();
       pend = y + ((((size_t)t.n * 2 * g.D + 2 * t.d + (l >> 1)) * 2 * g.H +
@@ -345,17 +337,17 @@ upsample2x_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
   for (int s = 0; s < C::NS; ++s) store(s);  // the block's last pair
 }
 
-template <int TM, int TCO, int CI>
+template <class T, int TM, int TCO, int CI>
 cudaError_t launch(dim3 grid, int smem, cudaStream_t st, const void* x,
                    const void* wf, void* y, const Geom& g, int units) {
   if (smem != FwdCfg<TM, TCO, CI>::SMEM) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      upsample2x_ndhwc_mma<TM, TCO, CI>,
+      upsample2x_ndhwc_mma<T, TM, TCO, CI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  upsample2x_ndhwc_mma<TM, TCO, CI><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wf), static_cast<__nv_bfloat16*>(y),
+  upsample2x_ndhwc_mma<T, TM, TCO, CI><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(x),
+      static_cast<const T*>(wf), static_cast<T*>(y),
       g, units);
   return cudaGetLastError();
 }
@@ -372,27 +364,30 @@ cudaError_t launch(dim3 grid, int smem, cudaStream_t st, const void* x,
 extern "C" int upsample2x_ndhwc_launch(const void* x, const void* wf, void* y,
                                        int N, int Di, int Hi, int Wi, int Ci,
                                        int Co, int tm, int tco, int smem,
-                                       int tiles, int grid, void* stream) {
-  if (Ci % 32 != 0 || Co % 32 != 0 || N < 1 || Di < 1 || Hi < 1 || Wi < 1 ||
-      grid < 1 || tco < 1 || Co % tco != 0)
-    return (int)cudaErrorInvalidValue;
-  const int cfg = tm == 128 && tco == 64 && Ci == 128  ? 0
-                  : tm == 256 && tco == 32 && Ci == 64 ? 1
-                  : tm == 64 && tco == 32              ? 2
-                                                       : -1;
-  if (cfg < 0) return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.N = N, g.D = Di, g.H = Hi, g.W = Wi, g.Ci = Ci, g.Co = Co;
-  g.nhg = (Hi + tm / VW - 1) / (tm / VW);
-  g.nwg = (Wi + VW - 1) / VW;
-  const long long units = (long long)N * Di * g.nhg * g.nwg;
-  if (units != tiles || Co / tco > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 blocks((unsigned)(grid < tiles ? grid : tiles),
-                    (unsigned)(Co / tco));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cfg) {
-    case 0: return (int)launch<128, 64, 128>(blocks, smem, st, x, wf, y, g, tiles);
-    case 1: return (int)launch<256, 32, 64>(blocks, smem, st, x, wf, y, g, tiles);
-    default: return (int)launch<64, 32, 0>(blocks, smem, st, x, wf, y, g, tiles);
-  }
+                                       int tiles, int grid, int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    if (Ci % 32 != 0 || Co % 32 != 0 || N < 1 || Di < 1 || Hi < 1 || Wi < 1 ||
+        grid < 1 || tco < 1 || Co % tco != 0)
+      return (int)cudaErrorInvalidValue;
+    const int cfg = tm == 128 && tco == 64 && Ci == 128  ? 0
+                    : tm == 256 && tco == 32 && Ci == 64 ? 1
+                    : tm == 64 && tco == 32              ? 2
+                                                         : -1;
+    if (cfg < 0) return (int)cudaErrorInvalidValue;
+    Geom g;
+    g.N = N, g.D = Di, g.H = Hi, g.W = Wi, g.Ci = Ci, g.Co = Co;
+    g.nhg = (Hi + tm / VW - 1) / (tm / VW);
+    g.nwg = (Wi + VW - 1) / VW;
+    const long long units = (long long)N * Di * g.nhg * g.nwg;
+    if (units != tiles || Co / tco > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 blocks((unsigned)(grid < tiles ? grid : tiles),
+                      (unsigned)(Co / tco));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (cfg) {
+      case 0: return (int)launch<T, 128, 64, 128>(blocks, smem, st, x, wf, y, g, tiles);
+      case 1: return (int)launch<T, 256, 32, 64>(blocks, smem, st, x, wf, y, g, tiles);
+      default: return (int)launch<T, 64, 32, 0>(blocks, smem, st, x, wf, y, g, tiles);
+    }
+  });
 }

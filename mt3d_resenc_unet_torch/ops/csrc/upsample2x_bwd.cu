@@ -18,7 +18,7 @@
 // 17.2 GFLOP, 9 / 17 us of bf16 tensor-core peak (~51 FLOP per byte, far
 // under the ~295 where the tensor cores become the limit).
 //
-// Both are GEMMs on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), fed by a
+// Both are GEMMs on mma.sync.m16n8k16 (T in, fp32 accumulate), fed by a
 // cp.async ring, over coarse-voxel tiles of VH x 16 voxels of one (n, d).
 // Staging gy by parity. For the 16 coarse voxels k0 .. k0+15 of one coarse
 // row (n, d, h) and one (a, b), the fine rows gy[n, 2d+a, 2h+b, 2k0 ..
@@ -69,10 +69,11 @@
 // Requirements (checked by the wrapper and here): Ci % 32 == 0,
 // Co % 32 == 0, contiguous 16-byte aligned x, gy, wf; for dx with 32-ci
 // tiles Co <= 256 (the resident weights).
+//
+// T, the operand type, is bf16 or fp16 (b16.cuh); "bf16" below stands
+// for T, and the launcher's dtype code picks it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "b16.cuh"
 
 namespace {
 
@@ -123,15 +124,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 struct Geom {
@@ -194,11 +186,11 @@ __device__ __forceinline__ void gy_slots(const Geom& g, int vh, int ab0,
 
 // cp.async a tile's pieces from src (the tile's base) to stage address
 // `to`; pieces outside the volume are zero-filled
-template <int K>
+template <class T, int K>
 __device__ __forceinline__ void copy_slots(const Geom& g, const Tile& t,
                                            int vh, const Slots<K>& s,
-                                           const __nv_bfloat16* src,
-                                           const __nv_bfloat16* any,
+                                           const T* src,
+                                           const T* any,
                                            uint32_t to) {
   const bool full = t.h0 + vh <= g.H && t.w0 + VW <= g.W;
   const int hl = g.H - t.h0, wl = g.W - t.w0;
@@ -225,10 +217,10 @@ struct DwCfg {
   static constexpr int KG = PB / 2 * DW_VH * 2 * VW * PG / THREADS;
 };
 
-template <int TCI, int TCO, int PB>
+template <class T, int TCI, int TCO, int PB>
 __global__ void __launch_bounds__(THREADS, 1)
-upsample2x_dw_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ gy,
+upsample2x_dw_ndhwc_mma(const T* __restrict__ x,
+                        const T* __restrict__ gy,
                         float* __restrict__ part, Geom g, int splits,
                         int chunks) {
   using C = DwCfg<TCI, TCO, PB>;
@@ -315,8 +307,8 @@ upsample2x_dw_ndhwc_mma(const __nv_bfloat16* __restrict__ x,
                   a);
 #pragma unroll
         for (int nt = 0; nt < C::NT; ++nt)
-          mma16816(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
+          mma16816<T>(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
+                      b[nt >> 1][(nt & 1) * 2 + 1]);
       }
     }
 #pragma unroll
@@ -369,11 +361,11 @@ struct DxCfg {
   static int smem(int Co) { return 8 * TCI * Co * 2 + S * STAGE; }
 };
 
-template <int TM, int TCI, int KC, int S>
+template <class T, int TM, int TCI, int KC, int S>
 __global__ void __launch_bounds__(THREADS, 1)
-upsample2x_dx_ndhwc_mma(const __nv_bfloat16* __restrict__ gy,
-                        const __nv_bfloat16* __restrict__ wf,
-                        __nv_bfloat16* __restrict__ dx, Geom g, int units) {
+upsample2x_dx_ndhwc_mma(const T* __restrict__ gy,
+                        const T* __restrict__ wf,
+                        T* __restrict__ dx, Geom g, int units) {
   using C = DxCfg<TM, TCI, KC, S>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -457,8 +449,8 @@ upsample2x_dx_ndhwc_mma(const __nv_bfloat16* __restrict__ gy,
                   a);
 #pragma unroll
           for (int nt = 0; nt < C::NT; ++nt)
-            mma16816(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
-                     b[nt >> 1][(nt & 1) * 2 + 1]);
+            mma16816<T>(acc[mt][nt], a, b[nt >> 1][(nt & 1) * 2],
+                        b[nt >> 1][(nt & 1) * 2 + 1]);
         }
       }
     }
@@ -478,9 +470,9 @@ upsample2x_dx_ndhwc_mma(const __nv_bfloat16* __restrict__ gy,
         for (int h = 0; h < 2; ++h) {
           const int r = wm * C::WTM + 16 * mt + gr + 8 * h;
           const int col = wn * C::WTN + 8 * nt;
-          *reinterpret_cast<__nv_bfloat162*>(st + swz(r, col / 8, C::PO) +
+          *reinterpret_cast<b16x2<T>*>(st + swz(r, col / 8, C::PO) +
                                              2 * tc) =
-              __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+              pack2<T>(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
           acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
         }
     __syncthreads();
@@ -504,33 +496,33 @@ Geom make_geom(int N, int D, int H, int W, int Ci, int Co, int vh) {
   return g;
 }
 
-template <int TCI, int TCO, int PB>
+template <class T, int TCI, int TCO, int PB>
 cudaError_t launch_dw(int grid, cudaStream_t st, const void* x,
                       const void* gy, void* part, const Geom& g, int splits,
                       int chunks) {
   using C = DwCfg<TCI, TCO, PB>;
   cudaError_t e = cudaFuncSetAttribute(
-      upsample2x_dw_ndhwc_mma<TCI, TCO, PB>,
+      upsample2x_dw_ndhwc_mma<T, TCI, TCO, PB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
-  upsample2x_dw_ndhwc_mma<TCI, TCO, PB><<<grid, THREADS, C::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(gy), static_cast<float*>(part), g,
+  upsample2x_dw_ndhwc_mma<T, TCI, TCO, PB><<<grid, THREADS, C::SMEM, st>>>(
+      static_cast<const T*>(x),
+      static_cast<const T*>(gy), static_cast<float*>(part), g,
       splits, chunks);
   return cudaGetLastError();
 }
 
-template <int TM, int TCI, int KC, int S>
+template <class T, int TM, int TCI, int KC, int S>
 cudaError_t launch_dx(dim3 grid, cudaStream_t st, const void* gy,
                       const void* wf, void* dx, const Geom& g, int units) {
   const int smem = DxCfg<TM, TCI, KC, S>::smem(g.Co);
   cudaError_t e = cudaFuncSetAttribute(
-      upsample2x_dx_ndhwc_mma<TM, TCI, KC, S>,
+      upsample2x_dx_ndhwc_mma<T, TM, TCI, KC, S>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  upsample2x_dx_ndhwc_mma<TM, TCI, KC, S><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(gy),
-      static_cast<const __nv_bfloat16*>(wf), static_cast<__nv_bfloat16*>(dx),
+  upsample2x_dx_ndhwc_mma<T, TM, TCI, KC, S><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(gy),
+      static_cast<const T*>(wf), static_cast<T*>(dx),
       g, units);
   return cudaGetLastError();
 }
@@ -545,26 +537,29 @@ cudaError_t launch_dx(dim3 grid, cudaStream_t st, const void* gy,
 extern "C" int upsample2x_dx_ndhwc_launch(const void* gy, const void* wf,
                                           void* dx, int N, int Di, int Hi,
                                           int Wi, int Ci, int Co, int tci,
-                                          int grid, void* stream) {
-  const bool ok = (tci == 128 && Co == 64) || (tci == 64 && Co == 32) ||
-                  (tci == 32 && Co <= 256);
-  if (!ok || Ci % tci != 0 || Co % 32 != 0 || N < 1 || Di < 1 || Hi < 1 ||
-      Wi < 1 || grid < 1 || 8LL * Hi * Wi * Co > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const int tm = tci == 64 ? 256 : 128;
-  const Geom g = make_geom(N, Di, Hi, Wi, Ci, Co, tm / VW);
-  const long long units = (long long)N * Di * g.nhg * g.nwg;
-  if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 blocks((unsigned)(grid < units ? grid : units), Ci / tci);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (tci == 128)
-    e = launch_dx<128, 128, 64, 3>(blocks, st, gy, wf, dx, g, (int)units);
-  else if (tci == 64)
-    e = launch_dx<256, 64, 32, 6>(blocks, st, gy, wf, dx, g, (int)units);
-  else
-    e = launch_dx<128, 32, 32, 6>(blocks, st, gy, wf, dx, g, (int)units);
-  return (int)e;
+                                          int grid, int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    const bool ok = (tci == 128 && Co == 64) || (tci == 64 && Co == 32) ||
+                    (tci == 32 && Co <= 256);
+    if (!ok || Ci % tci != 0 || Co % 32 != 0 || N < 1 || Di < 1 || Hi < 1 ||
+        Wi < 1 || grid < 1 || 8LL * Hi * Wi * Co > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    const int tm = tci == 64 ? 256 : 128;
+    const Geom g = make_geom(N, Di, Hi, Wi, Ci, Co, tm / VW);
+    const long long units = (long long)N * Di * g.nhg * g.nwg;
+    if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const dim3 blocks((unsigned)(grid < units ? grid : units), Ci / tci);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (tci == 128)
+      e = launch_dx<T, 128, 128, 64, 3>(blocks, st, gy, wf, dx, g, (int)units);
+    else if (tci == 64)
+      e = launch_dx<T, 256, 64, 32, 6>(blocks, st, gy, wf, dx, g, (int)units);
+    else
+      e = launch_dx<T, 128, 32, 32, 6>(blocks, st, gy, wf, dx, g, (int)units);
+    return (int)e;
+  });
 }
 
 // dw = the (8, Ci, Co) fp32 weight gradient of the flipped wf from x
@@ -577,34 +572,37 @@ extern "C" int upsample2x_dw_ndhwc_launch(const void* x, const void* gy,
                                           void* dw, void* part, int N, int Di,
                                           int Hi, int Wi, int Ci, int Co,
                                           int tci, int tco, int splits,
-                                          void* stream) {
-  const bool ok = (tci == 64 && tco == 32) || (tci == 128 && tco == 64) ||
-                  (tci == 32 && tco == 32);
-  if (!ok || Ci % tci != 0 || Co % tco != 0 || N < 1 || Di < 1 || Hi < 1 ||
-      Wi < 1 || splits < 1 || !part || 8LL * Hi * Wi * Co > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const Geom g = make_geom(N, Di, Hi, Wi, Ci, Co, DW_VH);
-  const long long chunks = (long long)N * Di * g.nhg * g.nwg;
-  const int pb = tco == 64 ? 2 : 8;
-  const long long blocks =
-      (long long)(8 / pb) * (Ci / tci) * (Co / tco) * splits;
-  if (chunks > 0x7fffffff || blocks > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (tco == 64)
-    e = launch_dw<128, 64, 2>((int)blocks, st, x, gy, part, g, splits,
-                              (int)chunks);
-  else if (tci == 64)
-    e = launch_dw<64, 32, 8>((int)blocks, st, x, gy, part, g, splits,
-                             (int)chunks);
-  else
-    e = launch_dw<32, 32, 8>((int)blocks, st, x, gy, part, g, splits,
-                             (int)chunks);
-  if (e != cudaSuccess) return (int)e;
-  const long long size = 8LL * Ci * Co;
-  upsample2x_dw_ndhwc_sum<<<(unsigned)((size + SUM_THREADS - 1) / SUM_THREADS),
-                            SUM_THREADS, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), size, splits);
-  return (int)cudaGetLastError();
+                                          int dtype, void* stream) {
+  return b16_dispatch(dtype, [&](auto t) -> int {
+    using T = decltype(t);
+    const bool ok = (tci == 64 && tco == 32) || (tci == 128 && tco == 64) ||
+                    (tci == 32 && tco == 32);
+    if (!ok || Ci % tci != 0 || Co % tco != 0 || N < 1 || Di < 1 || Hi < 1 ||
+        Wi < 1 || splits < 1 || !part || 8LL * Hi * Wi * Co > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    const Geom g = make_geom(N, Di, Hi, Wi, Ci, Co, DW_VH);
+    const long long chunks = (long long)N * Di * g.nhg * g.nwg;
+    const int pb = tco == 64 ? 2 : 8;
+    const long long blocks =
+        (long long)(8 / pb) * (Ci / tci) * (Co / tco) * splits;
+    if (chunks > 0x7fffffff || blocks > 0x7fffffff)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    if (tco == 64)
+      e = launch_dw<T, 128, 64, 2>((int)blocks, st, x, gy, part, g, splits,
+                                (int)chunks);
+    else if (tci == 64)
+      e = launch_dw<T, 64, 32, 8>((int)blocks, st, x, gy, part, g, splits,
+                               (int)chunks);
+    else
+      e = launch_dw<T, 32, 32, 8>((int)blocks, st, x, gy, part, g, splits,
+                               (int)chunks);
+    if (e != cudaSuccess) return (int)e;
+    const long long size = 8LL * Ci * Co;
+    upsample2x_dw_ndhwc_sum<<<(unsigned)((size + SUM_THREADS - 1) / SUM_THREADS),
+                              SUM_THREADS, 0, st>>>(
+        static_cast<const float*>(part), static_cast<float*>(dw), size, splits);
+    return (int)cudaGetLastError();
+  });
 }

@@ -83,17 +83,17 @@ def _leaky(u: torch.Tensor, negative_slope: float) -> torch.Tensor:
 
 def _vec(dtype: torch.dtype) -> int:
     """Channels of one 16-byte vector."""
-    return 8 if dtype == torch.bfloat16 else 4
+    return 4 if dtype == torch.float32 else 8
 
 
 def kernel_class(x: torch.Tensor,
                  residual: Optional[torch.Tensor] = None) -> bool:
-    """The shapes the kernels take: (N, *spatial, C) of any rank in bf16 or
-    fp32 with C a multiple of the 16-byte vector and C / vec <= THREADS,
-    and a residual of the same shape and dtype. The model sends these to
+    """The shapes the kernels take: (N, *spatial, C) of any rank in bf16,
+    fp16 or fp32 with C a multiple of the 16-byte vector and C / vec <=
+    THREADS, and a residual of the same shape and dtype. The model sends these to
     :class:`NormTailFn` and :class:`RawStatsFn` and the rest to the plain
     ops, by shape, as it dispatches the convs."""
-    if x.dim() < 3 or x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dim() < 3 or x.dtype not in _build.DTYPE_CODES:
         return False
     c, vec = x.shape[-1], _vec(x.dtype)
     return (c % vec == 0 and 0 < c // vec <= THREADS and x.numel() > 0
@@ -222,7 +222,7 @@ def _fn(name: str):
     if fn is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        tail = [i, ll, i, i, f, i, i, p]    # N, S, C, nchunk, f, int, bf16
+        tail = [i, ll, i, i, f, i, i, p]    # N, S, C, nchunk, f, int, dtype
         fn = getattr(_build.load(_SOURCE), f"{name}_launch")
         fn.argtypes = {
             "norm_act_stats": [p, p, p, p] + tail,
@@ -238,11 +238,12 @@ def _fn(name: str):
 
 
 def _geometry(fn: str, x2: torch.Tensor, *others: Optional[torch.Tensor]):
-    """Checks what the kernels take; returns (N, S, C, is_bf16)."""
+    """Checks what the kernels take; returns (N, S, C, dtype code)."""
     if x2.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x2.device}")
     if x2.dim() != 3 or not kernel_class(x2):
-        raise ValueError(f"{fn}: needs x (N, S, C) in bf16 or fp32 with C a "
+        raise ValueError(f"{fn}: needs x (N, S, C) in bf16, fp16 or fp32 with "
+                         "C a "
                          f"multiple of the vector and C / vec <= {THREADS}; "
                          f"got {tuple(x2.shape)} {x2.dtype}")
     for t in (x2,) + others:
@@ -252,7 +253,7 @@ def _geometry(fn: str, x2: torch.Tensor, *others: Optional[torch.Tensor]):
             raise ValueError(f"{fn}: tensors must be contiguous, 16-byte "
                              f"aligned and on {x2.device}")
     n, s, c = x2.shape
-    return n, s, c, int(x2.dtype == torch.bfloat16)
+    return n, s, c, _build.DTYPE_CODES[x2.dtype]
 
 
 def _op_chunks(s: int, c: int, vec: int) -> int:
@@ -337,7 +338,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def _stats_launch(fn: str, name: str, x2: torch.Tensor, eps: float,
                   raw: bool) -> torch.Tensor:
     _build.check_no_grad(name, x2)
-    n, s, c, bf16 = _geometry(name, x2)
+    n, s, c, code = _geometry(name, x2)
     nchunk = _chunks(n, s, c, _vec(x2.dtype), per_sm=4)
     # the partials, then the (N, 2, C) result: one allocation
     part = torch.empty(n * (nchunk + 1) * 2 * c, dtype=torch.float32,
@@ -347,7 +348,7 @@ def _stats_launch(fn: str, name: str, x2: torch.Tensor, eps: float,
         st = _stream(x2)
         _launch(fn, name, (n, s, c), {}, x2.data_ptr(), part.data_ptr(),
                 _counter(x2, n, st).data_ptr(), out.data_ptr(), n, s, c,
-                nchunk, eps, int(raw), bf16, st)
+                nchunk, eps, int(raw), code, st)
     return out
 
 
@@ -375,31 +376,31 @@ def norm_act_norm(x2: torch.Tensor, stats: torch.Tensor,
         return norm_act_norm_plain(x2, stats, negative_slope, act)
     fn = "norm_act_norm"
     _build.check_no_grad(fn, x2)
-    n, s, c, bf16 = _geometry(fn, x2, stats)
+    n, s, c, code = _geometry(fn, x2, stats)
     _check_stats(fn, stats, n, c)
     nchunk = _op_chunks(s, c, _vec(x2.dtype))
     y = torch.empty_like(x2)
     with _on(x2):
         _launch(fn, fn, (n, s, c), {"act": act}, x2.data_ptr(),
                 stats.data_ptr(), y.data_ptr(), n, s, c, nchunk,
-                negative_slope, int(act), bf16, _stream(x2))
+                negative_slope, int(act), code, _stream(x2))
     return y
 
 
 def _tail_args(fn, y2, r2, inv, shift, a, b, g2=None):
     """Checks the tail's operands (and the cotangent ``g2``); returns (N,
-    S, C, is_bf16, chunks, modes)."""
+    S, C, dtype code, chunks, modes)."""
     if (a is None) != (b is None) or (a is not None and r2 is None):
         raise ValueError(f"{fn}: residual_pre (a, b) needs both vectors and "
                          "a residual")
-    n, s, c, bf16 = _geometry(fn, y2, r2, g2)
+    n, s, c, code = _geometry(fn, y2, r2, g2)
     for t in (r2, g2):
         if t is not None and (t.shape != y2.shape or t.dtype != y2.dtype):
             raise ValueError(f"{fn}: the residual and the cotangent must "
                              "match y's shape and dtype")
     _check_vectors(fn, y2, inv, shift, a, b)
     modes = {"residual": r2 is not None, "pre": a is not None}
-    return n, s, c, bf16, _chunks(n, s, c, _vec(y2.dtype)), modes
+    return n, s, c, code, _chunks(n, s, c, _vec(y2.dtype)), modes
 
 
 def norm_tail(y2: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor,
@@ -415,13 +416,13 @@ def norm_tail(y2: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor,
         return norm_tail_plain(y2, inv, shift, negative_slope, act, r2, a, b)
     fn = "norm_act_tail"
     _build.check_no_grad(fn, y2, r2, inv, shift, a, b)
-    n, s, c, bf16, nchunk, modes = _tail_args(fn, y2, r2, inv, shift, a, b)
+    n, s, c, code, nchunk, modes = _tail_args(fn, y2, r2, inv, shift, a, b)
     out = torch.empty_like(y2)
     with _on(y2):
         _launch(fn, fn, (n, s, c), {**modes, "act": act}, y2.data_ptr(),
                 _ptr(r2), inv.data_ptr(), shift.data_ptr(), _ptr(a), _ptr(b),
                 out.data_ptr(), n, s, c, nchunk, negative_slope, int(act),
-                bf16, _stream(y2))
+                code, _stream(y2))
     return out
 
 
@@ -435,7 +436,7 @@ def norm_tail_bwd(y2, r2, inv, shift, a, b, g2, negative_slope=1e-2,
                                    negative_slope, act)
     fn = "norm_act_tail_bwd"
     _build.check_no_grad(fn, y2, r2, g2)
-    n, s, c, bf16, nchunk, modes = _tail_args(fn, y2, r2, inv, shift, a, b,
+    n, s, c, code, nchunk, modes = _tail_args(fn, y2, r2, inv, shift, a, b,
                                               g2)
     k = 4 if a is not None else 2
     dy = torch.empty_like(y2)
@@ -449,7 +450,7 @@ def norm_tail_bwd(y2, r2, inv, shift, a, b, g2, negative_slope=1e-2,
                 _ptr(r2), inv.data_ptr(), shift.data_ptr(), _ptr(a), _ptr(b),
                 g2.data_ptr(), dy.data_ptr(), _ptr(dr), part.data_ptr(),
                 _counter(y2, n, st).data_ptr(), sums.data_ptr(), n, s, c,
-                nchunk, negative_slope, int(act), bf16, st)
+                nchunk, negative_slope, int(act), code, st)
     return dy, dr, sums
 
 
@@ -461,7 +462,7 @@ def norm_act_bwd_stats(x2: torch.Tensor, stats: torch.Tensor,
         return norm_act_bwd_stats_plain(x2, stats, g2, negative_slope, act)
     fn = "norm_act_bwd_stats"
     _build.check_no_grad(fn, x2, g2)
-    n, s, c, bf16 = _geometry(fn, x2, stats, g2)
+    n, s, c, code = _geometry(fn, x2, stats, g2)
     _check_stats(fn, stats, n, c)
     if g2.shape != x2.shape or g2.dtype != x2.dtype:
         raise ValueError(f"{fn}: g must match x's shape and dtype")
@@ -474,7 +475,7 @@ def norm_act_bwd_stats(x2: torch.Tensor, stats: torch.Tensor,
         _launch(fn, fn, (n, s, c), {"act": act}, x2.data_ptr(),
                 stats.data_ptr(), g2.data_ptr(), part.data_ptr(),
                 _counter(x2, n, st).data_ptr(), gsums.data_ptr(), n, s, c,
-                nchunk, negative_slope, int(act), bf16, st)
+                nchunk, negative_slope, int(act), code, st)
     return gsums
 
 
@@ -488,7 +489,7 @@ def norm_act_bwd_dx(x2: torch.Tensor, stats: torch.Tensor,
                                      act)
     fn = "norm_act_bwd_dx"
     _build.check_no_grad(fn, x2, g2)
-    n, s, c, bf16 = _geometry(fn, x2, stats, gsums, g2)
+    n, s, c, code = _geometry(fn, x2, stats, gsums, g2)
     _check_stats(fn, stats, n, c)
     _check_stats(fn, gsums, n, c)
     if g2.shape != x2.shape or g2.dtype != x2.dtype:
@@ -499,7 +500,7 @@ def norm_act_bwd_dx(x2: torch.Tensor, stats: torch.Tensor,
         _launch(fn, fn, (n, s, c), {"act": act}, x2.data_ptr(),
                 stats.data_ptr(), gsums.data_ptr(), g2.data_ptr(),
                 dx.data_ptr(), n, s, c, nchunk, negative_slope, int(act),
-                bf16, _stream(x2))
+                code, _stream(x2))
     return dx
 
 

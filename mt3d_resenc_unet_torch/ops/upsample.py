@@ -25,7 +25,9 @@ csrc/upsample2x_f32.cu instead, which replace the same Pallas kernels as
 the JAX package runs them in fp32: GEMMs on the tensor cores at fp32
 accuracy (FP64 MMA, csrc/f32_gemm.cuh), tiled by :func:`_up_f32_plan`;
 their launches count as ``upsample2x_f32``, ``upsample2x_dx_f32`` and
-``upsample2x_dw_f32``, the names of their entries.
+``upsample2x_dw_f32``, the names of their entries. At compute dtype
+float16 the bf16 kernels run instantiated on ``__half`` (csrc/b16.cuh), as
+``upsample2x_f16``, ``upsample2x_dx_f16`` and ``upsample2x_dw_f16``.
 
 ``wf`` is the transposed-conv kernel in the JAX layout (*k, Ci, Co) with
 its spatial flip already applied: y[.., k*i + a, ..] = x[.., i, ..] @ wf[a].
@@ -83,16 +85,17 @@ def upsample_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
 
 def _fn(name: str = _KERNEL):
     """The C launcher ``<name>_ndhwc_launch``, its argument types set: (in,
-    in, out, [scratch,] N, Di, Hi, Wi, Ci, Co, [plan ints,] stream)."""
+    in, out, [scratch,] N, Di, Hi, Wi, Ci, Co, [plan ints,] dtype code,
+    stream)."""
     fn = _lib_fns.get(name)
     if fn is None:
         source = _KERNEL if name == _KERNEL else "upsample2x_bwd"
         fn = getattr(_build.load(source), f"{name}_ndhwc_launch")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            _KERNEL: [p] * 3 + [i] * 11 + [p],
-            "upsample2x_dx": [p] * 3 + [i] * 8 + [p],
-            "upsample2x_dw": [p] * 4 + [i] * 9 + [p],
+            _KERNEL: [p] * 3 + [i] * 12 + [p],
+            "upsample2x_dx": [p] * 3 + [i] * 9 + [p],
+            "upsample2x_dw": [p] * 4 + [i] * 10 + [p],
         }[name]
         fn.restype = i
         _lib_fns[name] = fn
@@ -212,14 +215,14 @@ def up2_row(ab: int, c: int, vox: int, vw: int, hh: int, k: int) -> int:
 
 def _check(fn: str, **tensors: torch.Tensor) -> torch.dtype:
     """All ``tensors`` contiguous on one device in one dtype a kernel takes
-    (bf16 or fp32); returns it."""
+    (bf16, fp16 or fp32); returns it."""
     first = next(iter(tensors.values()))
     dev, dt = first.device, first.dtype
     for name, t in tensors.items():
-        if (t.dtype != dt or dt not in (torch.bfloat16, torch.float32)
+        if (t.dtype != dt or dt not in _build.DTYPE_CODES
                 or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name} must be contiguous bf16 or fp32 "
-                             f"on {dev} in the dtype of the others; got "
+            raise ValueError(f"{fn}: {name} must be contiguous bf16, fp16 or "
+                             f"fp32 on {dev} in the dtype of the others; got "
                              f"{t.dtype} on {t.device}")
     return dt
 
@@ -327,16 +330,15 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
         _build.count(f"{_KERNEL}_f32", (ci, co, d, h, w))
         return y
     plan = _up_fwd_plan(n, (d, h, w), ci, co, _sm_count(x.device))
-    y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=torch.bfloat16,
-                    device=x.device)
+    y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=dt, device=x.device)
     with torch.cuda.device(x.device):
         rc = _fn()(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w, ci,
                    co, plan["tm"], plan["tco"], plan["smem"], plan["tiles"],
-                   plan["grid"][0],
+                   plan["grid"][0], _build.DTYPE_CODES[dt],
                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x: kernel launch failed, CUDA error {rc}")
-    _build.count(_KERNEL, (ci, co, d, h, w))
+    _build.count(_KERNEL + _build.SUFFIX[dt], (ci, co, d, h, w))
     return y
 
 
@@ -413,14 +415,15 @@ def upsample2x_dx(gy: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     if plan["tci"] == 32 and co > UP_DX_MAX_CO:
         raise ValueError(f"{fn}: unsupported channels {ci}->{co} (Co > "
                          f"{UP_DX_MAX_CO} outside 128->64 and 64->32)")
-    dx = torch.empty((n, d, h, w, ci), dtype=torch.bfloat16, device=gy.device)
+    dx = torch.empty((n, d, h, w, ci), dtype=dt, device=gy.device)
     with torch.cuda.device(gy.device):
         rc = _fn(fn)(gy.data_ptr(), wf.data_ptr(), dx.data_ptr(), n, d, h, w,
                      ci, co, plan["tci"], plan["grid"][0],
+                     _build.DTYPE_CODES[dt],
                      torch.cuda.current_stream(gy.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.count(fn, (ci, co, d, h, w))
+    _build.count(fn + _build.SUFFIX[dt], (ci, co, d, h, w))
     return dx
 
 
@@ -449,11 +452,11 @@ def upsample2x_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = _fn(fn)(x.data_ptr(), gy.data_ptr(), dw.data_ptr(),
                      part.data_ptr(), n, d, h, w, ci, co, plan["tci"],
-                     plan["tco"], plan["splits"],
+                     plan["tco"], plan["splits"], _build.DTYPE_CODES[dt],
                      torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed, CUDA error {rc}")
-    _build.count(fn, (ci, co, d, h, w))
+    _build.count(fn + _build.SUFFIX[dt], (ci, co, d, h, w))
     return dw
 
 

@@ -3,6 +3,7 @@ one NVIDIA GPU, in turns, so that a before / after comparison is made
 inside one call on one card.
 
     python -m mt3d_resenc_unet_torch.tools.ab_kernels [--only WHAT,...] ROOT [ROOT ...]
+    python -m mt3d_resenc_unet_torch.tools.ab_kernels --digest ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (``.`` for this one; another commit
 unpacked with ``git archive`` into a git-ignored directory). Each runs in a
@@ -21,8 +22,14 @@ the pre-op), rows 4-6 (the stride-2 forward with stats and with the
 pre-op, dW and dx with the correction) and rows 7-9 (the upsample's
 forward, dx and dW at 128->64 from 32^3 and 64->32 from 64^3). ``--only``
 keeps the cases whose first field is one of WHAT (fwd, dx, dw, up, up_dx,
-up_dw). Needs a
-CUDA device; exits non-zero without one or when a ROOT's run fails.
+up_dw). Inputs are drawn on the card from seed 0, the same in every ROOT.
+
+``--digest`` runs, instead of timing, each bf16 case of ``chip_smoke.py``'s
+phases 2 and 5a once (DIGEST_CASES: every mode of every flagship shape)
+and prints the sha256 of each output's bytes; then, per case, whether
+every ROOT gave the same bytes, and exits non-zero where they differ.
+Needs a CUDA device; exits non-zero without one or when a ROOT's run
+fails.
 """
 
 from __future__ import annotations
@@ -52,8 +59,28 @@ CASES = [("fwd", 1, 32, 32, 128, "stats"), ("fwd", 1, 32, 32, 128, "pre_stats"),
          ("up_dx", 2, 128, 64, 32, "plain"), ("up_dx", 2, 64, 32, 64, "plain"),
          ("up_dw", 2, 128, 64, 32, "plain"), ("up_dw", 2, 64, 32, 64, "plain")]
 
+# chip_smoke.py's phase 2 and 5a cases (its CONV_CASES, S2_CASES and
+# UP_CASES in CONV_MODES, DX_MODES, DW_MODES, S2_DX_MODES)
+_S1 = [(32, 32, 128), (64, 64, 64), (256, 256, 16), (512, 512, 8),
+       (512, 512, 4)]
+_S2 = [(32, 64, 128), (64, 128, 64)]
+DIGEST_CASES = (
+    [("fwd", 1, ci, co, e, m) for ci, co, e in _S1
+     for m in ("plain", "stats", "pre_stats", "addin_stats")]
+    + [("fwd", 2, ci, co, e, "stats") for ci, co, e in _S2]
+    + [("up", 2, 128, 64, 32, "plain"), ("up", 2, 64, 32, 64, "plain")]
+    + [("dx", 1, ci, co, e, m) for ci, co, e in _S1
+       for m in ("plain", "corr", "corr_post")]
+    + [("dw", 1, ci, co, e, m) for ci, co, e in _S1
+       for m in ("plain", "pre", "corr", "pre_corr")]
+    + [("dx", 2, ci, co, e, m) for ci, co, e in _S2
+       for m in ("corr", "corr_post")]
+    + [("dw", 2, ci, co, e, "corr") for ci, co, e in _S2]
+    + [(w, 2, ci, co, e, "plain") for w in ("up_dx", "up_dw")
+       for ci, co, e in ((128, 64, 32), (64, 32, 64))])
+
 _CHILD = r"""
-import statistics, subprocess, sys
+import hashlib, statistics, subprocess, sys
 import torch
 from mt3d_resenc_unet_torch.ops import _build
 from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_dw, conv3d_k3_dx
@@ -65,38 +92,55 @@ print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip().splitlines()[0])
 n = 2
+
+def randn(*shape):
+    return torch.randn(*shape, generator=gen, device=dev)
+
+
 for what, s, ci, co, e, mode in CASES:
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     if what.startswith("up"):
-        x = torch.randn(n, e, e, e, ci, generator=gen).to(dev).bfloat16()
-        wf = (torch.randn(2, 2, 2, ci, co, generator=gen)
-              * (8 * co) ** -0.5).to(dev).bfloat16()
-        gy = torch.randn(n, 2 * e, 2 * e, 2 * e, co,
-                         generator=gen).to(dev).bfloat16()
+        x = randn(n, e, e, e, ci).bfloat16()
+        wf = (randn(2, 2, 2, ci, co) * (8 * co) ** -0.5).bfloat16()
+        gy = randn(n, 2 * e, 2 * e, 2 * e, co).bfloat16()
         fn = {"up": lambda: upsample2x(x, wf),
               "up_dx": lambda: upsample2x_dx(gy, wf),
               "up_dw": lambda: upsample2x_dw(x, gy)}[what]
     else:
         eo = e // s
-        x = torch.randn(n, e, e, e, ci, generator=gen).to(dev).bfloat16()
-        w = (torch.randn(3, 3, 3, ci, co, generator=gen)
-             * (27 * ci) ** -0.5).to(dev).bfloat16()
-        gy = torch.randn(n, eo, eo, eo, co, generator=gen).to(dev).bfloat16()
-        y = torch.randn(n, eo, eo, eo, co, generator=gen).to(dev).bfloat16()
-        gs = (torch.randn(n, 2, co, generator=gen) * 0.1).to(dev)
-        pre = torch.stack([torch.rand(n, ci, generator=gen) + 0.5,
-                           torch.randn(n, ci, generator=gen)], 1).to(dev)
+        x = randn(n, e, e, e, ci).bfloat16()
+        w = (randn(3, 3, 3, ci, co) * (27 * ci) ** -0.5).bfloat16()
+        gy = randn(n, eo, eo, eo, co).bfloat16()
+        y = randn(n, eo, eo, eo, co).bfloat16()
+        gs = randn(n, 2, co) * 0.1
+        pre = torch.stack([torch.rand(n, ci, generator=gen, device=dev)
+                           + 0.5, randn(n, ci)], 1)
+        kw = {"pre": pre} if "pre" in mode else {}
         if what == "fwd":
-            kw = {"pre": pre} if "pre" in mode else {}
             if "addin" in mode:
                 kw["add_to"] = y
-            fn = lambda: conv3d_k3(x, w, s, emit_stats=True, **kw)
-        elif what == "dx":
-            kw = {"x": x, "pre": pre} if "post" in mode else {}
-            fn = lambda: conv3d_k3_dx(gy, w, s, y, gs, size=x.shape[1:4], **kw)
+            fn = lambda: conv3d_k3(x, w, s, emit_stats=mode != "plain", **kw)
         else:
-            kw = {"pre": pre} if "pre" in mode else {}
-            fn = lambda: conv3d_k3_dw(x, gy, s, y=y, gs=gs, **kw)
+            if "corr" in mode:
+                kw.update(y=y, gs=gs)
+            if what == "dx":
+                if "post" in mode:
+                    kw.update(x=x, pre=pre)
+                fn = lambda: conv3d_k3_dx(gy, w, s, size=x.shape[1:4], **kw)
+            else:
+                fn = lambda: conv3d_k3_dw(x, gy, s, **kw)
+    if DIGEST:
+        out = fn()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        digest = [hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                                 .numpy().tobytes()).hexdigest()[:16]
+                  for t in outs]
+        print(f"DIGEST {what} s{s} {ci}->{co} @{e}^3 {mode}: "
+              + " ".join(digest), flush=True)
+        del x, gy, fn, out, outs
+        torch.cuda.empty_cache()
+        continue
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -120,7 +164,10 @@ for what, s, ci, co, e, mode in CASES:
 def main(argv=None) -> int:
     roots = list(sys.argv[1:] if argv is None else argv)
     cases = CASES
-    if roots and roots[0] == "--only":
+    digest = bool(roots) and roots[0] == "--digest"
+    if digest:
+        cases, roots = DIGEST_CASES, roots[1:]
+    elif roots and roots[0] == "--only":
         only = set(roots[1].split(",")) if len(roots) > 1 else set()
         cases = [c for c in CASES if c[0] in only]
         roots = roots[2:]
@@ -131,12 +178,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 1
-    code = f"CASES = {cases!r}\n{_CHILD}"
+    code = f"CASES = {cases!r}\nDIGEST = {digest}\n{_CHILD}"
     rc = 0
+    digests = {}
     for root in roots:
         print(f"== {root}", flush=True)
-        done = subprocess.run([sys.executable, "-c", code], cwd=root)
+        done = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              stdout=subprocess.PIPE, text=True)
+        print(done.stdout, end="", flush=True)
         rc = rc or done.returncode
+        for line in done.stdout.splitlines():
+            if line.startswith("DIGEST "):
+                case, _, hashes = line[7:].partition(": ")
+                digests.setdefault(case, []).append(hashes)
+    if digest:
+        same = {c: len(h) == len(roots) and len(set(h)) == 1
+                for c, h in digests.items()}
+        for case, ok in same.items():
+            print(f"bit-equal across the roots: {ok}  {case}")
+        print(f"bit-equal across the roots: {sum(same.values())} of "
+              f"{len(cases)} cases")
+        rc = rc or int(sum(same.values()) != len(cases))
     return rc
 
 

@@ -1,12 +1,14 @@
 """Where the time of the flagship training step goes on one NVIDIA GPU.
 
     python -m mt3d_resenc_unet_torch.tools.profile_step [--steps 2]
-        [--squeeze-excitation] [--dtype {bfloat16,float32}]
+        [--squeeze-excitation] [--dtype {bfloat16,float16,float32}]
 
 Builds the flagship plan (128^3 patch, 6 stages, sheet + normals heads,
 torch-default weights from seed 0; with ``--squeeze-excitation`` the
 network of ``tasks/sheet_normals.yaml``) in bf16 (or ``--dtype float32``:
-the fp32 kernels, rows 1f-9f) through the kernels, runs two
+the fp32 kernels, rows 1f-9f; ``--dtype float16``: the bf16 kernels'
+fp16 instantiations, rows 1h-9h, which the groups of rows 1-9 count, as
+no bf16 kernel runs in that step) through the kernels, runs two
 warm-up steps of the training step (batch 2, BCEDice + MaskedCosine, clip 3,
 AdamW), then TIMED steps without the profiler (the median step's wall
 ms, patches/s and MFU, as ``chip_smoke.py`` phase 5b measures them, and the
@@ -91,7 +93,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=2)
     parser.add_argument("--squeeze-excitation", action="store_true")
-    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+    parser.add_argument("--dtype", choices=("bfloat16", "float16", "float32"),
                         default="bfloat16")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

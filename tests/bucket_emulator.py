@@ -21,8 +21,11 @@ An s3 and a gs bucket of one name are two buckets. Lists are paged at
 ``page`` keys; a conditional write whose condition fails answers 412.
 With ``strict``, an unsigned S3 request (but the region's ``HEAD``) gets
 403 and a GCS request without a bearer token this emulator issued 401.
-Object reads of a bucket named ``slow-...`` are answered ``slow_s`` after
-they were made (they age). ``fail`` holds statuses to answer the next
+In a bucket named ``slow-...``, the first two reads of an object meet:
+the first is answered only when the second has taken its own snapshot
+(or after ``meet_s``), so two writers that read-modify-write one object
+both read the same version and one of their conditional writes is
+overtaken every time. ``fail`` holds statuses to answer the next
 requests with, ``deny`` answers 403 to every signed request. Every
 request is recorded (``records``), without its body.
 
@@ -30,7 +33,7 @@ request is recorded (``records``), without its body.
 
 runs one in this process until terminated, after printing ``PORT n``
 (``CONF``: ``aws`` {key: secret}, ``jwt_n`` (hex), ``jwt_e``,
-``jwt_iss``, ``strict``, ``page``, ``slow_s``).
+``jwt_iss``, ``strict``, ``page``, ``meet_s``).
 """
 
 import base64
@@ -43,7 +46,6 @@ import re
 import secrets as _secrets
 import sys
 import threading
-import time
 import urllib.parse
 from xml.sax.saxutils import escape
 
@@ -119,10 +121,11 @@ class BucketEmulator:
     this process; ``url`` its base, ``close()`` stops it."""
 
     def __init__(self, secrets=None, jwt=None, strict=False, page=2,
-                 slow_s=0.005):
+                 meet_s=30.0):
         self.secrets = dict(secrets or {})
         self.jwt = jwt                  # (n, e, issuer) or None
-        self.strict, self.page, self.slow_s = strict, page, slow_s
+        self.strict, self.page, self.meet_s = strict, page, meet_s
+        self.meets = {}                 # (bucket, key) -> [reads, Event]
         self.objects = {}               # (bucket, key) -> (bytes, gen, etag)
         self.records = []
         self.stats = collections.Counter()
@@ -247,9 +250,19 @@ class BucketEmulator:
         page = keys[:self.page]
         return page, (page[-1] if len(keys) > self.page else None)
 
-    def _aged(self, bucket, answer):
+    def _met(self, bucket, key, answer):
+        """``answer`` (a read's, snapshotted) once the object's first two
+        reads in a ``slow-`` bucket have both snapshotted."""
         if bucket.split(":", 1)[1].startswith("slow-"):
-            time.sleep(self.slow_s)
+            with self.lock:
+                meet = self.meets.setdefault((bucket, key),
+                                             [0, threading.Event()])
+                meet[0] += 1
+                n = meet[0]
+            if n == 1:
+                meet[1].wait(self.meet_s)
+            elif n == 2:
+                meet[1].set()
         return answer
 
     def _s3(self, method, bucket, key, query, headers, body):
@@ -272,12 +285,12 @@ class BucketEmulator:
                                                  "application/xml")]
         with self.lock:
             have = self.objects.get((bucket, key))
-            if have is None and method in ("GET", "HEAD"):
-                return 404, b"<Error><Code>NoSuchKey</Code></Error>", ()
+            missing = have is None and method in ("GET", "HEAD")
             match = headers.get("if-match")
-            if (match is not None and (have is None or match != have[2])) \
+            if not missing and (
+                    (match is not None and (have is None or match != have[2]))
                     or (headers.get("if-none-match") == "*"
-                        and have is not None):
+                        and have is not None)):
                 self.stats["conflicts"] += 1
                 return 412, b"", ()
             if method == "PUT":
@@ -288,7 +301,9 @@ class BucketEmulator:
                 return 204, b"", ()
             if method not in ("GET", "HEAD"):
                 return 400, b"", ()
-        return self._aged(bucket, (200, have[0], [("ETag", have[2])]))
+        return self._met(bucket, key, (
+            404, b"<Error><Code>NoSuchKey</Code></Error>", ()) if missing
+            else (200, have[0], [("ETag", have[2])]))
 
     def _gcs(self, method, path, query, body):
         seg = path.split("/")
@@ -330,10 +345,9 @@ class BucketEmulator:
                 return 204, b"", ()
             if method != "GET":
                 return 400, b"", ()
-            if have is None:
-                return 404, b'{"error": {"code": 404}}', ()
-        return self._aged(bucket, (200, have[0], [("x-goog-generation",
-                                                   str(have[1]))]))
+        return self._met(bucket, key, (
+            404, b'{"error": {"code": 404}}', ()) if have is None
+            else (200, have[0], [("x-goog-generation", str(have[1]))]))
 
     def _token(self, body):
         form = dict(urllib.parse.parse_qsl(body.decode()))
@@ -369,7 +383,7 @@ def main(conf_path) -> int:
         secrets=conf.get("aws"), strict=conf.get("strict", False),
         jwt=(int(conf["jwt_n"], 16), int(conf["jwt_e"]), conf["jwt_iss"])
         if "jwt_n" in conf else None,
-        page=conf.get("page", 2), slow_s=conf.get("slow_s", 0.005))
+        page=conf.get("page", 2), meet_s=conf.get("meet_s", 30.0))
     print(f"PORT {emu.url.rsplit(':', 1)[1]}", flush=True)
     emu.thread.join()
     return 0

@@ -22,7 +22,15 @@ csrc/upsample2x_f32.cu) against their plain versions evaluated in fp64 on
 the same inputs: relative L2 1e-5 for outputs, dx, dW and the pre-op
 backward's sums, 1e-5 relative for the statistics, bit-equal over two runs;
 an fp32 kernel model's training step launches all nine fp32 kernels and
-its loss is within 1e-5 of the fp32 reference model's.
+its loss is within 1e-5 of the fp32 reference model's. The fp16 kernels
+(the bf16 sources instantiated on __half, csrc/b16.cuh) against their plain
+versions on the same fp16 inputs: outputs rounded from fp32 sums taken in
+another order may differ by one fp16 step (2^-11 of the value): 2e-3 of the
+plain output's max abs, the fp32 statistics and weight gradients as bf16's;
+from cotangents at the flagship's ~2e-7 (fp16 subnormals) dx is subnormal
+too, one step 2^-24 absolute, so it is held to the larger of the two;
+bit-equal over two runs.
+The norm-act kernels at fp16 as at bf16.
 """
 
 import dataclasses
@@ -164,7 +172,8 @@ def test_upsample_fwd_launcher_refuses_a_plan_not_its_own(dev):
     for plan in [good] + bad:
         rc = up._fn()(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w,
                       ci, 96, plan["tm"], plan["tco"], plan["smem"],
-                      plan["tiles"], plan["grid"][0], stream)
+                      plan["tiles"], plan["grid"][0],
+                      _build.DTYPE_CODES[torch.bfloat16], stream)
         assert (rc == 0) == (plan is good), plan
     torch.cuda.synchronize()
 
@@ -175,10 +184,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         conv3d_k3(x.float(), w)                        # x, w in two dtypes
     with pytest.raises(ValueError):
-        conv3d_k3(x.half(), w.half())                  # fp16: no kernel
+        conv3d_k3(x.double(), w.double())              # fp64: no kernel
+    with pytest.raises(ValueError):
+        conv3d_k3(x.half(), w)                         # fp16 x, bf16 w
+    with pytest.raises(ValueError):
+        upsample2x(x.double(), torch.zeros(2, 2, 2, 32, 32, device=dev,
+                                           dtype=torch.float64))
     with pytest.raises(ValueError):
         upsample2x(x.half(), torch.zeros(2, 2, 2, 32, 32, device=dev,
-                                         dtype=torch.float16))
+                                         dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         conv3d_k3(x[..., :16].contiguous(), w[:, :, :, :16])  # 16 channels
     with pytest.raises(ValueError):
@@ -490,14 +504,15 @@ def test_model_backward_through_kernels_matches_plain_fp32(dev):
         assert float(cos) >= 0.95, (name, float(cos))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("extent,c", [(12, 32), (6, 64), (3, 512)])
 @pytest.mark.parametrize("act", [True, False])
-def test_norm_act_kernels_match_plain(dev, extent, c, act):
+def test_norm_act_kernels_match_plain(dev, extent, c, act, dtype):
     from mt3d_resenc_unet_torch.ops import norm_act as na
     g = torch.Generator().manual_seed(7)
     x2 = (torch.randn(2, extent ** 3, c, generator=g) * 2 + 0.5).to(
-        dev).bfloat16()
-    g2 = torch.randn(2, extent ** 3, c, generator=g).to(dev).bfloat16()
+        dev, dtype)
+    g2 = torch.randn(2, extent ** 3, c, generator=g).to(dev, dtype)
     before = {k: _build.LAUNCHES[k] for k in (
         "norm_act_stats", "norm_act_norm", "norm_act_bwd_stats",
         "norm_act_bwd_dx")}
@@ -516,18 +531,20 @@ def test_norm_act_kernels_match_plain(dev, extent, c, act):
                                              act)) <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("extent,c", [(12, 32), (6, 64), (3, 512)])
 @pytest.mark.parametrize("res,pre", [(False, False), (True, False),
                                      (True, True)])
 @pytest.mark.parametrize("act", [True, False])
-def test_norm_tail_and_raw_stats_match_plain(dev, extent, c, res, pre, act):
+def test_norm_tail_and_raw_stats_match_plain(dev, extent, c, res, pre, act,
+                                             dtype):
     """The norm-act kernels' step modes against their plain versions: the
     tail forward bit-equal (the same fp32 operations, one rounding), the
     cotangents within one bf16 step, the fp32 sums 1e-3; twice bit-equal."""
     from mt3d_resenc_unet_torch.ops import norm_act as na
     g = torch.Generator().manual_seed(9)
-    x2, r2, g2 = (torch.randn(2, extent ** 3, c, generator=g).to(
-        dev).bfloat16() for _ in range(3))
+    x2, r2, g2 = (torch.randn(2, extent ** 3, c, generator=g).to(dev, dtype)
+                  for _ in range(3))
     inv, a = ((torch.rand(2, c, generator=g) + 0.5).to(dev)
               for _ in range(2))
     shift, b = (torch.randn(2, c, generator=g).to(dev) for _ in range(2))
@@ -745,3 +762,121 @@ def test_f32_model_step_launches_the_f32_kernels(dev):
     # rounding of 0 (up to ~2% of a deep weight's gradient): all of them
     # together by relative L2
     assert _rel_l2(grads, want_grads) <= 1e-2
+
+
+# ------------------------------------------------------------------- fp16
+
+# one shape of each class at fp16: a brick-ragged 32 -> 32 and a K-split
+# 256 -> 256 cube at stride 1, the flagship's two stride-2 convs, the
+# flagship's upsample channels
+_F16_CONV = [(1, 32, 32, 9), (1, 256, 256, 4), (2, 32, 64, 12),
+             (2, 64, 128, 10)]
+_F16_UP = [(128, 64, 9), (64, 32, 17)]
+
+
+def _f16_case(dev, stride, ci, co, extent, seed, scale=1.0):
+    """_bwd_case's tensors in fp16, the cotangent gy times ``scale``."""
+    x, w, gy, y, gs, pre = _bwd_case(dev, stride, ci, co, extent, seed)
+    return x.half(), w.half(), (gy.float() * scale).half(), y.half(), gs, pre
+
+
+def _twice(f):
+    """Two runs of f, bit-equal, and the first; tuples compared whole."""
+    a, b = f(), f()
+    torch.cuda.synchronize()
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    assert all(torch.equal(u, v) for u, v in pairs)
+    return a
+
+
+@pytest.mark.parametrize("mode", ["plain", "stats", "pre_stats",
+                                  "addin_stats"])
+@pytest.mark.parametrize("stride,ci,co,extent", _F16_CONV)
+def test_f16_conv_kernel_matches_plain(dev, stride, ci, co, extent, mode):
+    x, w, _, y, _, pre = _f16_case(dev, stride, ci, co, extent, 21)
+    kw = {"emit_stats": mode != "plain"}
+    if mode == "pre_stats":
+        kw["pre"] = pre
+    if mode == "addin_stats":
+        kw["add_to"] = y
+    name = f"conv3d_k3_s{stride}_f16"
+    before = _build.LAUNCHES[name]
+    got = _twice(lambda: conv3d_k3(x, w, stride, **kw))
+    want = conv3d_k3_plain(x, w, stride, **kw)
+    assert _build.LAUNCHES[name] == before + 2
+    if mode == "plain":
+        got, want = (got,), (want,)
+    assert got[0].dtype == torch.float16 and _rel(got[0], want[0]) <= 2e-3
+    if mode != "plain":
+        torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2e-7])
+@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post", "post"])
+@pytest.mark.parametrize("stride,ci,co,extent", _F16_CONV)
+def test_f16_conv_bwd_kernels_match_plain(dev, stride, ci, co, extent, mode,
+                                          scale):
+    x, w, gy, y, gs, pre = _f16_case(dev, stride, ci, co, extent, 22, scale)
+    gs = gs * scale
+    kw = _dx_kwargs(mode, x, y, gs, pre)
+    dkw = {"pre": pre} if "post" in mode else {}
+    if "corr" in mode:
+        dkw.update(y=y, gs=gs)
+    names = (f"conv3d_k3_dx_s{stride}_f16", f"conv3d_k3_dw_s{stride}_f16")
+    before = {k: _build.LAUNCHES[k] for k in names}
+    dx = _twice(lambda: conv3d_k3_dx(gy, w, stride, **kw))
+    dw = _twice(lambda: conv3d_k3_dw(x, gy, stride, **dkw))
+    dx0 = conv3d_k3_dx_plain(gy, w, stride, **kw)
+    dw0 = conv3d_k3_dw_plain(x, gy, stride, **dkw)
+    assert all(_build.LAUNCHES[k] == v + 2 for k, v in before.items())
+    if "post" not in mode:
+        dx, dx0 = (dx,), (dx0,)
+    top = float(dx0[0].abs().max())
+    diff = float((dx[0].double() - dx0[0].double()).abs().max())  # exact
+    assert dx[0].dtype == torch.float16 and top > 0
+    assert diff <= max(2e-3 * top, 2.0 ** -24)
+    if "post" in mode:
+        assert _rel_vec(dx[1], dx0[1]) <= 1e-3
+    assert dw.dtype == torch.float32 and _rel(dw, dw0) <= 1e-2
+
+
+@pytest.mark.parametrize("ci,co,extent", _F16_UP)
+def test_f16_upsample_kernels_match_plain(dev, ci, co, extent):
+    x, wf = (t.half() for t in _up_inputs(dev, 23, ci, co, extent))
+    gy = torch.randn(2, 2 * extent, 2 * extent + 2, 2 * extent, co,
+                     generator=torch.Generator().manual_seed(24)).to(
+        dev).half()
+    names = ("upsample2x_f16", "upsample2x_dx_f16", "upsample2x_dw_f16")
+    before = {k: _build.LAUNCHES[k] for k in names}
+    y = _twice(lambda: upsample2x(x, wf))
+    dx = _twice(lambda: upsample2x_dx(gy, wf))
+    dw = _twice(lambda: upsample2x_dw(x, gy))
+    assert all(_build.LAUNCHES[k] == v + 2 for k, v in before.items())
+    assert y.dtype == dx.dtype == torch.float16
+    assert _rel(y, upsample_plain(x, wf)) <= 2e-3
+    assert _rel(dx, upsample2x_dx_plain(gy, wf)) <= 2e-3
+    assert _rel(dw, upsample2x_dw_plain(x, gy)) <= 1e-2
+
+
+def test_f16_model_step_launches_the_f16_kernels(dev):
+    """An fp16 kernel model's forward and backward at 32^3 launch the nine
+    fp16 conv and upsample kernels and no bf16 or fp32 one."""
+    plan = plan_from_autoconfig(
+        (32, 32, 32), 1,
+        [TaskHead("sheet", 1, "sigmoid"), TaskHead("normals", 3, "none")],
+        max_features=256, use_pallas_conv=True)
+    model = ResEncUNet(plan, dtype=torch.float16, seed=0).to(dev)
+    x = torch.randn(2, 32, 32, 32, 1,
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    _build.LAUNCHES.clear()
+    out = model(x)
+    sum(v.float().square().mean() for v in out.values()).backward()
+    torch.cuda.synchronize()
+    kernels = [f"conv3d_k3{k}_s{s}" for k in ("", "_dx", "_dw")
+               for s in (1, 2)] + ["upsample2x", "upsample2x_dx",
+                                   "upsample2x_dw"]
+    assert all(_build.LAUNCHES[k + "_f16"] > 0 for k in kernels)
+    assert not any(_build.LAUNCHES[k + sfx] for k in kernels
+                   for sfx in ("", "_f32"))
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)

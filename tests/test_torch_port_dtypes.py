@@ -2,12 +2,13 @@
 on the CPU.
 
 * Routing by dtype (``use_pallas_conv=True``, a 16^3 three-stage plan whose
-  convs and upsamples lie in the kernels' shape classes): a bf16 or fp32
-  model's forward and backward reach ``Conv3dK3Fn``, ``Conv3dK3PairFn``
-  and ``Upsample2xFn`` (the kernels take both); an fp16 model's reach none
-  of them (fp16 goes to ``ops/lowp.py``). The norm-act Functions are
+  convs and upsamples lie in the kernels' shape classes): a bf16, fp16 or
+  fp32 model's forward and backward reach ``Conv3dK3Fn``,
+  ``Conv3dK3PairFn`` and ``Upsample2xFn`` (the kernels take all three, as
+  the JAX package dispatches by shape alone). The norm-act Functions are
   reached exactly as often as ``models/network.py::norm_launches`` derives
-  for each dtype (none at fp16).
+  for each dtype (fp16 as bf16). The fp16 Functions and model against JAX
+  are in ``test_torch_port_fp16.py``.
 * The three Functions at fp32 in every mode (pre-op, stats, stride 1 and
   2, the split-weight pair with its add-in, the upsample): outputs,
   statistics and every input's gradient against autograd of the fp32
@@ -175,19 +176,14 @@ def dispatch():
     return out
 
 
-@pytest.mark.parametrize("dtype,reaches", [("float32", True),
-                                           ("float16", False),
-                                           ("bfloat16", True)])
-def test_only_bf16_reaches_the_conv_and_upsample_kernels(dispatch, dtype,
-                                                         reaches):
-    """Which dtypes reach the conv and upsample kernels' Functions: bf16
-    and fp32 (the kernels take both), not fp16."""
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_only_bf16_reaches_the_conv_and_upsample_kernels(dispatch, dtype):
+    """Which dtypes reach the conv and upsample kernels' Functions: every
+    compute dtype the trainer takes, bf16, fp16 and fp32 (the kernels take
+    all three; the name is the test's from when only bf16 did)."""
     calls = dispatch[dtype][0]
     names = ("Conv3dK3Fn", "Conv3dK3PairFn", "Upsample2xFn")
-    if reaches:
-        assert all(calls[n] > 0 for n in names), calls
-    else:
-        assert all(calls[n] == 0 for n in names), calls
+    assert all(calls[n] > 0 for n in names), calls
 
 
 @pytest.mark.parametrize("squeeze_excitation", [False, True])
@@ -203,10 +199,9 @@ def test_norm_launches_predict_each_dtypes_dispatch(monkeypatch, dispatch,
     else:   # the model of the fixture's pass
         calls = dispatch[dtype][1]
     assert {k: calls[k] for k in want} == want
-    if dtype == "float16":
-        assert set(want.values()) == {0}
-    else:
-        assert want["norm_act_tail"] > 0 and want["norm_act_raw_stats"] > 0
+    assert want["norm_act_tail"] > 0 and want["norm_act_raw_stats"] > 0
+    if dtype == "float16":      # 8 channels a vector, as bf16
+        assert want == norm_launches(plan, PATCH, 2, torch.bfloat16)
     assert set(norm_launches(dataclasses.replace(plan, use_pallas_conv=False),
                              PATCH, 2, DTYPES[dtype]).values()) == {0}
 
@@ -242,8 +237,7 @@ def _plain_functions(monkeypatch):
 
 
 def test_bf16_functions_backward_matches_autograd_of_plain(monkeypatch):
-    """In a bf16 kernel model (the only one that reaches the conv and
-    upsample Functions) the Functions' backward, whose dx and dW kernels
+    """In a bf16 kernel model the Functions' backward, whose dx and dW kernels
     run their plain versions here, against autograd of the Functions'
     plain forward: every gradient within FN_BF16_TOL of its max abs. Both
     take fp32 products of the same bf16 operands and round them to bf16 at

@@ -207,8 +207,12 @@ def test_kernel_class_is_by_shape():
     assert not norm_act.kernel_class(torch.empty(2, 4, 4, 4, 12, dtype=bf))
     assert norm_act.kernel_class(torch.empty(2, 4, 4, 4, 12, dtype=f32))
     assert not norm_act.kernel_class(torch.empty(2, 4, 4, 4, 1, dtype=f32))
+    # fp16 as bf16: 8 channels a 16-byte vector; fp64 no kernel takes
+    f16 = torch.float16
+    assert norm_act.kernel_class(torch.empty(2, 4, 4, 4, 16, dtype=f16))
+    assert not norm_act.kernel_class(torch.empty(2, 4, 4, 4, 12, dtype=f16))
     assert not norm_act.kernel_class(
-        torch.empty(2, 4, 4, 4, 16, dtype=torch.float16))
+        torch.empty(2, 4, 4, 4, 16, dtype=torch.float64))
     y = torch.empty(2, 4, 4, 4, 16)
     assert not norm_act.kernel_class(y, torch.empty(2, 4, 4, 4, 16,
                                                     dtype=bf))

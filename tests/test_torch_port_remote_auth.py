@@ -412,7 +412,7 @@ print("done", half)
 def test_two_processes_write_halves_of_one_chunk(emu, monkeypatch, scheme):
     env_credentials(monkeypatch)
     monkeypatch.setenv("GOOGLE_AUTH_TOKEN_FOR_TESTING", TS_TOKEN)
-    path = f"{scheme}://slow-cas/one.zarr"      # reads answered aged
+    path = f"{scheme}://slow-cas/one.zarr"      # first two reads meet
     tzio.create_zarr(path, (8, 8, 8), np.uint8, (8, 8, 8))
     mark = len(emu.records)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
