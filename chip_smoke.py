@@ -59,7 +59,9 @@ Phases (any failure exits non-zero and prints no result line):
      tensors against the plain version on them, F16_TOL, library ms of the
      fp16 cuDNN call; (2f) the same cases through the fp32 kernels
      (``conv3d_k3_*_f32``, ``upsample2x_f32``: FP64 MMA, csrc/
-     conv3d_k3_f32.cu and upsample2x_f32.cu) on fp32 tensors, held by
+     conv3d_k3_f32_fwd.cu and upsample2x_f32.cu), the stride-2 forward
+     in every mode (its modes other than stats from a generator of their
+     own), on fp32 tensors, held by
      relative L2 F32_TOL (statistics F32_STATS_TOL) against the plain
      version evaluated in fp64 on the same inputs, the fp32 plain
      version's own error beside it, library ms of the fp32 cuDNN call,
@@ -485,7 +487,8 @@ NORM_KERNELS = tuple(REPLACES)[9:13]
 TAIL_KERNELS = tuple(REPLACES)[13:16]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 # rows 1-9 at compute dtype float32: the same TPU kernels, the fp32 kernels
-# of csrc/conv3d_k3_f32.cu and csrc/upsample2x_f32.cu
+# of csrc/conv3d_k3_f32_fwd.cu (rows 1f, 4f), csrc/conv3d_k3_f32.cu and
+# csrc/upsample2x_f32.cu
 F32_KERNELS = tuple(f"{k}_f32" for k in CONV_KERNELS)
 F32_FORWARD = tuple(f"{k}_f32" for k in FORWARD)
 REPLACES.update({f"{k}_f32": REPLACES[k] for k in CONV_KERNELS})
@@ -512,6 +515,7 @@ SOURCES = {
     "upsample2x_dw": f"{_CS}/upsample2x_bwd.cu",
     **{name: f"{_CS}/norm_act.cu" for name in NORM_KERNELS + TAIL_KERNELS},
     **{f"{name}_f32": f"{_CS}/upsample2x_f32.cu" if "upsample" in name
+       else f"{_CS}/conv3d_k3_f32_fwd.cu" if name in FORWARD
        else f"{_CS}/conv3d_k3_f32.cu" for name in CONV_KERNELS},
 }
 SOURCES.update({f"{k}_f16": SOURCES[k]
@@ -657,10 +661,14 @@ def tensor_core_usage(logs):
               f"{xd['kc']} co), upsample2x_dw {wd['smem']} B (tile "
               f"{wd['pb']} x {wd['tci']} x {wd['tco']}, {wd['splits']} "
               "splits)")
+    print("  fp32 forward (conv3d_k3_f32_fwd): "
+          + ", ".join(f"{'big' if t == 0 else 'small'} tile stride {s} "
+                      f"{c3.f32_fwd_smem(t, s)} B" for t, s in
+                      ((0, 1), (1, 1), (0, 2))))
     for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
                    "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
                    "upsample2x", "upsample2x_bwd", "conv3d_k3_f32",
-                   "upsample2x_f32"):
+                   "conv3d_k3_f32_fwd", "upsample2x_f32"):
         entry = None
         for line in logs[source].splitlines():
             if "Compiling entry function" in line:
@@ -694,7 +702,7 @@ def case_errors(got, want, exact, f32, i=0):
 
 
 def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
-                 timed=True, dtype=None):
+                 timed=True, dtype=None, s2_modes=("stats",)):
     """Phase 2 (and the ink plan's forward cases in phase 10, untimed: no
     ms, and no library call), for the bf16 kernels or, with ``dtype``
     float32 / float16, the fp32 / fp16 ones (names ending in ``_f32`` /
@@ -706,8 +714,9 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
     before timing) and the bound. bf16 kernels are held against the plain
     version by KERNEL_TOL / STATS_TOL; fp32 kernels against the plain
     version evaluated in fp64 on the same inputs by F32_TOL /
-    F32_STATS_TOL (the fp32 plain version's own error printed beside). An
-    extent is an int (a cube) or (D, H, W)."""
+    F32_STATS_TOL (the fp32 plain version's own error printed beside). The
+    stride-2 cases run in ``s2_modes``. An extent is an int (a cube) or (D,
+    H, W)."""
     import torch.nn.functional as F
     from mt3d_resenc_unet_torch.ops.conv3d import conv3d_k3, conv3d_k3_plain
     from mt3d_resenc_unet_torch.ops.upsample import upsample2x, upsample_plain
@@ -729,7 +738,8 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
     records, failures = [], []
     todo = [(s, ci, co, e, m) for s, ci, co, e in conv_cases
             for m in CONV_MODES]
-    todo += [(s, ci, co, e, "stats") for s, ci, co, e in s2_cases]
+    todo += [(s, ci, co, e, m) for s, ci, co, e in s2_cases
+             for m in s2_modes]
     lib_ms = {}
     for stride, ci, co, extent, mode in todo:
         x = randn(n, *_ext(extent), ci).to(dtype)
@@ -890,6 +900,10 @@ def main() -> int:
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
+    # the fp32 forward's compiled code: its MMAs, shared-memory loads and
+    # fp32 -> fp64 conversions (tools/sass_stats.py)
+    from mt3d_resenc_unet_torch.tools import sass_stats
+    sass_stats.main(["conv3d_k3_f32_fwd"])
     print(card())
     print("packages on this machine: " + ", ".join(
         f"{name} {'imports' if ok else 'missing'}"
@@ -976,6 +990,14 @@ def run(dev, conv_cases, s2_cases, up_cases, patch, volume,
     f32, fails = kernel_cases(dev, gen_dev, conv_cases, s2_cases, up_cases,
                               dtype=torch.float32)
     failures += fails
+    # row 4f in its other modes, from a generator of their own (the later
+    # phases draw what they drew before)
+    more, fails = kernel_cases(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 1), [], s2_cases,
+        [], dtype=torch.float32,
+        s2_modes=tuple(m for m in CONV_MODES if m != "stats"))
+    failures += fails
+    f32 += more
     lap("2f (fp32 kernels)")
     records += f32
     # 2h. the fp16 kernels (the bf16 sources on __half) vs plain

@@ -19,10 +19,13 @@ CUDA tensor always goes to the kernel, or the wrapper raises.
                     csrc/conv3d_k3_dw_s2.cu, replacing ``_s2_dw_kernel``.
 
 At compute dtype float32 the same three wrappers launch the kernels of
-csrc/conv3d_k3_f32.cu, which replace the same Pallas kernels as the JAX
-package runs them in fp32: implicit GEMMs on the tensor cores at fp32
-accuracy (FP64 MMA, csrc/f32_gemm.cuh), tiled by :func:`_f32_rows_plan`
-and :func:`_f32_dw_plan`, with every fusion of the bf16 kernels. Their
+csrc/conv3d_k3_f32_fwd.cu (the forward) and csrc/conv3d_k3_f32.cu (dx and
+dW), which replace the same Pallas kernels as the JAX package runs them in
+fp32: implicit GEMMs on the FP64 tensor cores at fp32 accuracy, with every
+fusion of the bf16 kernels. The forward stages halo'd input bricks once a
+channel chunk, as the bf16 kernels do, tiled by :func:`_f32_fwd_plan`; dx
+and dW run csrc/f32_gemm.cuh's tiles, planned by :func:`_f32_rows_plan`
+and :func:`_f32_dw_plan`. Their
 launches count under the bf16 kernel's name with ``_f32`` after it, the
 name of their entry (``conv3d_k3_s1_f32``, ``conv3d_k3_dx_s2_f32``, ...).
 
@@ -177,14 +180,16 @@ def _kernel_dtype(fn: str, t: torch.Tensor) -> torch.dtype:
 
 
 def _f32_fn(kind: str):
-    """The C launcher ``conv3d_k3_f32_<kind>_launch`` of
-    csrc/conv3d_k3_f32.cu, its argument types set."""
+    """The C launcher ``conv3d_k3_f32_<kind>_launch``, its argument types
+    set: the forward's of csrc/conv3d_k3_f32_fwd.cu, dx's and dW's of
+    csrc/conv3d_k3_f32.cu."""
     key = f"f32_{kind}"
     fn = _lib_fns.get(key)
     if fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = getattr(_build.load(F32_SOURCE), f"{F32_SOURCE}_{kind}_launch")
-        fn.argtypes = {"fwd": [p] * 7 + [i] * 9 + [f, p],
+        lib = _build.load(F32_FWD_SOURCE if kind == "fwd" else F32_SOURCE)
+        fn = getattr(lib, f"{F32_SOURCE}_{kind}_launch")
+        fn.argtypes = {"fwd": [p] * 8 + [i] * 10 + [f, p],
                        "dx": [p] * 9 + [i] * 9 + [f, p],
                        "dw": [p] * 7 + [i] * 9 + [f, p]}[kind]
         fn.restype = i
@@ -746,9 +751,9 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     return dw
 
 
-# the fp32 kernels (csrc/conv3d_k3_f32.cu, tiles of csrc/f32_gemm.cuh): a
-# forward / dx block is 128 x 32 or 64 x 64 (voxels x channels: N = 32 or a
-# multiple of 64) over K chunks of F32_BK; the planners aim at
+# the fp32 backward kernels (csrc/conv3d_k3_f32.cu, tiles of
+# csrc/f32_gemm.cuh): a dx block is 128 x 32 or 64 x 64 (voxels x channels:
+# N = 32 or a multiple of 64) over K chunks of F32_BK; the planner aims at
 # F32_BLOCKS_PER_SM blocks an SM. A dW block is 3 taps x 32 input channels
 # x 32 or 64 output channels and sums at most F32_DW_MAX_CHUNKS chunks of
 # F32_BK voxels (so its fp32 partial sums stay short), its K split across
@@ -757,6 +762,96 @@ F32_SOURCE = "conv3d_k3_f32"
 F32_BK = 32
 F32_BLOCKS_PER_SM = 4
 F32_DW_MAX_CHUNKS = 512
+
+
+# the fp32 forward (csrc/conv3d_k3_f32_fwd.cu): a unit is a brick of output
+# voxels x bn output channels x a range of the Ci / F32_FWD_KC channel
+# chunks; tile 0 ("big") everywhere, tile 1 ("small") at stride 1 where every
+# output extent is at most 4 and Co % 64 == 0. One block an SM, 8 MMA warps
+# and 4 producer warps; a step copies a halo brick (stride 1: once a chunk,
+# (b + 2)^3 rows; stride 2: a parity class's sub-brick, at most (b + 1)^3
+# rows) and its taps' weights (9, or at most 8) into 3-stage fp32 rings,
+# which the producers convert once to the fp64 brick and weights the MMAs
+# read. A split K's finish block takes F32_FIN_VOX voxels of a sample
+F32_FWD_SOURCE = "conv3d_k3_f32_fwd"
+F32_FWD_KC = 8
+F32_FWD_TILES = {0: dict(brick=(4, 8, 8), bn=32, wgm=8),
+                 1: dict(brick=(4, 4, 4), bn=64, wgm=4)}
+F32_FWD_STAGES = 3
+F32_FWD_PRODUCERS = 128
+F32_FIN_VOX = 64
+
+
+def f32_fwd_smem(tile: int, stride: int) -> int:
+    """The dynamic shared memory (bytes) of an fp32 forward block: two
+    (stride 2: three) fp64 halo bricks and weight steps (the MMA warps read
+    one while the producer warps convert the next into another), the fp32
+    rings the copies land in (weight rows padded by 4 floats), a word of
+    inside bits a producer thread and ring stage, and the fp64 column sums
+    of the MMA warps along M."""
+    t = F32_FWD_TILES[tile]
+    grow = 2 if stride == 1 else 1
+    rows = math.prod(b + grow for b in t["brick"])
+    taps = 9 if stride == 1 else 8
+    kc, stages = F32_FWD_KC, F32_FWD_STAGES
+    fp64 = (2 if stride == 1 else 3) * (rows * kc + taps * t["bn"] * kc)
+    fp32 = stages * (rows * kc + taps * kc * (t["bn"] + 4))
+    return (fp64 * 8 + fp32 * 4 + stages * F32_FWD_PRODUCERS * 4
+            + t["wgm"] * 2 * t["bn"] * 8)
+
+
+def _f32_fwd_plan(n: int, size, ci: int, co: int, stride: int,
+                  sms: int) -> dict:
+    """The launch of the fp32 forward: ``units`` = splits x ``ntiles``
+    channel tiles x n samples x ``bricks`` (``nb`` per axis) output bricks,
+    walked by ``grid`` persistent blocks, block b taking units [b * units /
+    grid, (b + 1) * units / grid) (:func:`f32_fwd_unit` decodes one). Where
+    the unsplit units are fewer than the SMs, K is split into ``splits``
+    (a divisor of the ci / 8 chunks, ``cps`` a split) that least the
+    chunks the busiest block walks, the fewest on a tie. Scratch: unsplit
+    with statistics, ``slots`` fp64 = n x ``groups`` (the bricks) x 2 x co;
+    split, ``part`` fp64 = splits x n x voxels x co, and with statistics
+    the finish blocks' slots (``groups`` = ceil(voxels / F32_FIN_VOX))."""
+    out = tuple((s - 1) // stride + 1 for s in size)
+    tile = int(stride == 1 and co % 64 == 0 and max(out) <= 4)
+    t = F32_FWD_TILES[tile]
+    nb = _bricks(out, t["brick"])
+    bricks, ntiles = math.prod(nb), co // t["bn"]
+    base = bricks * n * ntiles
+    nch = ci // F32_FWD_KC
+    splits, best = 1, None
+    for s in range(1, nch + 1):
+        if nch % s or (s > 1 and base >= sms):
+            continue
+        units = base * s
+        walk = -(-units // min(units, sms)) * (nch // s)
+        if best is None or walk < best:
+            splits, best = s, walk
+    units = base * splits
+    vox = math.prod(out)
+    groups = -(-vox // F32_FIN_VOX) if splits > 1 else bricks
+    return dict(tile=tile, brick=t["brick"], bn=t["bn"], nb=nb,
+                bricks=bricks, ntiles=ntiles, splits=splits,
+                cps=nch // splits, units=units, grid=min(units, sms),
+                groups=groups, slots=n * groups * 2 * co,
+                part=splits * n * vox * co if splits > 1 else 0,
+                smem=f32_fwd_smem(tile, stride))
+
+
+def f32_fwd_unit(plan: dict, n: int, u: int) -> dict:
+    """Unit u of an fp32 forward plan for n samples, as the kernel decodes
+    it: u = ((split * ntiles + tile) * n + sample) * bricks + brick, brick
+    = (bd * nbh + bh) * nbw + bw; its chunks [split * cps, (split + 1) *
+    cps) and output brick origin."""
+    b, r = u % plan["bricks"], u // plan["bricks"]
+    sample, r = r % n, r // n
+    tile, split = r % plan["ntiles"], r // plan["ntiles"]
+    _, nbh, nbw = plan["nb"]
+    bd, bh, bw = b // (nbh * nbw), b // nbw % nbh, b % nbw
+    origin = tuple(i * e for i, e in zip((bd, bh, bw), plan["brick"]))
+    return dict(split=split, tile=tile, sample=sample, brick=b,
+                origin=origin, chunks=(split * plan["cps"],
+                                       (split + 1) * plan["cps"]))
 
 
 def _f32_bn(c: int) -> int:
@@ -775,16 +870,16 @@ def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
 def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
                    ntiles: Optional[int] = None,
                    b_kmajor: bool = True) -> dict:
-    """The launch of an fp32 row-tiled kernel (the conv forward and dx, the
-    upsample forward and dx): ``rows`` output rows in each of ``z`` (sample
+    """The launch of an fp32 row-tiled kernel (the conv dx, the upsample
+    forward and dx): ``rows`` output rows in each of ``z`` (sample
     or sample x parity class) groups, ``c`` output channels in ``ntiles``
     (default c / bn) tiles of ``bn``; m-tiles of ``bm`` rows, ``mtiles`` a
     group. Block (b, tile, group), b < ``nb``, takes the m-tiles
     :func:`f32_tile_range` (b, nb, mtiles) and, with statistics, stores its
     columns' [sum; sumsq] to slot (group, b) of a (z, nb, 2, c) fp32
     scratch, ``slots`` = z x nb; the slots of a sample are added in order.
-    ``smem``: the block's shared memory, B staged k-major (the weights of
-    the forward) or n-major (dx's)."""
+    ``smem``: the block's shared memory, B staged k-major (the upsample
+    forward's weights) or n-major (dx's)."""
     bn = _f32_bn(c)
     bm = 64 if bn == 64 else 128
     mtiles = -(-rows // bm)
@@ -825,16 +920,18 @@ def _conv3d_k3_f32(x, w, stride, pre, add_to, emit_stats, slope, sms,
     co = w.shape[-1]
     out = tuple((s - 1) // stride + 1 for s in (d, h, wd))
     y = torch.empty((n, *out, co), dtype=torch.float32, device=x.device)
-    plan = _f32_rows_plan(math.prod(out), co, n, sms)
-    stats = part = None
+    plan = _f32_fwd_plan(n, (d, h, wd), ci, co, stride, sms)
+    stats = slots = part = None
     if emit_stats:
         stats = torch.empty((n, 2, co), dtype=torch.float32, device=x.device)
-        part = torch.empty(plan["slots"] * 2 * co, dtype=torch.float32,
-                           device=x.device)
+        slots = torch.empty(plan["slots"], dtype=torch.float64,
+                            device=x.device)
+    if plan["splits"] > 1:
+        part = torch.empty(plan["part"], dtype=torch.float64, device=x.device)
     rc = _f32_fn("fwd")(
         x.data_ptr(), w.data_ptr(), _ptr(pre), _ptr(add_to), y.data_ptr(),
-        _ptr(stats), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
-        plan["nb"], slope, stream)
+        _ptr(stats), _ptr(slots), _ptr(part), n, d, h, wd, ci, co, stride,
+        plan["tile"], plan["splits"], plan["grid"], slope, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3: fp32 kernel launch failed, CUDA error "
                            f"{rc}")

@@ -1,30 +1,24 @@
-// 3x3x3 pad-1 convolution on NDHWC fp32, stride 1 or 2, and its backward,
-// on the tensor cores at fp32 accuracy (FP64 MMA, f32_gemm.cuh), for Hopper
-// (sm_90a). Plain C interface, bound with ctypes (ops/conv3d.py: conv3d_k3,
-// conv3d_k3_dx and conv3d_k3_dw on fp32 tensors). The bf16 kernels of the
-// same functions are conv3d_k3_{s1,s2,dx_s1,dx_s2,dw_s1,dw_s2}.cu.
+// The backward of the 3x3x3 pad-1 convolution on NDHWC fp32, stride 1 or
+// 2, on the tensor cores at fp32 accuracy (FP64 MMA, f32_gemm.cuh), for
+// Hopper (sm_90a). Plain C interface, bound with ctypes (ops/conv3d.py:
+// conv3d_k3_dx and conv3d_k3_dw on fp32 tensors). The forward is
+// conv3d_k3_f32_fwd.cu; the bf16 kernels of the same functions are
+// conv3d_k3_{s1,s2,dx_s1,dx_s2,dw_s1,dw_s2}.cu.
 //
 // Replaces, at compute dtype float32, the TPU's Pallas kernels
-//   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel (stride 1, via
-//     _conv3d_banded_packed_f)                  -> conv3d_k3_s1_f32
-//   ::_s2_fwd_kernel                             -> conv3d_k3_s2_f32
-//   ::_conv_kernel in its corr/post mode (_conv3d_dx_fused_f)
-//                                                -> conv3d_k3_dx_s1_f32
+//   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel in its corr/post
+//     mode (_conv3d_dx_fused_f)                 -> conv3d_k3_dx_s1_f32
 //   ::_s2_dx_kernel                              -> conv3d_k3_dx_s2_f32
 //   ::_dw_kernel                                 -> conv3d_k3_dw_s1_f32
 //   ::_s2_dw_kernel                              -> conv3d_k3_dw_s2_f32
 // which the JAX package runs at any compute dtype (its fp32 tiling branch:
 // pallas_conv.py `sub = 16 if bf16 else 8`). With their fusions:
-//   forward  PRE   xin = leaky(x*scale - shift) per staged element, the zero
-//                  padding applied after it;
-//            ADDIN a second conv's output added (the decoder's split-weight
-//                  pair);
-//            STATS fp32 [sum; sumsq] of the output (after ADDIN);
 //   dx       CORR  the cotangent gy + gs0 + 2 y gs1 built as it is staged,
 //                  never written to memory;
 //            POST  dx through the recomputed pre-op: du = dxn * leaky'(u),
 //                  dx = du * scale, and [sum du*x; sum du];
-//   dW       PRE and CORR as above, on its two operands.
+//   dW       PRE   xin = leaky(x*scale - shift) per staged element, the zero
+//                  padding applied after it, and CORR, on its two operands.
 //
 // What bounds them on the H100: the tensor cores. An fp32-accurate product
 // takes three TF32 ones on the card's fastest route (3xTF32), so a conv of
@@ -34,18 +28,17 @@
 // (3.46 ms).
 //
 // Design: implicit GEMMs over f32gemm::Tile, 4 warps a block.
-//   Forward and dx (conv_fwd, conv_dx): M = the voxels of one
-//     sample (at stride-2 dx, of one parity class p of dx voxels 2q + p,
-//     whose taps are fixed: 1 along an axis of parity 0, 2 along one of
-//     parity 1, so no zero tap is multiplied), N = the output channels,
-//     K = taps x the input channels in chunks of 32. The A rows are a
-//     gather: row m's tap k reads voxel m*S + k - 1 (dx at stride 1: m + 1
-//     - k) or zeros outside the volume. A tile is 128 x 32 or 64 x 64
-//     (N = 32, or a multiple of 64). Block (b, nt, z) walks the m-tiles
-//     [b * mtiles / nb, (b + 1) * mtiles / nb) of sample (and class) z,
-//     keeping its columns' sums in registers, and stores them once to
-//     slot (z, b) of an fp32 scratch; column_sums_finish adds a sample's
-//     slots in order.
+//   dx (conv_dx): M = the voxels of one sample (at stride 2, of one parity
+//     class p of dx voxels 2q + p, whose taps are fixed: 1 along an axis of
+//     parity 0, 2 along one of parity 1, so no zero tap is multiplied),
+//     N = the input channels, K = taps x the output channels in chunks of
+//     32. The A rows are a gather: row m's tap k reads cotangent voxel m +
+//     1 - k (stride 1) or zeros outside the volume. A tile is 128 x 32 or
+//     64 x 64 (N = 32, or a multiple of 64). Block (b, nt, z) walks the
+//     m-tiles [b * mtiles / nb, (b + 1) * mtiles / nb) of sample (and
+//     class) z, keeping its columns' sums in registers, and stores them
+//     once to slot (z, b) of an fp32 scratch; column_sums_finish adds a
+//     sample's slots in order.
 //   dW (conv_dw): M = 3 taps (kd, kh, all kw) x 32 input channels,
 //     N = output channels, K = all output voxels of the batch in chunks of
 //     32; the staged cotangent serves the three taps. K is split across
@@ -78,114 +71,6 @@ __device__ __forceinline__ bool inside(int d, int h, int w, int D, int H,
                                        int W) {
   return (unsigned)d < (unsigned)D && (unsigned)h < (unsigned)H &&
          (unsigned)w < (unsigned)W;
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-struct FwdArgs {
-  const float* x;
-  const float* w;
-  const float* pre;     // (N, 2, Ci) or null
-  const float* add_to;  // (N, Do, Ho, Wo, Co) or null
-  float* y;
-  float* part;          // (N, nb, 2, Co) column sums, or null: no STATS
-  Geom g;
-  float slope;
-  int mtiles;
-};
-
-template <class T, int S>
-struct FwdOp {
-  const float* xs;  // the sample's input
-  const float* ps;  // its pre vectors, or null
-  const float* w;
-  int D, H, W, Ci, Co, n0, cchunks;
-  float slope;
-  int pos[T::A_LOADS];  // output voxel of each staged A row
-
-  __device__ FwdOp(const FwdArgs& a, int n, int nt, int m0)
-      : D(a.g.D), H(a.g.H), W(a.g.W), Ci(a.g.Ci), Co(a.g.Co) {
-    xs = a.x + (long long)n * D * H * W * Ci;
-    ps = a.pre ? a.pre + (long long)n * 2 * Ci : nullptr;
-    w = a.w;
-    n0 = nt * T::BN;
-    cchunks = Ci / BK;
-    slope = a.slope;
-    const int hw = a.g.Ho * a.g.Wo, rows = a.g.Do * hw;
-#pragma unroll
-    for (int j = 0; j < T::A_LOADS; ++j) {
-      const int m = m0 + T::a_row(j);
-      pos[j] = m < rows ? pack(m / hw, (m % hw) / a.g.Wo, m % a.g.Wo) : -1;
-    }
-  }
-
-  __device__ int chunks() const { return 27 * cchunks; }
-
-  __device__ void load(int s, float4 (&ra)[T::A_LOADS],
-                       float4 (&rb)[T::B_LOADS]) const {
-    const int tap = s / cchunks, c0 = (s - tap * cchunks) * BK;
-    const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    // every A row a thread stages holds the same 4 channels (m-major rows
-    // of 8 float4s): their pre vectors load once a chunk
-    const int c = c0 + 4 * T::a_c4(0);
-    float4 sc = zero4(), sh = zero4();
-    if (ps) sc = ld4(ps + c), sh = ld4(ps + Ci + c);
-#pragma unroll
-    for (int j = 0; j < T::A_LOADS; ++j) {
-      float4 v = zero4();
-      const int p = pos[j];
-      const int id = pd_(p) * S + kd - 1, ih = ph_(p) * S + kh - 1,
-                iw = pw_(p) * S + kw - 1;
-      if (p >= 0 && inside(id, ih, iw, D, H, W)) {
-        v = ld4(xs + (((long long)id * H + ih) * W + iw) * Ci + c);
-        if (ps) v = pre_op(v, sc, sh, slope);
-      }
-      ra[j] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < T::B_LOADS; ++j)
-      rb[j] = ld4(w + ((long long)tap * Ci + c0 + T::b_row(j)) * Co + n0 +
-                  4 * T::b_c4(j));
-  }
-};
-
-template <class T, int S>
-__device__ __forceinline__ void conv_fwd(const FwdArgs& a) {
-  __shared__ __align__(16) float smem[T::SMEM_FLOATS];
-  const int n = blockIdx.z, nt = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  const int rows = a.g.Do * a.g.Ho * a.g.Wo, Co = a.g.Co;
-  const int mt0 = (int)((long long)b * a.mtiles / nb);
-  const int mt1 = (int)((long long)(b + 1) * a.mtiles / nb);
-  float cs[T::NT][2][2] = {};
-  double acc[T::MT][T::NT][4];
-  for (int mt = mt0; mt < mt1; ++mt) {
-    const int m0 = mt * T::BM;
-    const FwdOp<T, S> op(a, n, nt, m0);
-    gemm<T>(op, smem, 0, op.chunks(), acc);
-    const long long base = ((long long)n * rows + m0) * Co + nt * T::BN;
-    float* ys = a.y + base;
-    const float* as = a.add_to ? a.add_to + base : nullptr;
-    T::for_pairs(acc, [&](int m, int c, int ni, float v0, float v1) {
-      if (m0 + m >= rows) return;
-      const long long o = (long long)m * Co + c;
-      if (as) {
-        const float2 t = *reinterpret_cast<const float2*>(as + o);
-        v0 += t.x;
-        v1 += t.y;
-      }
-      *reinterpret_cast<float2*>(ys + o) = make_float2(v0, v1);
-      cs[ni][0][0] += v0;
-      cs[ni][0][1] += v0 * v0;
-      cs[ni][1][0] += v1;
-      cs[ni][1][1] += v1 * v1;
-    });
-  }
-  if (a.part)
-    T::column_sums(cs, smem,
-                   a.part + ((long long)n * nb + b) * 2 * Co + nt * T::BN,
-                   Co);
 }
 
 // ---------------------------------------------------------------------------
@@ -279,7 +164,8 @@ struct DxOp {
       }
     }
     const int tap = (k[0] * 3 + k[1]) * 3 + k[2];
-    // the same 4 channels in every A row of this thread (see FwdOp::load)
+    // every A row a thread stages holds the same 4 channels (m-major rows
+    // of 8 float4s): their gs vectors load once a chunk
     const int c = c0 + 4 * T::a_c4(0);
     float4 g0 = zero4(), g1 = zero4();
     if (ys) g0 = ld4(gsn + c), g1 = ld4(gsn + Co + c);
@@ -459,16 +345,6 @@ __device__ __forceinline__ void conv_dw(const DwArgs& a) {
 // the entries, named as the wrappers count their launches
 template <class T>
 __global__ void __launch_bounds__(THREADS)
-    conv3d_k3_s1_f32(const __grid_constant__ FwdArgs a) {
-  conv_fwd<T, 1>(a);
-}
-template <class T>
-__global__ void __launch_bounds__(THREADS)
-    conv3d_k3_s2_f32(const __grid_constant__ FwdArgs a) {
-  conv_fwd<T, 2>(a);
-}
-template <class T>
-__global__ void __launch_bounds__(THREADS)
     conv3d_k3_dx_s1_f32(const __grid_constant__ DxArgs a) {
   conv_dx<T, 1>(a);
 }
@@ -488,8 +364,6 @@ __global__ void __launch_bounds__(THREADS)
   conv_dw<T, 2>(a);
 }
 
-using Wide = Tile<64, 64, false, true>;      // forward, N % 64 == 0
-using Narrow = Tile<128, 32, false, true>;   // forward, N = 32 (mod 64)
 using WideT = Tile<64, 64, false, false>;    // dx: B staged n-major
 using NarrowT = Tile<128, 32, false, false>;
 using DwWide = Tile<96, 64, true, true>;
@@ -519,46 +393,6 @@ int finish_columns(float* part, float* out, int N, int T, int C,
 }
 
 }  // namespace
-
-// y (N, Do, Ho, Wo, Co) = conv(x (N, D, H, W, Ci), w (3, 3, 3, Ci, Co)),
-// with PRE (pre), ADDIN (add_to) and STATS (stats, part: (N, nb, 2, Co)
-// fp32 scratch). bn: 64 (Co % 64 == 0) or 32; nb blocks a (sample, channel
-// tile), each over a range of the 128- or 64-voxel m-tiles.
-extern "C" int conv3d_k3_f32_fwd_launch(const void* x, const void* w,
-                                        const void* pre, const void* add_to,
-                                        void* y, void* stats, void* part,
-                                        int N, int D, int H, int W, int Ci,
-                                        int Co, int stride, int bn, int nb,
-                                        float slope, void* stream) {
-  if ((stride != 1 && stride != 2) || Ci % BK || !(bn == 32 || bn == 64) ||
-      Co % bn || N < 1 || !extent_ok(D, H, W) || nb < 1 ||
-      (stats == nullptr) != (part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.pre = static_cast<const float*>(pre);
-  a.add_to = static_cast<const float*>(add_to);
-  a.y = static_cast<float*>(y);
-  a.part = static_cast<float*>(part);
-  a.g = geom(N, D, H, W, Ci, Co, stride);
-  a.slope = slope;
-  const long long rows = (long long)a.g.Do * a.g.Ho * a.g.Wo;
-  a.mtiles = rows_tiles(rows, bn == 64 ? Wide::BM : Narrow::BM);
-  if (nb > a.mtiles) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nb, Co / bn, N);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 64) {
-    if (stride == 1) conv3d_k3_s1_f32<Wide><<<grid, THREADS, 0, st>>>(a);
-    else conv3d_k3_s2_f32<Wide><<<grid, THREADS, 0, st>>>(a);
-  } else {
-    if (stride == 1) conv3d_k3_s1_f32<Narrow><<<grid, THREADS, 0, st>>>(a);
-    else conv3d_k3_s2_f32<Narrow><<<grid, THREADS, 0, st>>>(a);
-  }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !stats) return (int)e;
-  return finish_columns(a.part, static_cast<float*>(stats), N, nb, Co, st);
-}
 
 // dx (N, D, H, W, Ci) from gy (N, Do, Ho, Wo, Co), with CORR (y, gs) and
 // POST (x, pre; dst (N, 2, Ci) [sum du*x; sum du], part (N, classes, nb, 2,

@@ -60,16 +60,30 @@ def global_norm(grads) -> torch.Tensor:
     return total.sqrt()
 
 
+def clip_by_global_norm_(grads, norm: torch.Tensor, clip: float) -> None:
+    """``optax.clip_by_global_norm`` in place: each gradient kept where
+    ``norm < clip``, else ``(g / norm) * clip``, with ``clip`` in the
+    gradients' dtype as JAX's weak typing rounds it. One foreach pass over
+    all dtypes, with no host sync: ``g / d * f`` where (d, f) is (1, 1)
+    when kept, else (norm, clip); ``g / 1 * 1`` is ``g`` exactly."""
+    keep = norm < clip
+    one = torch.ones((), dtype=norm.dtype, device=norm.device)
+    denom = torch.where(keep, one, norm)
+    factor = torch.where(keep, one, torch.full_like(one, clip))
+    torch._foreach_div_(grads, denom)
+    torch._foreach_mul_(grads, factor)
+
+
 class Optimizer:
     """Global-norm clip, then a torch optimizer whose learning rate follows
     ``schedule`` of the number of updates so far (the optax chain
     ``clip_by_global_norm -> adamw/sgd`` with a schedule).
     :meth:`step` returns the global norm of the gradients before the clip
-    (``optax.global_norm(grads)`` in the JAX step). fp32 gradients go
-    through torch's clip; 16-bit ones (``param_dtype`` bf16 / fp16) are
-    clipped as ``optax.clip_by_global_norm`` rounds them: the norm of
-    :func:`global_norm`, and ``(g / norm) * max_norm`` in their dtype where
-    the norm is at least ``max_norm``."""
+    (``optax.global_norm(grads)`` in the JAX step): torch's
+    ``get_total_norm`` of fp32 gradients, and for 16-bit ones (``param_dtype``
+    bf16 / fp16) the norm of :func:`global_norm`, rounded as optax rounds
+    it. Every dtype is then clipped as ``optax.clip_by_global_norm`` clips
+    (:func:`clip_by_global_norm_`)."""
 
     def __init__(self, opt: torch.optim.Optimizer, schedule: Schedule,
                  grad_clip_norm: Optional[float]):
@@ -82,20 +96,14 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        params = [p for group in self.opt.param_groups
-                  for p in group["params"] if p.grad is not None]
-        grads = [p.grad for p in params]
-        clip = self.grad_clip_norm
+        grads = [p.grad for group in self.opt.param_groups
+                 for p in group["params"] if p.grad is not None]
         if any(g.dtype != torch.float32 for g in grads):
             norm = global_norm(grads)
-            if clip:
-                keep = norm < clip
-                for g in grads:
-                    g.copy_(torch.where(keep, g, g / norm * clip))
-        elif clip:
-            norm = torch.nn.utils.clip_grad_norm_(params, clip)
         else:
             norm = torch.nn.utils.get_total_norm(grads)
+        if self.grad_clip_norm:
+            clip_by_global_norm_(grads, norm, self.grad_clip_norm)
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
             group["lr"] = lr

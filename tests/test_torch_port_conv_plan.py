@@ -19,19 +19,25 @@ footprint position in its own row, and every tap's 8 consecutive output w
 in 8 consecutive rows (what their ldmatrix addressing takes). The stride-2
 dx must compute every (dx voxel, tap) pair with i + 1 - k even exactly
 once, reading the cotangent at (i + 1 - k) / 2, and its schedule, run on
-numbers, must give the plain dx. The fp32 kernels' planners
-(``_f32_rows_plan``, ``_f32_dw_plan``, csrc/conv3d_k3_f32.cu) at the same
-shapes: every output row and channel tile of the forward, every dx voxel
-(at stride 2 through its parity class) and every (tap, ci, co, output
-voxel) of dW covered exactly once, no dW split over F32_DW_MAX_CHUNKS
-chunks, and each block's shared memory within 48 KiB (static; the H100
-allows 232,448 bytes).
+numbers, must give the plain dx. The fp32 kernels' planners at the same
+shapes: the forward's (``_f32_fwd_plan``, csrc/conv3d_k3_f32_fwd.cu)
+covers every (split, sample, output voxel, output channel) once and every
+input chunk once per brick and tile, its persistent blocks every unit
+once, in at most the 227 KB of dynamic shared memory a block may have;
+the 4^3 and 8^3 shapes split K and the larger ones do not, and the split
+sums, added in split order, give the conv. dx's and dW's
+(``_f32_rows_plan``, ``_f32_dw_plan``, csrc/conv3d_k3_f32.cu): every dx
+voxel (at stride 2 through its parity class) and every (tap, ci, co,
+output voxel) of dW covered exactly once, no dW split over
+F32_DW_MAX_CHUNKS chunks, and each block's shared memory within 48 KiB
+(static).
 """
 
 import math
 
 import numpy as np
 import pytest
+import torch
 
 from mt3d_resenc_unet_torch.ops import conv3d as c3
 
@@ -581,11 +587,13 @@ def test_dx_s2_units_cover_every_cotangent_voxel_once(ci, co, size, sms):
 
 # ------------------------------------------------- the fp32 kernels' plans
 #
-# csrc/conv3d_k3_f32.cu: the forward and dx blocks (b, tile, group) take
-# the m-tiles f32_tile_range(b, nb, mtiles) of their group (a sample, or at
-# stride-2 dx a sample's parity class, whose own m-tiles are fewer where
-# the class is smaller), the dW blocks (taps group x ci tile, co tile,
-# split) the K chunks f32_tile_range(split, splits, nch).
+# csrc/conv3d_k3_f32_fwd.cu: the forward's units (split, channel tile,
+# sample, output brick), walked by persistent blocks. csrc/conv3d_k3_f32.cu:
+# the dx blocks (b, tile, group) take the m-tiles f32_tile_range(b, nb,
+# mtiles) of their group (a sample, or at stride 2 a sample's parity class,
+# whose own m-tiles are fewer where the class is smaller), the dW blocks
+# (taps group x ci tile, co tile, split) the K chunks f32_tile_range(split,
+# splits, nch).
 
 F32_SIZES = [(128,) * 3, (64,) * 3, (16,) * 3, (8,) * 3, (4,) * 3,
              (9, 10, 11), (5, 6, 7)]
@@ -596,7 +604,7 @@ F32_SHAPES = [(s, ci, co, e) for s, ci, co, e in (
 F32_IDS = [f"s{s}-{ci}-{co}@{'x'.join(map(str, e))}"
            for s, ci, co, e in F32_SHAPES]
 SMEM_LIMIT = 232448          # what a block may use on the H100
-STATIC_SMEM = 48 * 1024      # the kernels' shared memory is static
+STATIC_SMEM = 48 * 1024      # dx's and dW's shared memory is static
 
 
 def f32_rows_counts(plan, group_rows):
@@ -620,18 +628,127 @@ def f32_rows_counts(plan, group_rows):
 @pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
 def test_f32_forward_plan_covers_every_output_once(stride, ci, co, size,
                                                    sms):
+    """csrc/conv3d_k3_f32_fwd.cu's units, decoded as the kernel decodes
+    them (conv3d.f32_fwd_unit): every (sample, output voxel, output
+    channel) belongs to exactly one brick and tile of each split, the
+    splits' chunk ranges cover the Ci / 8 chunks once, the persistent
+    blocks' unit ranges cover the units once, and a block's shared memory
+    fits the H100's 227 KB."""
     n = 2
     out = tuple((s - 1) // stride + 1 for s in size)
-    plan = c3._f32_rows_plan(math.prod(out), co, n, sms)
-    assert plan["ntiles"] * plan["bn"] == co and co % plan["bn"] == 0
-    assert plan["bm"] * plan["bn"] in (128 * 32, 64 * 64)
-    assert 1 <= plan["nb"] <= plan["mtiles"]
-    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
-    counts = f32_rows_counts(plan, [math.prod(out)] * n)
-    assert len(counts) == n * plan["ntiles"]
-    assert all((c == 1).all() for c in counts.values())
-    # the statistics: one slot per (sample, block), each added once
-    assert plan["slots"] == n * plan["nb"]
+    plan = c3._f32_fwd_plan(n, size, ci, co, stride, sms)
+    assert plan["ntiles"] * plan["bn"] == co
+    assert plan["smem"] == c3.f32_fwd_smem(plan["tile"], stride)
+    assert plan["smem"] <= SMEM_LIMIT
+    nch = ci // c3.F32_FWD_KC
+    assert plan["splits"] * plan["cps"] == nch
+    assert plan["units"] == (plan["splits"] * plan["ntiles"] * n
+                             * plan["bricks"])
+    assert 1 <= plan["grid"] <= min(sms, plan["units"])
+    owned = np.zeros((plan["splits"], n) + tuple(
+        b * e for b, e in zip(plan["nb"], plan["brick"])) + (co,), np.int32)
+    chunks = np.zeros((n, plan["ntiles"], plan["bricks"], nch), np.int32)
+    for u in range(plan["units"]):
+        t = c3.f32_fwd_unit(plan, n, u)
+        (d0, h0, w0), (bd, bh, bw) = t["origin"], plan["brick"]
+        c0 = t["tile"] * plan["bn"]
+        owned[t["split"], t["sample"], d0:d0 + bd, h0:h0 + bh, w0:w0 + bw,
+              c0:c0 + plan["bn"]] += 1
+        chunks[t["sample"], t["tile"], t["brick"],
+               t["chunks"][0]:t["chunks"][1]] += 1
+    assert (owned == 1).all()
+    assert (chunks == 1).all()
+    assert owned.shape[2:5] >= out
+    blocks = np.zeros(plan["units"], np.int32)
+    for b in range(plan["grid"]):
+        blocks[b * plan["units"] // plan["grid"]:
+               (b + 1) * plan["units"] // plan["grid"]] += 1
+    assert (blocks == 1).all()
+    # the statistics: a slot per (sample, brick) unsplit, per (sample,
+    # finish block) split
+    vox = math.prod(out)
+    groups = (-(-vox // c3.F32_FIN_VOX) if plan["splits"] > 1
+              else plan["bricks"])
+    assert plan["groups"] == groups and plan["slots"] == n * groups * 2 * co
+    assert plan["part"] == (plan["splits"] * n * vox * co
+                            if plan["splits"] > 1 else 0)
+
+
+# the fp32 forward's plan at the flagship's shapes on 132 SMs: (tile,
+# splits) -- the 4^3 and 8^3 shapes split K, 16^3 and larger do not
+F32_FWD_FLAGSHIP = {(1, 32, 32, 128): (0, 1), (1, 64, 64, 64): (0, 1),
+                    (1, 256, 256, 16): (0, 1), (1, 512, 512, 8): (0, 2),
+                    (1, 512, 512, 4): (1, 8), (2, 32, 64, 128): (0, 1),
+                    (2, 64, 128, 64): (0, 1)}
+
+
+@pytest.mark.parametrize("case", list(F32_FWD_FLAGSHIP),
+                         ids=[f"s{s}-{ci}-{co}@{e}" for s, ci, co, e in
+                              F32_FWD_FLAGSHIP])
+def test_f32_forward_plan_at_the_flagship_shapes(case):
+    stride, ci, co, e = case
+    plan = c3._f32_fwd_plan(2, (e,) * 3, ci, co, stride, 132)
+    assert (plan["tile"], plan["splits"]) == F32_FWD_FLAGSHIP[case]
+    # the card is filled: every SM a block, or one block a unit
+    assert plan["grid"] == min(132, plan["units"]) >= 128
+
+
+def _split_forward(x, w, stride, plan, pre=None, add_to=None):
+    """The fp32 forward as the kernel computes it under ``plan``, in fp64
+    on the CPU: each split's partial sum over its chunks' input channels
+    (all 27 taps), the slices added in split order, rounded to fp32, then
+    ADDIN and the statistics of the rounded sum."""
+    kc = c3.F32_FWD_KC
+    if pre is not None:
+        u = x * pre[:, 0, None, None, None, :] - pre[:, 1, None, None, None, :]
+        x = torch.where(u >= 0, u, u * 1e-2)
+    parts = []
+    for sp in range(plan["splits"]):
+        c0, c1 = sp * plan["cps"] * kc, (sp + 1) * plan["cps"] * kc
+        parts.append(c3.conv3d_k3_plain(x[..., c0:c1].double(),
+                                        w[..., c0:c1, :].double(), stride))
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    y = total.float()
+    if add_to is not None:
+        y = y + add_to
+    yd = y.double()
+    return y, torch.stack([yd.sum(dim=(1, 2, 3)),
+                           (yd * yd).sum(dim=(1, 2, 3))], 1).float()
+
+
+@pytest.mark.parametrize("stride,ci,co,size", [
+    (1, 64, 64, (4, 4, 4)), (1, 64, 32, (5, 3, 6)), (2, 32, 32, (7, 5, 9))])
+def test_f32_forward_split_sums_cover_k_once_in_split_order(stride, ci, co,
+                                                            size):
+    """Where the plan splits K, the splits' partial convs over their
+    chunks, added in split order and rounded once, give the conv: within
+    fp32 rounding of the plain version, the add order being split order
+    (the fp64 slices differ from one fp64 sum only in rounding far below
+    fp32's)."""
+    n = 2
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, *size, ci, generator=g)
+    w = torch.randn(3, 3, 3, ci, co, generator=g) * (27 * ci) ** -0.5
+    pre = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                       torch.randn(n, ci, generator=g)], 1)
+    out = tuple((s - 1) // stride + 1 for s in size)
+    add_to = torch.randn(n, *out, co, generator=g)
+    plan = c3._f32_fwd_plan(n, size, ci, co, stride, 132)
+    assert plan["splits"] > 1
+    y, stats = _split_forward(x, w, stride, plan, pre, add_to)
+    want, wstats = c3.conv3d_k3_plain(x.double(), w.double(), stride,
+                                      pre=pre.double(),
+                                      add_to=add_to.double(),
+                                      emit_stats=True)
+    rel = float((y.double() - want).norm() / want.norm())
+    assert rel <= 1e-7
+    assert torch.allclose(stats.double(), wstats, rtol=1e-6, atol=1e-4)
+    # one split short, or one counted twice, is far off
+    short = dict(plan, splits=plan["splits"] - 1)
+    y_short, _ = _split_forward(x, w, stride, short, pre, add_to)
+    assert float((y_short.double() - want).norm() / want.norm()) > 1e-2
 
 
 @pytest.mark.parametrize("sms", [132, 20])
@@ -705,11 +822,11 @@ def test_f32_flagship_plans_fill_the_card():
     one block an SM."""
     for stride, ci, co, size in F32_SHAPES[:5] + F32_SHAPES[7:9]:
         out = tuple((s - 1) // stride + 1 for s in size)
-        fwd = c3._f32_rows_plan(math.prod(out), co, 2, 132)
+        fwd = c3._f32_fwd_plan(2, size, ci, co, stride, 132)
         rows, classes = c3._dx_classes(size, stride)
         dx = c3._f32_rows_plan(rows, ci, 2 * classes, 132, b_kmajor=False)
         dw = c3._f32_dw_plan(2 * math.prod(out), 9 * (ci // 32), co, 132)
         assert dw["tiles"] * dw["splits"] >= 132
-        for p, z in ((fwd, 2), (dx, 2 * classes)):
-            assert p["nb"] * p["ntiles"] * z >= min(
-                132, p["mtiles"] * p["ntiles"] * z)
+        assert fwd["grid"] >= min(128, fwd["units"])
+        assert dx["nb"] * dx["ntiles"] * 2 * classes >= min(
+            132, dx["mtiles"] * dx["ntiles"] * 2 * classes)

@@ -17,10 +17,12 @@ kernels against the plain fp32 path: loss within 1e-2 relative and the
 gradients of each top-level module at cosine >= 0.95 (bf16 rounding between
 ~40 instance norms; 0.984 measured for the encoder in the same comparison
 on the CPU; the full-width step's limits and measurements are in
-chip_smoke.py). The fp32 kernels (FP64 MMA, csrc/conv3d_k3_f32.cu and
-csrc/upsample2x_f32.cu) against their plain versions evaluated in fp64 on
-the same inputs: relative L2 1e-5 for outputs, dx, dW and the pre-op
-backward's sums, 1e-5 relative for the statistics, bit-equal over two runs;
+chip_smoke.py). The fp32 kernels (FP64 MMA, csrc/conv3d_k3_f32_fwd.cu,
+csrc/conv3d_k3_f32.cu and csrc/upsample2x_f32.cu) against their plain
+versions evaluated in fp64 on the same inputs: relative L2 1e-5 for
+outputs, dx, dW and the pre-op backward's sums, 1e-5 relative for the
+statistics, bit-equal over two runs (the forward also at extents that are
+no multiple of its bricks and at the shapes where it splits K);
 an fp32 kernel model's training step launches all nine fp32 kernels and
 its loss is within 1e-5 of the fp32 reference model's. The fp16 kernels
 (the bf16 sources instantiated on __half, csrc/b16.cuh) against their plain
@@ -667,6 +669,82 @@ def test_f32_conv_kernel_matches_plain_fp64(dev, stride, ci, co, extent,
     again = conv3d_k3(x, w, stride, **kw)
     again = again if isinstance(again, tuple) else (again,)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the fp32 forward's bricks and splits (csrc/conv3d_k3_f32_fwd.cu,
+# conv3d._f32_fwd_plan): extents that are no multiple of the brick at both
+# strides, the small tile, and the flagship's split shapes (8^3 and 4^3 x
+# 512), each (stride, ci, co, size, split or not on this card)
+_F32_FWD_CASES = [(1, 32, 32, (13, 25, 33), False),
+                  (1, 256, 256, (16, 16, 16), False),
+                  (2, 32, 64, (33, 49, 17), False),
+                  (1, 32, 32, (5, 9, 13), True), (1, 64, 64, (7, 3, 10), True),
+                  (2, 32, 64, (9, 17, 5), True), (2, 64, 32, (3, 7, 12), True),
+                  (1, 64, 64, (4, 3, 2), True), (1, 512, 512, (8, 8, 8), True),
+                  (1, 512, 512, (4, 4, 4), True),
+                  (1, 256, 256, (5, 6, 7), True)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "stats", "pre_stats",
+                                  "addin_stats"])
+@pytest.mark.parametrize("stride,ci,co,size,split", _F32_FWD_CASES)
+def test_f32_fwd_bricks_and_splits_match_plain_fp64(dev, stride, ci, co,
+                                                    size, split, mode):
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    g = torch.Generator().manual_seed(1)
+    n = 2
+    out = [(s - 1) // stride + 1 for s in size]
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
+    w = (torch.randn(3, 3, 3, ci, co, generator=g) * (27 * ci) ** -0.5).to(dev)
+    kw = {"emit_stats": mode != "plain"}
+    if mode == "pre_stats":
+        kw["pre"] = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                                 torch.randn(n, ci, generator=g)], 1).to(dev)
+    if mode == "addin_stats":
+        kw["add_to"] = torch.randn(n, *out, co, generator=g).to(dev)
+    plan = c3._f32_fwd_plan(n, size, ci, co, stride, c3._sm_count(x.device))
+    assert (plan["splits"] > 1) == split
+    name = f"conv3d_k3_s{stride}_f32"
+    before = _build.LAUNCHES[name]
+    got = conv3d_k3(x, w, stride, **kw)
+    want = conv3d_k3_plain(x.double(), w.double(), stride, **_f64(kw))
+    again = conv3d_k3(x, w, stride, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    if mode == "plain":
+        got, want, again = (got, None), (want, None), (again, None)
+    assert got[0].shape == (n, *out, co)
+    assert _rel_l2(got[0], want[0]) <= 1e-5
+    if got[1] is not None:
+        assert _stats_rel(got[1], want[1]) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+
+
+def test_f32_fwd_launcher_refuses_a_plan_not_its_own(dev):
+    """The C launcher checks the plan it is handed: a split that does not
+    divide the chunks, more blocks than units, a small tile at stride 2, a
+    split without its scratch."""
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    n, d, ci, co = 1, 4, 32, 64
+    x = torch.randn(n, d, d, d, ci, device=dev)
+    w = torch.randn(3, 3, 3, ci, co, device=dev)
+    y = torch.empty(n, d, d, d, co, device=dev)
+    part = torch.empty(8 * n * d ** 3 * co, dtype=torch.float64, device=dev)
+    fn = c3._f32_fn("fwd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(stride, tile, splits, grid, scratch):
+        return fn(x.data_ptr(), w.data_ptr(), None, None, y.data_ptr(), None,
+                  None, scratch, n, d, d, d, ci, co, stride, tile, splits,
+                  grid, 0.01, stream)
+
+    assert call(1, 1, 2, 2, part.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert call(1, 1, 3, 1, part.data_ptr()) != 0      # 3 does not divide 4
+    assert call(1, 1, 2, 3, part.data_ptr()) != 0      # 3 blocks, 2 units
+    assert call(2, 1, 1, 1, None) != 0                 # small tile, stride 2
+    assert call(1, 0, 2, 1, None) != 0                 # split, no scratch
 
 
 @pytest.mark.parametrize("mode", _DX_MODES)
