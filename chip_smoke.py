@@ -36,8 +36,9 @@ port's codec, also over HTTP. Every task setting it uses is read from
 Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
      per source, all at once), print the registers, shared memory and
-     spills ``-Xptxas -v`` reports (per entry for the ten tensor-core
-     sources, every conv and upsample source) and the card's name and
+     spills ``-Xptxas -v`` reports (per entry for the twelve tensor-core
+     sources, every conv and upsample source), the fp32 forward's and
+     dx's instruction counts (``tools/sass_stats.py``) and the card's name and
      power limit, and which of ``yaml``, ``PIL``, ``imageio``, ``cv2`` and
      ``torch.utils.tensorboard`` import on this machine (tried in a child
      process: the port needs none of them); set the port's one precision
@@ -59,7 +60,8 @@ Phases (any failure exits non-zero and prints no result line):
      tensors against the plain version on them, F16_TOL, library ms of the
      fp16 cuDNN call; (2f) the same cases through the fp32 kernels
      (``conv3d_k3_*_f32``, ``upsample2x_f32``: FP64 MMA, csrc/
-     conv3d_k3_f32_fwd.cu and upsample2x_f32.cu), the stride-2 forward
+     conv3d_k3_f32_fwd.cu, conv3d_k3_f32_dx.cu, conv3d_k3_f32.cu and
+     upsample2x_f32.cu), the stride-2 forward
      in every mode (its modes other than stats from a generator of their
      own), on fp32 tensors, held by
      relative L2 F32_TOL (statistics F32_STATS_TOL) against the plain
@@ -487,7 +489,8 @@ NORM_KERNELS = tuple(REPLACES)[9:13]
 TAIL_KERNELS = tuple(REPLACES)[13:16]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 # rows 1-9 at compute dtype float32: the same TPU kernels, the fp32 kernels
-# of csrc/conv3d_k3_f32_fwd.cu (rows 1f, 4f), csrc/conv3d_k3_f32.cu and
+# of csrc/conv3d_k3_f32_fwd.cu (rows 1f, 4f), csrc/conv3d_k3_f32_dx.cu
+# (rows 2f, 6f), csrc/conv3d_k3_f32.cu (rows 3f, 5f) and
 # csrc/upsample2x_f32.cu
 F32_KERNELS = tuple(f"{k}_f32" for k in CONV_KERNELS)
 F32_FORWARD = tuple(f"{k}_f32" for k in FORWARD)
@@ -516,6 +519,7 @@ SOURCES = {
     **{name: f"{_CS}/norm_act.cu" for name in NORM_KERNELS + TAIL_KERNELS},
     **{f"{name}_f32": f"{_CS}/upsample2x_f32.cu" if "upsample" in name
        else f"{_CS}/conv3d_k3_f32_fwd.cu" if name in FORWARD
+       else f"{_CS}/conv3d_k3_f32_dx.cu" if "_dx_" in name
        else f"{_CS}/conv3d_k3_f32.cu" for name in CONV_KERNELS},
 }
 SOURCES.update({f"{k}_f16": SOURCES[k]
@@ -665,10 +669,16 @@ def tensor_core_usage(logs):
           + ", ".join(f"{'big' if t == 0 else 'small'} tile stride {s} "
                       f"{c3.f32_fwd_smem(t, s)} B" for t, s in
                       ((0, 1), (1, 1), (0, 2))))
+    print("  fp32 dx (conv3d_k3_f32_dx): "
+          + ", ".join(f"tile {t} ({c3.F32_DX_TILES[t]['brick']} x "
+                      f"{c3.F32_DX_TILES[t]['bn']}) {c3.f32_dx_smem(t, False)}"
+                      f" B, with corr {c3.f32_dx_smem(t, True)} B"
+                      for t in c3.F32_DX_TILES))
     for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
                    "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
                    "upsample2x", "upsample2x_bwd", "conv3d_k3_f32",
-                   "conv3d_k3_f32_fwd", "upsample2x_f32"):
+                   "conv3d_k3_f32_fwd", "conv3d_k3_f32_dx",
+                   "upsample2x_f32"):
         entry = None
         for line in logs[source].splitlines():
             if "Compiling entry function" in line:
@@ -732,8 +742,12 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
         return median_ms(fn) if timed else None
 
     def bound_of(flops, nbytes):
-        return (bound(3 * flops, nbytes, PEAK_TF32) if f32
-                else bound(flops, nbytes))
+        """(bound ms, its limit, and at fp32 the FP64 tensor cores' bound
+        ms beside the 3xTF32 one)."""
+        if not f32:
+            return bound(flops, nbytes) + (None,)
+        return bound(3 * flops, nbytes, PEAK_TF32) + (
+            bound(flops, nbytes, PEAK_FP32)[0],)
 
     records, failures = [], []
     todo = [(s, ci, co, e, m) for s, ci, co, e in conv_cases
@@ -785,7 +799,8 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
             2 if "addin" in mode else 1)) + (8 * n * ci if "pre" in mode
                                              else 0) + (8 * n * co if mode
                                                         != "plain" else 0)
-        b_ms, b_by = bound_of(conv_flops(n, ci, co, extent, stride), nbytes)
+        b_ms, b_by, b64 = bound_of(conv_flops(n, ci, co, extent, stride),
+                                   nbytes)
         name = f"conv3d_k3_s{stride}{sfx}"
         case = f"{ci}->{co} {_at(extent)} {mode}"
         records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
@@ -793,7 +808,7 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                             plain_err=plain_err,
                             ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms.get(key), bound_ms=b_ms,
-                            bound_by=b_by,
+                            bound_by=b_by, fp64_bound_ms=b64,
                             tflops=conv_flops(n, ci, co, extent, stride)
                             / ms / 1e9 if timed else None))
         if not err <= tol or (s_err is not None and not s_err <= s_tol):
@@ -808,7 +823,7 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
         err, plain_err = case_errors(got, want, exact, f32)
         del exact
         flops = 2 * 8 * ci * co * x.numel() // ci
-        b_ms, b_by = bound_of(flops, esize * (x.numel() + wf.numel()
+        b_ms, b_by, b64 = bound_of(flops, esize * (x.numel() + wf.numel()
                                               + got.numel()))
         lib = None
         if timed:
@@ -826,6 +841,7 @@ def kernel_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
                             stats_err=None, plain_err=plain_err, ms=ms,
                             plain_ms=ms_of(lambda: upsample_plain(x, wf)),
                             library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                            fp64_bound_ms=b64,
                             tflops=flops / ms / 1e9 if timed else None))
         if not err <= tol:
             failures.append(f"upsample2x{sfx} {case}: err {err}")
@@ -900,10 +916,10 @@ def main() -> int:
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
-    # the fp32 forward's compiled code: its MMAs, shared-memory loads and
-    # fp32 -> fp64 conversions (tools/sass_stats.py)
+    # the fp32 forward's and dx's compiled code: their MMAs, shared-memory
+    # loads and fp32 -> fp64 conversions (tools/sass_stats.py)
     from mt3d_resenc_unet_torch.tools import sass_stats
-    sass_stats.main(["conv3d_k3_f32_fwd"])
+    sass_stats.main(["conv3d_k3_f32_fwd", "conv3d_k3_f32_dx"])
     print(card())
     print("packages on this machine: " + ", ".join(
         f"{name} {'imports' if ok else 'missing'}"
@@ -1319,8 +1335,12 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
         return median_ms(fn) if timed else None
 
     def bound_of(flops, nbytes):
-        return (bound(3 * flops, nbytes, PEAK_TF32) if f32
-                else bound(flops, nbytes))
+        """(bound ms, its limit, and at fp32 the FP64 tensor cores' bound
+        ms beside the 3xTF32 one)."""
+        if not f32:
+            return bound(flops, nbytes) + (None,)
+        return bound(3 * flops, nbytes, PEAK_TF32) + (
+            bound(flops, nbytes, PEAK_FP32)[0],)
 
     records, failures = [], []
     todo = [(s, ci, co, e, "dx", m) for s, ci, co, e in conv_cases
@@ -1398,14 +1418,14 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
             esize * (x.numel() + w.numel()) + (8 * n * ci if "post" in mode
                                                else 0)
             if op == "dx" else 4 * w.numel())
-        b_ms, b_by = bound_of(flops, nbytes)
+        b_ms, b_by, b64 = bound_of(flops, nbytes)
         name = f"conv3d_k3_{op}_s{stride}{sfx}"
         case = f"{ci}->{co} {_at(extent)} {mode}"
         records.append(dict(kernel=name, shape=(ci, co, extent), mode=mode,
                             case=case, max_abs_err=err, dst_err=dst_err,
                             plain_err=plain_err, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms.get(key), bound_ms=b_ms,
-                            bound_by=b_by,
+                            bound_by=b_by, fp64_bound_ms=b64,
                             tflops=flops / ms / 1e9 if timed else None))
         ok = err <= tol
         if mode == "corr_small":
@@ -1452,13 +1472,13 @@ def backward_cases(dev, gen, conv_cases, s2_cases, up_cases, n=2,
             case = f"{ci}->{co} {_at(extent)}"
             nbytes = esize * gy.numel() + out_bytes + esize * (
                 wf.numel() if name == "upsample2x_dx" else x.numel())
-            b_ms, b_by = bound_of(flops, nbytes)
+            b_ms, b_by, b64 = bound_of(flops, nbytes)
             records.append(dict(kernel=name + sfx, shape=(ci, co, extent),
                                 mode="plain", case=case, max_abs_err=err,
                                 dst_err=None, plain_err=plain_err, ms=ms,
                                 plain_ms=plain_ms,
                                 library_ms=ms_of(lib), bound_ms=b_ms,
-                                bound_by=b_by,
+                                bound_by=b_by, fp64_bound_ms=b64,
                                 tflops=flops / ms / 1e9 if timed else None))
             if not err <= tol:
                 failures.append(f"{name}{sfx} {case}: err {err}")
@@ -1876,7 +1896,9 @@ def step_table(records, shapes, steps, names=CONV_KERNELS,
     kernel's (of ``names``) launches per training step (phase 5c's counts
     by shape and mode, or phase 18's at fp32) times its phase-2 or 5a case
     of the same shape and mode: the kernel's ms, the library call's, the
-    bound and the kernel / library factor per step. A launch whose mode
+    bound (at fp32 also the FP64 tensor cores' bound, FLOPs at PEAK_FP32,
+    beside the 3xTF32 one) and the kernel / library factor per step. A
+    launch whose mode
     has no case takes the shape's first case (marked)."""
     cases = {}
     for r in records:
@@ -1901,6 +1923,7 @@ def step_table(records, shapes, steps, names=CONV_KERNELS,
                 continue
             for k in ("ms", "library_ms", "bound_ms"):
                 tot[k] += per * r[k]
+            tot["fp64_bound_ms"] += per * (r.get("fp64_bound_ms") or 0.0)
             by[r["bound_by"]] += per * r["bound_ms"]
         mix = ", ".join(f"{shape[0]}->{shape[1]} @{shape[2]}^3 {mode} "
                         f"{count / steps:g}" for (kname, shape, mode), count
@@ -1911,8 +1934,11 @@ def step_table(records, shapes, steps, names=CONV_KERNELS,
         print(f"  {name:16s} {tot['launches']:5.1f} launches  kernel "
               f"{tot['ms']:8.3f} ms  library {tot['library_ms']:8.3f} ms  "
               f"bound {tot['bound_ms']:7.3f} ms ("
-              f"{by.most_common(1)[0][0] if by else '-'})  kernel/library "
-              f"{factor:.2f}x" + (f"  uncovered {tot['uncovered']:.1f}"
+              f"{by.most_common(1)[0][0] if by else '-'})"
+              + (f"  FP64 bound {tot['fp64_bound_ms']:7.3f} ms"
+                 if tot["fp64_bound_ms"] else "")
+              + f"  kernel/library {factor:.2f}x"
+              + (f"  uncovered {tot['uncovered']:.1f}"
                                   if tot["uncovered"] else "")
               + (f"  stand-in cases for {stand_in}" if stand_in else ""))
 

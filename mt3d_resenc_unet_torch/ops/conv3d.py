@@ -19,13 +19,13 @@ CUDA tensor always goes to the kernel, or the wrapper raises.
                     csrc/conv3d_k3_dw_s2.cu, replacing ``_s2_dw_kernel``.
 
 At compute dtype float32 the same three wrappers launch the kernels of
-csrc/conv3d_k3_f32_fwd.cu (the forward) and csrc/conv3d_k3_f32.cu (dx and
-dW), which replace the same Pallas kernels as the JAX package runs them in
-fp32: implicit GEMMs on the FP64 tensor cores at fp32 accuracy, with every
-fusion of the bf16 kernels. The forward stages halo'd input bricks once a
-channel chunk, as the bf16 kernels do, tiled by :func:`_f32_fwd_plan`; dx
-and dW run csrc/f32_gemm.cuh's tiles, planned by :func:`_f32_rows_plan`
-and :func:`_f32_dw_plan`. Their
+csrc/conv3d_k3_f32_fwd.cu (the forward), csrc/conv3d_k3_f32_dx.cu (dx) and
+csrc/conv3d_k3_f32.cu (dW), which replace the same Pallas kernels as the
+JAX package runs them in fp32: implicit GEMMs on the FP64 tensor cores at
+fp32 accuracy, with every fusion of the bf16 kernels. The forward and dx
+stage halo'd input (cotangent) bricks once a channel chunk, as the bf16
+kernels do, tiled by :func:`_f32_fwd_plan` and :func:`_f32_dx_plan`; dW
+runs csrc/f32_gemm.cuh's tiles, planned by :func:`_f32_dw_plan`. Their
 launches count under the bf16 kernel's name with ``_f32`` after it, the
 name of their entry (``conv3d_k3_s1_f32``, ``conv3d_k3_dx_s2_f32``, ...).
 
@@ -181,16 +181,17 @@ def _kernel_dtype(fn: str, t: torch.Tensor) -> torch.dtype:
 
 def _f32_fn(kind: str):
     """The C launcher ``conv3d_k3_f32_<kind>_launch``, its argument types
-    set: the forward's of csrc/conv3d_k3_f32_fwd.cu, dx's and dW's of
-    csrc/conv3d_k3_f32.cu."""
+    set: the forward's of csrc/conv3d_k3_f32_fwd.cu, dx's of
+    csrc/conv3d_k3_f32_dx.cu, dW's of csrc/conv3d_k3_f32.cu."""
     key = f"f32_{kind}"
     fn = _lib_fns.get(key)
     if fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib = _build.load(F32_FWD_SOURCE if kind == "fwd" else F32_SOURCE)
+        lib = _build.load({"fwd": F32_FWD_SOURCE, "dx": F32_DX_SOURCE,
+                           "dw": F32_SOURCE}[kind])
         fn = getattr(lib, f"{F32_SOURCE}_{kind}_launch")
         fn.argtypes = {"fwd": [p] * 8 + [i] * 10 + [f, p],
-                       "dx": [p] * 9 + [i] * 9 + [f, p],
+                       "dx": [p] * 10 + [i] * 11 + [f, p],
                        "dw": [p] * 7 + [i] * 9 + [f, p]}[kind]
         fn.restype = i
         _lib_fns[key] = fn
@@ -751,9 +752,10 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     return dw
 
 
-# the fp32 backward kernels (csrc/conv3d_k3_f32.cu, tiles of
-# csrc/f32_gemm.cuh): a dx block is 128 x 32 or 64 x 64 (voxels x channels:
-# N = 32 or a multiple of 64) over K chunks of F32_BK; the planner aims at
+# the fp32 kernels on csrc/f32_gemm.cuh's tiles (dW in csrc/conv3d_k3_f32.cu,
+# the upsample in csrc/upsample2x_f32.cu): a row-tiled block (the upsample's
+# forward and dx) is 128 x 32 or 64 x 64 (voxels x channels: N = 32 or a
+# multiple of 64) over K chunks of F32_BK; the planner aims at
 # F32_BLOCKS_PER_SM blocks an SM. A dW block is 3 taps x 32 input channels
 # x 32 or 64 output channels and sums at most F32_DW_MAX_CHUNKS chunks of
 # F32_BK voxels (so its fp32 partial sums stay short), its K split across
@@ -814,11 +816,19 @@ def _f32_fwd_plan(n: int, size, ci: int, co: int, stride: int,
     the finish blocks' slots (``groups`` = ceil(voxels / F32_FIN_VOX))."""
     out = tuple((s - 1) // stride + 1 for s in size)
     tile = int(stride == 1 and co % 64 == 0 and max(out) <= 4)
-    t = F32_FWD_TILES[tile]
+    return dict(_f32_unit_plan(n, out, ci // F32_FWD_KC, co,
+                               F32_FWD_TILES[tile], sms),
+                tile=tile, smem=f32_fwd_smem(tile, stride))
+
+
+def _f32_unit_plan(n: int, out, nch: int, co: int, t: dict,
+                   sms: int) -> dict:
+    """The units of the fp32 brick kernels (the forward and dx): tile ``t``
+    over the ``out`` voxels of n samples and ``co`` output channels, K in
+    ``nch`` chunks, split as :func:`_f32_fwd_plan` says."""
     nb = _bricks(out, t["brick"])
     bricks, ntiles = math.prod(nb), co // t["bn"]
     base = bricks * n * ntiles
-    nch = ci // F32_FWD_KC
     splits, best = 1, None
     for s in range(1, nch + 1):
         if nch % s or (s > 1 and base >= sms):
@@ -830,12 +840,11 @@ def _f32_fwd_plan(n: int, size, ci: int, co: int, stride: int,
     units = base * splits
     vox = math.prod(out)
     groups = -(-vox // F32_FIN_VOX) if splits > 1 else bricks
-    return dict(tile=tile, brick=t["brick"], bn=t["bn"], nb=nb,
+    return dict(brick=t["brick"], bn=t["bn"], nb=nb,
                 bricks=bricks, ntiles=ntiles, splits=splits,
                 cps=nch // splits, units=units, grid=min(units, sms),
                 groups=groups, slots=n * groups * 2 * co,
-                part=splits * n * vox * co if splits > 1 else 0,
-                smem=f32_fwd_smem(tile, stride))
+                part=splits * n * vox * co if splits > 1 else 0)
 
 
 def f32_fwd_unit(plan: dict, n: int, u: int) -> dict:
@@ -854,6 +863,74 @@ def f32_fwd_unit(plan: dict, n: int, u: int) -> dict:
                                        (split + 1) * plan["cps"]))
 
 
+# the fp32 dx (csrc/conv3d_k3_f32_dx.cu): the forward's units transposed,
+# a brick of dx voxels x bn dx channels x a range of the co / F32_FWD_KC
+# cotangent chunks. Tiles: at stride 1 the forward's (0 "big", 1 "small"
+# where ci % 64 == 0 and every dx extent is at most 4); at stride 2 tile 2,
+# an 8^3 dx brick x 16 channels, twice the big tile's voxels for half its
+# channels, so that each staged weight serves twice the rows. A stride-1
+# chunk is 3 steps (one per kd) under one staged halo'd cotangent brick,
+# (b + 2)^3 rows, in one fp32 slot (two under CORR, y's beside it); a
+# stride-2 chunk one step, the (b / 2 + 1)^3 cotangent brick that serves
+# all 8 parity classes and the 27 taps' weights. At stride 2 the 8 MMA warps
+# take the classes of F32_DX_S2_CLASSES: pair p (warps 2p, 2p + 1, the two
+# halves of each class's b / 2 planes q_d) multiplies its first m-tiles by
+# class [p][0]'s taps and the others by class [p][1]'s (a class c = 4 p_d +
+# 2 p_h + p_w)
+F32_DX_SOURCE = "conv3d_k3_f32_dx"
+F32_DX_TILES = {**F32_FWD_TILES, 2: dict(brick=(8, 8, 8), bn=16, wgm=8)}
+F32_DX_S2_CLASSES = ((7, 0), (3, 1), (5, 2), (6, 4))
+
+
+def f32_dx_smem(tile: int, corr: bool) -> int:
+    """The dynamic shared memory (bytes) of an fp32 dx block of ``tile``
+    (2: stride 2's): two fp64 cotangent bricks and weight steps (the MMA
+    warps read one while the producer warps convert the next into the
+    other), the fp32 slots the copies land in (the brick's: one at stride
+    1, three at stride 2, twice that under CORR; the weights' three), a
+    word of inside bits a producer thread and brick slot, and the fp64
+    column sums of the MMA warps along M."""
+    t = F32_DX_TILES[tile]
+    if tile < 2:
+        rows, taps, slots = math.prod(b + 2 for b in t["brick"]), 9, 1
+    else:
+        rows = math.prod(b // 2 + 1 for b in t["brick"])
+        taps, slots = 27, F32_FWD_STAGES
+    kc, bn = F32_FWD_KC, t["bn"]
+    fp64 = 2 * (rows * kc + taps * bn * kc)
+    fp32 = slots * rows * kc * (2 if corr else 1) + (
+        F32_FWD_STAGES * taps * bn * kc)
+    return (fp64 * 8 + fp32 * 4 + slots * F32_FWD_PRODUCERS * 4
+            + t["wgm"] * 2 * bn * 8)
+
+
+def _f32_dx_plan(n: int, size, ci: int, co: int, stride: int, sms: int,
+                 corr: bool = False) -> dict:
+    """The launch of the fp32 dx for a dx of extent ``size``: the forward's
+    plan (:func:`_f32_fwd_plan`) over dx's voxels and its ci channels, K
+    the co / 8 cotangent chunks: ``units`` = splits x ``ntiles`` x n x
+    ``bricks`` dx bricks (:func:`f32_dx_unit` decodes one). Scratch: unsplit
+    with the pre-op backward, ``slots`` fp64 = n x ``groups`` x 2 x ci of
+    [sum du*x; sum du]; split, ``part`` fp64 = splits x n x voxels x ci,
+    the slots then per finish block. ``smem``: :func:`f32_dx_smem` in the
+    launch's mode (``corr``: with the correction)."""
+    tile = 2 if stride == 2 else int(ci % 64 == 0 and max(size) <= 4)
+    return dict(_f32_unit_plan(n, tuple(size), co // F32_FWD_KC, ci,
+                               F32_DX_TILES[tile], sms),
+                tile=tile, smem=f32_dx_smem(tile, corr))
+
+
+def f32_dx_unit(plan: dict, n: int, u: int, stride: int) -> dict:
+    """Unit u of an fp32 dx plan, decoded as :func:`f32_fwd_unit` decodes a
+    forward unit (``origin``: the dx brick's), with ``gy_origin`` the
+    cotangent voxel of its staged brick's first row: origin - 1 at stride
+    1, origin / 2 at stride 2."""
+    t = f32_fwd_unit(plan, n, u)
+    t["gy_origin"] = tuple(o - 1 if stride == 1 else o // 2
+                           for o in t["origin"])
+    return t
+
+
 def _f32_bn(c: int) -> int:
     return 64 if c % 64 == 0 else 32
 
@@ -870,22 +947,19 @@ def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
 def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
                    ntiles: Optional[int] = None,
                    b_kmajor: bool = True) -> dict:
-    """The launch of an fp32 row-tiled kernel (the conv dx, the upsample
-    forward and dx): ``rows`` output rows in each of ``z`` (sample
-    or sample x parity class) groups, ``c`` output channels in ``ntiles``
-    (default c / bn) tiles of ``bn``; m-tiles of ``bm`` rows, ``mtiles`` a
-    group. Block (b, tile, group), b < ``nb``, takes the m-tiles
-    :func:`f32_tile_range` (b, nb, mtiles) and, with statistics, stores its
-    columns' [sum; sumsq] to slot (group, b) of a (z, nb, 2, c) fp32
-    scratch, ``slots`` = z x nb; the slots of a sample are added in order.
-    ``smem``: the block's shared memory, B staged k-major (the upsample
-    forward's weights) or n-major (dx's)."""
+    """The launch of an fp32 row-tiled kernel (the upsample forward and
+    dx): ``rows`` output rows in each of ``z`` groups (samples), ``c``
+    output channels in ``ntiles`` (default c / bn) tiles of ``bn``;
+    m-tiles of ``bm`` rows, ``mtiles`` a group. Block (b, tile, group), b <
+    ``nb``, takes the m-tiles :func:`f32_tile_range` (b, nb, mtiles).
+    ``smem``: the block's shared memory, B staged k-major (the forward's
+    weights) or n-major (dx's)."""
     bn = _f32_bn(c)
     bm = 64 if bn == 64 else 128
     mtiles = -(-rows // bm)
     nt = c // bn if ntiles is None else ntiles
     nb = max(1, min(mtiles, -(-F32_BLOCKS_PER_SM * sms // (z * nt))))
-    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb, slots=z * nb,
+    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb,
                 smem=f32_smem(bm, bn, False, b_kmajor))
 
 
@@ -938,34 +1012,27 @@ def _conv3d_k3_f32(x, w, stride, pre, add_to, emit_stats, slope, sms,
     return y, stats
 
 
-def _dx_classes(size, stride: int) -> Tuple[int, int]:
-    """(rows of the largest group, groups a sample) of the fp32 dx: the dx
-    voxels at stride 1; at stride 2 each of the 8 parity classes (the
-    largest: parity 0 on every axis)."""
-    if stride == 1:
-        return math.prod(size), 1
-    return math.prod((s + 1) // 2 for s in size), 8
-
-
 def _conv3d_k3_dx_f32(gy, w, stride, y, gs, x, pre, size, slope, sms,
                       stream):
     """The fp32 dx kernel on checked operands: (dx, dst or None)."""
     n, co = gy.shape[0], gy.shape[-1]
     ci = w.shape[3]
-    d, h, wd = size
-    dx = torch.empty((n, d, h, wd, ci), dtype=torch.float32, device=gy.device)
-    rows, classes = _dx_classes(size, stride)
-    plan = _f32_rows_plan(rows, ci, n * classes, sms, b_kmajor=False)
-    dst = part = None
+    dev = gy.device
+    _aligned("conv3d_k3_dx", w=w)
+    dx = torch.empty((n, *size, ci), dtype=torch.float32, device=dev)
+    plan = _f32_dx_plan(n, size, ci, co, stride, sms, corr=y is not None)
+    dst = slots = part = None
     if pre is not None:
-        dst = torch.empty((n, 2, ci), dtype=torch.float32, device=gy.device)
-        part = torch.empty(plan["slots"] * 2 * ci, dtype=torch.float32,
-                           device=gy.device)
+        dst = torch.empty((n, 2, ci), dtype=torch.float32, device=dev)
+        slots = torch.empty(plan["slots"], dtype=torch.float64, device=dev)
+    if plan["splits"] > 1:
+        part = torch.empty(plan["part"], dtype=torch.float64, device=dev)
     rc = _f32_fn("dx")(
         gy.data_ptr(), w.data_ptr(), _ptr(y), _ptr(gs),
         _ptr(x if pre is not None else None), _ptr(pre), dx.data_ptr(),
-        _ptr(dst), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
-        plan["nb"], slope, stream)
+        _ptr(dst), _ptr(slots), _ptr(part), n, *size, ci, co, stride,
+        plan["tile"], plan["splits"], plan["grid"], plan["smem"], slope,
+        stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3_dx: fp32 kernel launch failed, CUDA "
                            f"error {rc}")

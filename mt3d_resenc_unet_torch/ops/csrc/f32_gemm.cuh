@@ -1,5 +1,5 @@
 // fp32-accurate GEMM tiles on the tensor cores, shared by the fp32 conv
-// and upsample kernels (conv3d_k3_f32.cu, upsample2x_f32.cu).
+// weight gradient and upsample kernels (conv3d_k3_f32.cu, upsample2x_f32.cu).
 //
 // Products run on the FP64 tensor cores (mma.sync.m16n8k8.f64): an fp32
 // operand converts to fp64 exactly, the fp64 products of two fp32 values
@@ -126,7 +126,6 @@ struct Tile {
                     B_LOADS * THREADS == B_ROWS * B_C4,
                 "every thread stages the same number of float4s");
   static_assert(SMEM_FLOATS * 4 <= 48 * 1024, "static shared memory");
-  static_assert(SMEM_FLOATS >= 4 * BN, "room for the column sums");
   static_assert(THREADS % A_C4 == 0 || A_KMAJOR,
                 "an m-major A row's float4 column is the same in every "
                 "load of a thread");
@@ -193,9 +192,8 @@ struct Tile {
     }
   }
 
-  // f(m, n, ni, v0, v1) for each pair of adjacent columns (n, n + 1) this
-  // thread holds, rounded to fp32: rows m of the tile, ni its MMA column
-  // tile
+  // f(m, n, v0, v1) for each pair of adjacent columns (n, n + 1) this
+  // thread holds, rounded to fp32: rows m of the tile
   template <class F>
   __device__ static void for_pairs(const double (&acc)[MT][NT][4], F&& f) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -206,46 +204,8 @@ struct Tile {
       for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          f(wm * WM + mi * 16 + g + 8 * h, wn * WN + ni * 8 + 2 * t, ni,
+          f(wm * WM + mi * 16 + g + 8 * h, wn * WN + ni * 8 + 2 * t,
             (float)acc[mi][ni][2 * h], (float)acc[mi][ni][2 * h + 1]);
-  }
-
-  // Adds this thread's column sums st[ni][e][j] (column wn * WN + ni * 8 +
-  // 2t + e, sum j) over the tile's rows in a fixed order (the 8 lanes of a
-  // column by butterfly, then the two warps along M) and stores sum j of
-  // column c to out[j * ld + c]. Uses the staging ring as scratch.
-  __device__ static void column_sums(float (&cs)[NT][2][2], float* smem,
-                                     float* out, long long ld) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v = cs[ni][e][j];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          cs[ni][e][j] = v;
-        }
-    __syncthreads();
-    if (g == 0) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            smem[(wm * 2 + j) * BN + wn * WN + ni * 8 + 2 * t + e] =
-                cs[ni][e][j];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * BN; i += THREADS) {
-      const int j = i / BN, c = i % BN;
-      out[j * ld + c] = smem[j * BN + c] + smem[(2 + j) * BN + c];
-    }
   }
 };
 
@@ -275,20 +235,6 @@ __device__ void gemm(const Op& op, float* smem, int s0, int s1,
     if (more) T::store(smem + (cur ^ 1) * T::STAGE, ra, rb);
     __syncthreads();
   }
-}
-
-// The row-tiled kernels' statistics: out[n][j][c] = sum over t < T of
-// part[((n * T + t) * 2 + j) * C + c], in t order.
-__global__ void __launch_bounds__(THREADS)
-    column_sums_finish(const float* __restrict__ part, float* __restrict__ out,
-                       int N, int T, int C) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= N * 2 * C) return;
-  const int n = i / (2 * C), jc = i % (2 * C);
-  const float* p = part + (long long)n * T * 2 * C + jc;
-  float s = 0.f;
-  for (int t = 0; t < T; ++t) s += p[(long long)t * 2 * C];
-  out[i] = s;
 }
 
 // The column-tiled (weight gradient) kernels' splits: out[i] = sum over

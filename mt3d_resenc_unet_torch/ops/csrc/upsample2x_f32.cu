@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int mt = mt0; mt < mt1; ++mt) {
     const UpFwdOp<T> op(a, n, nt, mt * T::BM);
     gemm<T>(op, smem, 0, op.chunks(), acc);
-    T::for_pairs(acc, [&](int m, int c, int, float v0, float v1) {
+    T::for_pairs(acc, [&](int m, int c, float v0, float v1) {
       const int r = op.m0 + m;
       if (r >= op.rows) return;
       const long long o = fine_sample +
@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(THREADS)
     const UpDxOp<T> op(a, n, nt, m0);
     gemm<T>(op, smem, 0, op.chunks(), acc);
     float* out = a.out + ((long long)n * rows + m0) * a.Ci + nt * T::BN;
-    T::for_pairs(acc, [&](int m, int c, int, float v0, float v1) {
+    T::for_pairs(acc, [&](int m, int c, float v0, float v1) {
       if (m0 + m >= rows) return;
       *reinterpret_cast<float2*>(out + (long long)m * a.Ci + c) =
           make_float2(v0, v1);
@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(THREADS)
   const UpDwOp<T> op(a, p, ct, nt);
   gemm<T>(op, smem, s0, s1, acc);
   float* out = a.out + ((long long)sp * 8 + p) * a.Ci * a.Co;
-  T::for_pairs(acc, [&](int m, int c, int, float v0, float v1) {
+  T::for_pairs(acc, [&](int m, int c, float v0, float v1) {
     *reinterpret_cast<float2*>(
         out + (long long)(ct * T::BM + m) * a.Co + nt * T::BN + c) =
         make_float2(v0, v1);

@@ -25,12 +25,16 @@ covers every (split, sample, output voxel, output channel) once and every
 input chunk once per brick and tile, its persistent blocks every unit
 once, in at most the 227 KB of dynamic shared memory a block may have;
 the 4^3 and 8^3 shapes split K and the larger ones do not, and the split
-sums, added in split order, give the conv. dx's and dW's
-(``_f32_rows_plan``, ``_f32_dw_plan``, csrc/conv3d_k3_f32.cu): every dx
-voxel (at stride 2 through its parity class) and every (tap, ci, co,
-output voxel) of dW covered exactly once, no dW split over
-F32_DW_MAX_CHUNKS chunks, and each block's shared memory within 48 KiB
-(static).
+sums, added in split order, give the conv. dx's (``_f32_dx_plan``,
+csrc/conv3d_k3_f32_dx.cu): the forward's units over dx's voxels and
+channels, every (split, sample, dx voxel, dx channel) in one row of one
+unit (at stride 2 through the 8 parity classes of the brick's row
+groups), the staged cotangent brick holding every row a tap reads, its
+shared memory (``f32_dx_smem``) within 227 KB in every mode, and its
+schedule, walked on numbers, giving the plain dx and [sum du*x; sum du].
+dW's (``_f32_dw_plan``, csrc/conv3d_k3_f32.cu): every (tap, ci, co, output
+voxel) covered exactly once, no split over F32_DW_MAX_CHUNKS chunks, and
+each block's shared memory within 48 KiB (static).
 """
 
 import math
@@ -587,13 +591,10 @@ def test_dx_s2_units_cover_every_cotangent_voxel_once(ci, co, size, sms):
 
 # ------------------------------------------------- the fp32 kernels' plans
 #
-# csrc/conv3d_k3_f32_fwd.cu: the forward's units (split, channel tile,
-# sample, output brick), walked by persistent blocks. csrc/conv3d_k3_f32.cu:
-# the dx blocks (b, tile, group) take the m-tiles f32_tile_range(b, nb,
-# mtiles) of their group (a sample, or at stride 2 a sample's parity class,
-# whose own m-tiles are fewer where the class is smaller), the dW blocks
-# (taps group x ci tile, co tile, split) the K chunks f32_tile_range(split,
-# splits, nch).
+# csrc/conv3d_k3_f32_fwd.cu and conv3d_k3_f32_dx.cu: units (split,
+# channel tile, sample, brick), walked by persistent blocks.
+# csrc/conv3d_k3_f32.cu: the dW blocks (taps group x ci tile, co tile,
+# split) take the K chunks f32_tile_range(split, splits, nch).
 
 F32_SIZES = [(128,) * 3, (64,) * 3, (16,) * 3, (8,) * 3, (4,) * 3,
              (9, 10, 11), (5, 6, 7)]
@@ -604,24 +605,7 @@ F32_SHAPES = [(s, ci, co, e) for s, ci, co, e in (
 F32_IDS = [f"s{s}-{ci}-{co}@{'x'.join(map(str, e))}"
            for s, ci, co, e in F32_SHAPES]
 SMEM_LIMIT = 232448          # what a block may use on the H100
-STATIC_SMEM = 48 * 1024      # dx's and dW's shared memory is static
-
-
-def f32_rows_counts(plan, group_rows):
-    """How often each row of each group is computed by each channel tile:
-    {(group, tile): counts}, decoded as the kernel decodes its blocks."""
-    out = {}
-    bm, nb = plan["bm"], plan["nb"]
-    for z, rows in enumerate(group_rows):
-        mtiles = min(plan["mtiles"], -(-rows // bm))
-        for nt in range(plan["ntiles"]):
-            counts = np.zeros(rows, np.int32)
-            for b in range(nb):
-                first, end = c3.f32_tile_range(b, nb, mtiles)
-                for mt in range(first, end):
-                    counts[mt * bm:(mt + 1) * bm] += 1
-            out[(z, nt)] = counts
-    return out
+STATIC_SMEM = 48 * 1024      # dW's shared memory is static
 
 
 @pytest.mark.parametrize("sms", [132, 20])
@@ -751,38 +735,276 @@ def test_f32_forward_split_sums_cover_k_once_in_split_order(stride, ci, co,
     assert float((y_short.double() - want).norm() / want.norm()) > 1e-2
 
 
+def f32_dx_rows(plan, stride):
+    """The row groups of an fp32 dx unit as csrc/conv3d_k3_f32_dx.cu walks
+    them (``row_of``, ``Step``, ``Class``): a list of (brick-local dx
+    voxels (r, 3), staged row each reads at tap offset 0 (r,), [(tap (k_d,
+    k_h, k_w), staged row offset)]). Stride 1: every voxel of the brick,
+    row (m + 2 - k) of the halo'd brick for each of the 27 taps, in the
+    steps' order (d offset SUB, tap 26 - (9 SUB + i)). Stride 2: per warp
+    pair p, m-tile mi and half (the warp's q_d), the 16 voxels 2q + p of
+    class F32_DX_S2_CLASSES[p][mi], row q of the brick from q0, its taps
+    (dx_s2_taps) at offset q + s."""
+    bd, bh, bw = plan["brick"]
+    if stride == 1:
+        sh, sw = bh + 2, bw + 2
+        m = np.array(list(np.ndindex(bd, bh, bw)))
+        row0 = (m[:, 0] * sh + m[:, 1]) * sw + m[:, 2]
+        taps = []
+        for sub in range(3):
+            for i in range(9):
+                t = 26 - (9 * sub + i)
+                taps.append(((t // 9, t // 3 % 3, t % 3),
+                             (sub * sh + i // 3) * sw + i % 3))
+        return [(m, row0, taps)]
+    sh, sw = bh // 2 + 1, bw // 2 + 1
+    out = []
+    for pair in c3.F32_DX_S2_CLASSES:
+        for cls in pair:
+            par = ((cls >> 2) & 1, (cls >> 1) & 1, cls & 1)
+            taps = [(k, (s[0] * sh + s[1]) * sw + s[2])
+                    for k, s in c3.dx_s2_taps(par)]
+            for half in range(bd // 2):
+                q = np.array([(half, r >> 2, r & 3) for r in range(16)])
+                out.append((2 * q + np.array(par),
+                            (q[:, 0] * sh + q[:, 1]) * sw + q[:, 2], taps))
+    return out
+
+
+def f32_dx_staged(stride, plan, sample, gy_origin, g):
+    """The cotangent brick a unit stages from g (n, Do, Ho, Wo, C): its
+    rows (R, C), zero outside the volume."""
+    bd, bh, bw = plan["brick"]
+    ext = ((bd + 2, bh + 2, bw + 2) if stride == 1
+           else (bd // 2 + 1, bh // 2 + 1, bw // 2 + 1))
+    rows = np.zeros(ext + (g.shape[-1],))
+    src = [slice(max(o, 0), min(o + e, s))
+           for o, e, s in zip(gy_origin, ext, g.shape[1:4])]
+    dst = [slice(a.start - o, a.stop - o) for a, o in zip(src, gy_origin)]
+    rows[tuple(dst)] = g[(sample,) + tuple(src)]
+    return rows.reshape(-1, g.shape[-1])
+
+
+def f32_dx_schedule(stride, plan, size, gy, w, y=None, gs=None, x=None,
+                    pre=None, slope=float(np.float32(1e-2))):
+    """The fp32 dx as the kernel computes it under ``plan``, in fp64 on
+    numpy arrays: each unit stages the (corrected) cotangent brick per
+    chunk of 8 channels and multiplies the rows :func:`f32_dx_rows` names
+    by their taps' weights into its split's slice; the slices are added in
+    split order, then POST and its sums [sum du*x; sum du] (the slope an
+    fp32, as the kernel and the plain version take it). Returns (dx,
+    dst or None, chunks summed per (split, sample, dx voxel, dx channel,
+    chunk))."""
+    n, co, ci = gy.shape[0], gy.shape[-1], w.shape[3]
+    g = gy if y is None else gy + gs[:, None, None, None, 0] + (
+        2 * y * gs[:, None, None, None, 1])
+    kc, bn = c3.F32_FWD_KC, plan["bn"]
+    part = np.zeros((plan["splits"], n) + tuple(size) + (ci,))
+    seen = np.zeros((plan["splits"], n) + tuple(size)
+                    + (ci, co // kc), np.int32)
+    groups = f32_dx_rows(plan, stride)
+    for u in range(plan["units"]):
+        t = c3.f32_dx_unit(plan, n, u, stride)
+        c0 = t["tile"] * bn
+        rows = f32_dx_staged(stride, plan, t["sample"], t["gy_origin"], g)
+        for m, row0, taps in groups:
+            vox = m + np.array(t["origin"])
+            inside = (vox < np.array(size)).all(axis=1)
+            acc = np.zeros((len(m), bn))
+            for chunk in range(*t["chunks"]):
+                a = rows[:, chunk * kc:(chunk + 1) * kc]
+                for k, off in taps:
+                    acc += a[row0 + off] @ w[k][c0:c0 + bn,
+                                                chunk * kc:(chunk + 1) * kc].T
+            idx = (t["split"], t["sample"]) + tuple(vox[inside].T)
+            part[idx + (slice(c0, c0 + bn),)] += acc[inside]
+            seen[idx + (slice(c0, c0 + bn),
+                        slice(*t["chunks"]))] += 1
+    dxn = part[0]
+    for p in part[1:]:
+        dxn = dxn + p
+    if pre is None:
+        return dxn, None, seen
+    sc, sf = pre[:, None, None, None, 0], pre[:, None, None, None, 1]
+    du = np.where(x * sc - sf >= 0, dxn, dxn * slope)
+    dst = np.stack([(du * x).sum(axis=(1, 2, 3)), du.sum(axis=(1, 2, 3))], 1)
+    return du * sc, dst, seen
+
+
 @pytest.mark.parametrize("sms", [132, 20])
 @pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
 def test_f32_dx_plan_covers_every_dx_voxel_once(stride, ci, co, size, sms):
-    """dx voxels (and each dx channel tile) computed exactly once: at
-    stride 2 through the 8 parity classes, class voxel q of parity p being
-    dx voxel 2q + p."""
+    """csrc/conv3d_k3_f32_dx.cu's units and rows: every (split, sample, dx
+    voxel, dx channel) belongs to exactly one row of one unit (at stride 2
+    through the 8 parity classes of the brick's row groups, dx voxel 2q +
+    p), the splits' chunk ranges cover the co / 8 chunks once per brick
+    and tile, the persistent blocks' ranges cover the units once, and a
+    block's shared memory is f32_dx_smem's, within the H100's 227 KB."""
     n = 2
-    rows, classes = c3._dx_classes(size, stride)
-    plan = c3._f32_rows_plan(rows, ci, n * classes, sms, b_kmajor=False)
+    plan = c3._f32_dx_plan(n, size, ci, co, stride, sms)
     assert plan["ntiles"] * plan["bn"] == ci
-    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
+    assert (plan["tile"] == 2) == (stride == 2)
+    assert plan["smem"] == c3.f32_dx_smem(plan["tile"], False)
+    assert plan["smem"] <= SMEM_LIMIT
+    nch = co // c3.F32_FWD_KC
+    assert plan["splits"] * plan["cps"] == nch
+    assert plan["units"] == (plan["splits"] * plan["ntiles"] * n
+                             * plan["bricks"])
+    assert 1 <= plan["grid"] <= min(sms, plan["units"])
+    groups = f32_dx_rows(plan, stride)
+    m = np.concatenate([g[0] for g in groups])
+    assert len(m) == math.prod(plan["brick"])
+    assert len({tuple(v) for v in m}) == len(m)      # no voxel twice
+    owned = np.zeros((plan["splits"], n) + tuple(
+        b * e for b, e in zip(plan["nb"], plan["brick"])) + (ci,), np.int32)
+    chunks = np.zeros((n, plan["ntiles"], plan["bricks"], nch), np.int32)
+    for u in range(plan["units"]):
+        t = c3.f32_dx_unit(plan, n, u, stride)
+        c0 = t["tile"] * plan["bn"]
+        vox = m + np.array(t["origin"])
+        owned[(t["split"], t["sample"]) + tuple(vox.T)
+              + (slice(c0, c0 + plan["bn"]),)] += 1
+        chunks[t["sample"], t["tile"], t["brick"],
+               t["chunks"][0]:t["chunks"][1]] += 1
+    assert (owned == 1).all()
+    assert (chunks == 1).all()
+    assert owned.shape[2:5] >= tuple(size)
+    blocks = np.zeros(plan["units"], np.int32)
+    for b in range(plan["grid"]):
+        blocks[b * plan["units"] // plan["grid"]:
+               (b + 1) * plan["units"] // plan["grid"]] += 1
+    assert (blocks == 1).all()
+    vox = math.prod(size)
+    groups_ = (-(-vox // c3.F32_FIN_VOX) if plan["splits"] > 1
+               else plan["bricks"])
+    assert plan["groups"] == groups_ and plan["slots"] == n * groups_ * 2 * ci
+    assert plan["part"] == (plan["splits"] * n * vox * ci
+                            if plan["splits"] > 1 else 0)
+
+
+# the fp32 dx's plan at the flagship's shapes on 132 SMs (the dx of the
+# conv of that shape: dx's extent and ci channels, K its co / 8 chunks):
+# (tile, splits) -- split at 8^3 and 4^3 as the forward, tile 2 at stride 2
+F32_DX_FLAGSHIP = {**F32_FWD_FLAGSHIP, (2, 32, 64, 128): (2, 1),
+                   (2, 64, 128, 64): (2, 1)}
+
+
+@pytest.mark.parametrize("case", list(F32_DX_FLAGSHIP),
+                         ids=[f"s{s}-{ci}-{co}@{e}" for s, ci, co, e in
+                              F32_DX_FLAGSHIP])
+def test_f32_dx_plan_at_the_flagship_shapes(case):
+    """The dx of each flagship conv is tiled and split as F32_DX_FLAGSHIP
+    says: the 8^3 and 4^3 x 512 shapes split K, the small tile at 4^3, the
+    stride-2 tile at stride 2; every SM takes a block."""
+    stride, ci, co, e = case
+    plan = c3._f32_dx_plan(2, (e,) * 3, ci, co, stride, 132)
+    assert (plan["tile"], plan["splits"]) == F32_DX_FLAGSHIP[case]
+    assert plan["grid"] == min(132, plan["units"]) >= 128
+
+
+@pytest.mark.parametrize("corr", [False, True], ids=["plain", "corr"])
+@pytest.mark.parametrize("tile,stride", [(0, 1), (1, 1), (2, 2)])
+def test_f32_dx_smem_fits_in_every_mode(tile, stride, corr):
+    """f32_dx_smem, the planner's and (checked by the C launcher) the
+    kernel's dynamic shared memory, fits the H100's 232,448 bytes with and
+    without CORR's y slots (POST adds none), and is the sum of its parts:
+    the fp64 bricks and weight steps, the fp32 slots, the inside bits and
+    the column sums."""
+    t = c3.F32_DX_TILES[tile]
+    kc, bn = c3.F32_FWD_KC, t["bn"]
     if stride == 1:
-        group_rows = [math.prod(size)] * n
+        rows, taps, slots = math.prod(b + 2 for b in t["brick"]), 9, 1
     else:
-        ext = [[(e - p + 1) // 2 for e, p in zip(size, (c >> 2, (c >> 1) & 1,
-                                                        c & 1))]
-               for c in range(8)]
-        assert max(math.prod(e) for e in ext) == rows
-        group_rows = [math.prod(ext[c]) for _ in range(n) for c in range(8)]
-    counts = f32_rows_counts(plan, group_rows)
-    for nt in range(plan["ntiles"]):
-        for sample in range(n):
-            vox = np.zeros(size, np.int32)
-            for c in range(classes):
-                got = counts[(sample * classes + c, nt)]
-                if stride == 1:
-                    vox += got.reshape(size)
-                    continue
-                par = (c >> 2, (c >> 1) & 1, c & 1)
-                e = [(s - p + 1) // 2 for s, p in zip(size, par)]
-                vox[par[0]::2, par[1]::2, par[2]::2] += got.reshape(e)
-            assert (vox == 1).all()
+        rows, taps, slots = math.prod(b // 2 + 1 for b in t["brick"]), 27, 3
+    parts = (2 * rows * kc * 8 + 2 * taps * bn * kc * 8
+             + slots * rows * kc * 4 * (2 if corr else 1)
+             + 3 * taps * bn * kc * 4 + slots * 128 * 4
+             + t["wgm"] * 2 * bn * 8)
+    smem = c3.f32_dx_smem(tile, corr)
+    assert smem == parts <= SMEM_LIMIT
+    plan = c3._f32_dx_plan(2, (4,) * 3 if tile == 1 else (9, 10, 11),
+                           64 if tile == 1 else 32, 32, stride, 132, corr)
+    assert plan["tile"] == tile and plan["smem"] == smem
+
+
+def test_f32_dx_s2_brick_rows_serve_every_class_tap():
+    """At stride 2 the staged (b/2 + 1)^3 cotangent brick from q0 = origin
+    / 2 holds every row a class's taps read: dx voxel 2q + p of the brick
+    takes tap k from cotangent q0 + q + s, row (q + s), inside the brick;
+    the warp pairs' m-tiles take each class once and each half once, and
+    the pairs' taps are 9, 6, 6, 6 (27 in all)."""
+    plan = c3._f32_dx_plan(2, (9, 10, 11), 32, 32, 2, 132)
+    bd, bh, bw = plan["brick"]
+    ext = (bd // 2 + 1, bh // 2 + 1, bw // 2 + 1)
+    rows = f32_dx_rows(plan, 2)
+    assert len(rows) == 8 * (bd // 2)
+    classes = [c for pair in c3.F32_DX_S2_CLASSES for c in pair]
+    assert sorted(classes) == list(range(8))
+    per_pair = [sum(2 ** bin(c).count("1") for c in pair)
+                for pair in c3.F32_DX_S2_CLASSES]
+    assert per_pair == [9, 6, 6, 6]
+    covered = np.zeros((bd, bh, bw), np.int32)
+    for m, row0, taps in rows:
+        covered[tuple(m.T)] += 1
+        for k, off in taps:
+            for mv, r in zip(m, row0 + off):
+                # dx voxel mv (brick-local, origin 2 q0) reads cotangent
+                # (mv + 1 - k) / 2 relative to q0, at row r of the brick
+                q = (mv + 1 - np.array(k)) // 2
+                assert ((mv + 1 - np.array(k)) % 2 == 0).all()
+                assert (q >= 0).all() and (q < np.array(ext)).all()
+                assert r == (q[0] * ext[1] + q[1]) * ext[2] + q[2]
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post"])
+@pytest.mark.parametrize("stride,ci,co,size,sms", [
+    (1, 32, 16, (5, 9, 11), 4), (1, 32, 16, (5, 9, 11), 132),
+    (1, 64, 24, (3, 4, 2), 132), (2, 32, 16, (7, 9, 11), 4),
+    (2, 32, 16, (7, 9, 11), 132)])
+def test_f32_dx_schedule_on_numbers_gives_the_plain_dx(stride, ci, co,
+                                                        size, sms, mode):
+    """The fp32 dx's units, staged bricks and row groups, walked on fp64
+    numbers (:func:`f32_dx_schedule`), give conv3d_k3_dx_plain's dx and
+    dst in fp64, and with a split, every (dx voxel, channel) sums each
+    chunk once, in its split; one split short is far off."""
+    n = 2
+    rng = np.random.default_rng(3)
+    out = tuple((s - 1) // stride + 1 for s in size)
+    gy = rng.standard_normal((n,) + out + (co,))
+    w = rng.standard_normal((3, 3, 3, ci, co)) * (27 * ci) ** -0.5
+    kw = {}
+    if "corr" in mode:
+        kw.update(y=rng.standard_normal((n,) + out + (co,)),
+                  gs=rng.standard_normal((n, 2, co)) * 0.1)
+    if "post" in mode:
+        kw.update(x=rng.standard_normal((n,) + tuple(size) + (ci,)),
+                  pre=np.stack([rng.random((n, ci)) + 0.5,
+                                rng.standard_normal((n, ci))], 1))
+    plan = c3._f32_dx_plan(n, size, ci, co, stride, sms, "corr" in mode)
+    assert (plan["splits"] > 1) == (sms == 132)
+    dx, dst, seen = f32_dx_schedule(stride, plan, size, gy, w, **kw)
+    want = c3.conv3d_k3_dx_plain(
+        torch.from_numpy(gy), torch.from_numpy(w), stride, size=size,
+        **{k: torch.from_numpy(v) for k, v in kw.items()})
+    if "post" in mode:
+        want, wdst = want
+        np.testing.assert_allclose(dst, wdst.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+    np.testing.assert_allclose(dx, want.numpy(), rtol=1e-10, atol=1e-10)
+    # each (dx voxel, channel) sums each chunk in exactly one split
+    per_chunk = seen.sum(axis=0)
+    assert (per_chunk == 1).all()
+    cps = plan["cps"]
+    for sp in range(plan["splits"]):
+        mine = seen[sp][..., sp * cps:(sp + 1) * cps]
+        assert (mine == 1).all()
+    if plan["splits"] > 1:
+        short = dict(plan, units=plan["units"] // plan["splits"]
+                     * (plan["splits"] - 1))
+        dx_s, _, _ = f32_dx_schedule(stride, short, size, gy, w, **kw)
+        ref = want.numpy()
+        assert np.linalg.norm(dx_s - ref) > 1e-2 * np.linalg.norm(ref)
 
 
 @pytest.mark.parametrize("sms", [132, 20])
@@ -823,10 +1045,8 @@ def test_f32_flagship_plans_fill_the_card():
     for stride, ci, co, size in F32_SHAPES[:5] + F32_SHAPES[7:9]:
         out = tuple((s - 1) // stride + 1 for s in size)
         fwd = c3._f32_fwd_plan(2, size, ci, co, stride, 132)
-        rows, classes = c3._dx_classes(size, stride)
-        dx = c3._f32_rows_plan(rows, ci, 2 * classes, 132, b_kmajor=False)
+        dx = c3._f32_dx_plan(2, size, ci, co, stride, 132)
         dw = c3._f32_dw_plan(2 * math.prod(out), 9 * (ci // 32), co, 132)
         assert dw["tiles"] * dw["splits"] >= 132
         assert fwd["grid"] >= min(128, fwd["units"])
-        assert dx["nb"] * dx["ntiles"] * 2 * classes >= min(
-            132, dx["mtiles"] * dx["ntiles"] * 2 * classes)
+        assert dx["grid"] >= min(128, dx["units"])

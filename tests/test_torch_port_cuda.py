@@ -18,11 +18,12 @@ gradients of each top-level module at cosine >= 0.95 (bf16 rounding between
 ~40 instance norms; 0.984 measured for the encoder in the same comparison
 on the CPU; the full-width step's limits and measurements are in
 chip_smoke.py). The fp32 kernels (FP64 MMA, csrc/conv3d_k3_f32_fwd.cu,
-csrc/conv3d_k3_f32.cu and csrc/upsample2x_f32.cu) against their plain
+csrc/conv3d_k3_f32_dx.cu, csrc/conv3d_k3_f32.cu and csrc/upsample2x_f32.cu)
+against their plain
 versions evaluated in fp64 on the same inputs: relative L2 1e-5 for
 outputs, dx, dW and the pre-op backward's sums, 1e-5 relative for the
-statistics, bit-equal over two runs (the forward also at extents that are
-no multiple of its bricks and at the shapes where it splits K);
+statistics, bit-equal over two runs (the forward and dx also at extents
+that are no multiple of their bricks and at the shapes where they split K);
 an fp32 kernel model's training step launches all nine fp32 kernels and
 its loss is within 1e-5 of the fp32 reference model's. The fp16 kernels
 (the bf16 sources instantiated on __half, csrc/b16.cuh) against their plain
@@ -745,6 +746,91 @@ def test_f32_fwd_launcher_refuses_a_plan_not_its_own(dev):
     assert call(1, 1, 2, 3, part.data_ptr()) != 0      # 3 blocks, 2 units
     assert call(2, 1, 1, 1, None) != 0                 # small tile, stride 2
     assert call(1, 0, 2, 1, None) != 0                 # split, no scratch
+
+
+# the fp32 dx's bricks and splits (csrc/conv3d_k3_f32_dx.cu,
+# conv3d._f32_dx_plan): extents that are no multiple of the brick at both
+# strides, the small tile, and the flagship's split shapes (8^3 and 4^3 x
+# 512), each (stride, ci, co, dx size, split or not on this card)
+_F32_DX_CASES = [(1, 32, 32, (13, 25, 33), False),
+                 (1, 256, 256, (16, 16, 16), False),
+                 (2, 32, 64, (33, 49, 17), False),
+                 (1, 32, 32, (5, 9, 13), True), (1, 64, 64, (7, 3, 10), True),
+                 (2, 32, 64, (9, 17, 5), True), (2, 64, 32, (3, 7, 12), True),
+                 (2, 64, 128, (12, 12, 18), True),
+                 (1, 64, 64, (4, 3, 2), True), (1, 512, 512, (8, 8, 8), True),
+                 (1, 512, 512, (4, 4, 4), True),
+                 (1, 256, 256, (5, 6, 7), True)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "corr", "corr_post"])
+@pytest.mark.parametrize("stride,ci,co,size,split", _F32_DX_CASES)
+def test_f32_dx_bricks_and_splits_match_plain_fp64(dev, stride, ci, co,
+                                                   size, split, mode):
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    g = torch.Generator().manual_seed(2)
+    n = 2
+    out = [(s - 1) // stride + 1 for s in size]
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
+    w = (torch.randn(3, 3, 3, ci, co, generator=g) * (27 * ci) ** -0.5).to(dev)
+    gy, y = (torch.randn(n, *out, co, generator=g).to(dev) for _ in range(2))
+    gs = (torch.randn(n, 2, co, generator=g) * 0.1).to(dev)
+    pre = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                       torch.randn(n, ci, generator=g)], 1).to(dev)
+    kw = _dx_kwargs(mode, x, y, gs, pre)
+    plan = c3._f32_dx_plan(n, size, ci, co, stride, c3._sm_count(x.device),
+                           corr="corr" in mode)
+    assert (plan["splits"] > 1) == split
+    name = f"conv3d_k3_dx_s{stride}_f32"
+    before = _build.LAUNCHES[name]
+    got = conv3d_k3_dx(gy, w, stride, **kw)
+    want = conv3d_k3_dx_plain(gy.double(), w.double(), stride, **_f64(kw))
+    again = conv3d_k3_dx(gy, w, stride, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    got, want, again = ((t if isinstance(t, tuple) else (t,))
+                        for t in (got, want, again))
+    assert got[0].shape == (n, *size, ci)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == torch.float32
+        assert _rel_l2(a, b) <= 1e-5
+        assert torch.equal(a, c)
+
+
+def test_f32_dx_launcher_refuses_a_plan_not_its_own(dev):
+    """The C launcher checks the plan it is handed: a split that does not
+    divide the chunks, more blocks than units, a stride-1 tile at stride 2
+    or stride 2's at stride 1, a split without its scratch, shared memory
+    other than the tile's in the launch's mode."""
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    n, d, ci, co = 1, 4, 64, 32
+    gy = torch.randn(n, d, d, d, co, device=dev)
+    w = torch.randn(3, 3, 3, ci, co, device=dev)
+    y = torch.randn(n, d, d, d, co, device=dev)
+    gs = torch.randn(n, 2, co, device=dev)
+    dx = torch.empty(n, d, d, d, ci, device=dev)
+    part = torch.empty(4 * n * d ** 3 * ci, dtype=torch.float64, device=dev)
+    fn = c3._f32_fn("dx")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(stride, tile, splits, grid, scratch, smem, corr=False):
+        return fn(gy.data_ptr(), w.data_ptr(), y.data_ptr() if corr else None,
+                  gs.data_ptr() if corr else None, None, None, dx.data_ptr(),
+                  None, None, scratch, n, d, d, d, ci, co, stride, tile,
+                  splits, grid, smem, 0.01, stream)
+
+    small = c3.f32_dx_smem(1, False)
+    assert call(1, 1, 2, 2, part.data_ptr(), small) == 0
+    assert call(1, 1, 2, 2, part.data_ptr(), c3.f32_dx_smem(1, True),
+                corr=True) == 0
+    torch.cuda.synchronize()
+    assert call(1, 1, 3, 1, part.data_ptr(), small) != 0   # 3 does not divide 4
+    assert call(1, 1, 2, 3, part.data_ptr(), small) != 0   # 3 blocks, 2 units
+    assert call(2, 1, 1, 1, None, small) != 0              # stride 2's tile is 2
+    assert call(1, 2, 1, 1, None, c3.f32_dx_smem(2, False)) != 0
+    assert call(1, 1, 2, 1, None, small) != 0              # split, no scratch
+    assert call(1, 1, 2, 2, part.data_ptr(), small, corr=True) != 0
+    assert call(1, 0, 1, 1, None, small) != 0              # big tile's smem
 
 
 @pytest.mark.parametrize("mode", _DX_MODES)
