@@ -60,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
      tensors against the plain version on them, F16_TOL, library ms of the
      fp16 cuDNN call; (2f) the same cases through the fp32 kernels
      (``conv3d_k3_*_f32``, ``upsample2x_f32``: FP64 MMA, csrc/
-     conv3d_k3_f32_fwd.cu, conv3d_k3_f32_dx.cu, conv3d_k3_f32.cu and
+     conv3d_k3_f32_fwd.cu, conv3d_k3_f32_dx.cu, conv3d_k3_f32_dw.cu and
      upsample2x_f32.cu), the stride-2 forward
      in every mode (its modes other than stats from a generator of their
      own), on fp32 tensors, held by
@@ -490,7 +490,7 @@ TAIL_KERNELS = tuple(REPLACES)[13:16]
 FORWARD = ("conv3d_k3_s1", "conv3d_k3_s2", "upsample2x")
 # rows 1-9 at compute dtype float32: the same TPU kernels, the fp32 kernels
 # of csrc/conv3d_k3_f32_fwd.cu (rows 1f, 4f), csrc/conv3d_k3_f32_dx.cu
-# (rows 2f, 6f), csrc/conv3d_k3_f32.cu (rows 3f, 5f) and
+# (rows 2f, 6f), csrc/conv3d_k3_f32_dw.cu (rows 3f, 5f) and
 # csrc/upsample2x_f32.cu
 F32_KERNELS = tuple(f"{k}_f32" for k in CONV_KERNELS)
 F32_FORWARD = tuple(f"{k}_f32" for k in FORWARD)
@@ -520,7 +520,7 @@ SOURCES = {
     **{f"{name}_f32": f"{_CS}/upsample2x_f32.cu" if "upsample" in name
        else f"{_CS}/conv3d_k3_f32_fwd.cu" if name in FORWARD
        else f"{_CS}/conv3d_k3_f32_dx.cu" if "_dx_" in name
-       else f"{_CS}/conv3d_k3_f32.cu" for name in CONV_KERNELS},
+       else f"{_CS}/conv3d_k3_f32_dw.cu" for name in CONV_KERNELS},
 }
 SOURCES.update({f"{k}_f16": SOURCES[k]
                 for k in CONV_KERNELS + NORM_KERNELS + TAIL_KERNELS})
@@ -674,10 +674,16 @@ def tensor_core_usage(logs):
                       f"{c3.F32_DX_TILES[t]['bn']}) {c3.f32_dx_smem(t, False)}"
                       f" B, with corr {c3.f32_dx_smem(t, True)} B"
                       for t in c3.F32_DX_TILES))
+    print("  fp32 dW (conv3d_k3_f32_dw): "
+          + ", ".join(f"tile {t} (stride {d['stride']}, {d['brick']} x "
+                      f"{d['co']} co x {d['ci']} ci, {d['stages']} stages) "
+                      f"{c3.f32_dw_smem(t, False)} B, with corr "
+                      f"{c3.f32_dw_smem(t, True)} B"
+                      for t, d in c3.F32_DW_TILES.items()))
     for source in ("conv3d_k3_s1", "conv3d_k3_s2", "conv3d_k3_dx_s1",
                    "conv3d_k3_dx_s2", "conv3d_k3_dw_s1", "conv3d_k3_dw_s2",
-                   "upsample2x", "upsample2x_bwd", "conv3d_k3_f32",
-                   "conv3d_k3_f32_fwd", "conv3d_k3_f32_dx",
+                   "upsample2x", "upsample2x_bwd", "conv3d_k3_f32_fwd",
+                   "conv3d_k3_f32_dx", "conv3d_k3_f32_dw",
                    "upsample2x_f32"):
         entry = None
         for line in logs[source].splitlines():
@@ -916,10 +922,11 @@ def main() -> int:
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
-    # the fp32 forward's and dx's compiled code: their MMAs, shared-memory
-    # loads and fp32 -> fp64 conversions (tools/sass_stats.py)
+    # the fp32 forward's, dx's and dW's compiled code: their MMAs,
+    # shared-memory loads and fp32 -> fp64 conversions (tools/sass_stats.py)
     from mt3d_resenc_unet_torch.tools import sass_stats
-    sass_stats.main(["conv3d_k3_f32_fwd", "conv3d_k3_f32_dx"])
+    sass_stats.main(["conv3d_k3_f32_fwd", "conv3d_k3_f32_dx",
+                     "conv3d_k3_f32_dw"])
     print(card())
     print("packages on this machine: " + ", ".join(
         f"{name} {'imports' if ok else 'missing'}"

@@ -20,12 +20,13 @@ CUDA tensor always goes to the kernel, or the wrapper raises.
 
 At compute dtype float32 the same three wrappers launch the kernels of
 csrc/conv3d_k3_f32_fwd.cu (the forward), csrc/conv3d_k3_f32_dx.cu (dx) and
-csrc/conv3d_k3_f32.cu (dW), which replace the same Pallas kernels as the
+csrc/conv3d_k3_f32_dw.cu (dW), which replace the same Pallas kernels as the
 JAX package runs them in fp32: implicit GEMMs on the FP64 tensor cores at
 fp32 accuracy, with every fusion of the bf16 kernels. The forward and dx
 stage halo'd input (cotangent) bricks once a channel chunk, as the bf16
 kernels do, tiled by :func:`_f32_fwd_plan` and :func:`_f32_dx_plan`; dW
-runs csrc/f32_gemm.cuh's tiles, planned by :func:`_f32_dw_plan`. Their
+stages each output brick's input footprint and cotangent once for all 27
+taps of a channel tile, tiled by :func:`_f32_dw_plan`. Their
 launches count under the bf16 kernel's name with ``_f32`` after it, the
 name of their entry (``conv3d_k3_s1_f32``, ``conv3d_k3_dx_s2_f32``, ...).
 
@@ -182,17 +183,18 @@ def _kernel_dtype(fn: str, t: torch.Tensor) -> torch.dtype:
 def _f32_fn(kind: str):
     """The C launcher ``conv3d_k3_f32_<kind>_launch``, its argument types
     set: the forward's of csrc/conv3d_k3_f32_fwd.cu, dx's of
-    csrc/conv3d_k3_f32_dx.cu, dW's of csrc/conv3d_k3_f32.cu."""
+    csrc/conv3d_k3_f32_dx.cu, dW's of csrc/conv3d_k3_f32_dw.cu."""
     key = f"f32_{kind}"
     fn = _lib_fns.get(key)
     if fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib = _build.load({"fwd": F32_FWD_SOURCE, "dx": F32_DX_SOURCE,
-                           "dw": F32_SOURCE}[kind])
-        fn = getattr(lib, f"{F32_SOURCE}_{kind}_launch")
+                           "dw": F32_DW_SOURCE}[kind])
+        fn = getattr(lib, f"conv3d_k3_f32_{kind}_launch")
         fn.argtypes = {"fwd": [p] * 8 + [i] * 10 + [f, p],
                        "dx": [p] * 10 + [i] * 11 + [f, p],
-                       "dw": [p] * 7 + [i] * 9 + [f, p]}[kind]
+                       "dw": [p] * 7 + [i] * 11
+                       + [ctypes.c_longlong, i, f, p]}[kind]
         fn.restype = i
         _lib_fns[key] = fn
     return fn
@@ -752,20 +754,6 @@ def conv3d_k3_dw(x: torch.Tensor, gy: torch.Tensor, stride: int = 1,
     return dw
 
 
-# the fp32 kernels on csrc/f32_gemm.cuh's tiles (dW in csrc/conv3d_k3_f32.cu,
-# the upsample in csrc/upsample2x_f32.cu): a row-tiled block (the upsample's
-# forward and dx) is 128 x 32 or 64 x 64 (voxels x channels: N = 32 or a
-# multiple of 64) over K chunks of F32_BK; the planner aims at
-# F32_BLOCKS_PER_SM blocks an SM. A dW block is 3 taps x 32 input channels
-# x 32 or 64 output channels and sums at most F32_DW_MAX_CHUNKS chunks of
-# F32_BK voxels (so its fp32 partial sums stay short), its K split across
-# blocks to fill the card
-F32_SOURCE = "conv3d_k3_f32"
-F32_BK = 32
-F32_BLOCKS_PER_SM = 4
-F32_DW_MAX_CHUNKS = 512
-
-
 # the fp32 forward (csrc/conv3d_k3_f32_fwd.cu): a unit is a brick of output
 # voxels x bn output channels x a range of the Ci / F32_FWD_KC channel
 # chunks; tile 0 ("big") everywhere, tile 1 ("small") at stride 1 where every
@@ -931,60 +919,141 @@ def f32_dx_unit(plan: dict, n: int, u: int, stride: int) -> dict:
     return t
 
 
-def _f32_bn(c: int) -> int:
-    return 64 if c % 64 == 0 else 32
+# the fp32 dW (csrc/conv3d_k3_f32_dw.cu): a unit is all 27 taps of a ci x co
+# tile (``ci`` x ``co`` channels of a tile) x a range of the batch's output
+# bricks. One block an SM: 12 MMA warps, one per (kd, m-tile, n-tile) with
+# its 9 (kh, kw) taps, and 4 producer warps; a step is one brick, its input
+# footprint (stride 1 the halo'd (b + 2)^3 brick, stride 2 the (2b + 1)^3
+# footprint by parity class) and cotangent rows (y's under CORR) copied
+# into one of ``stages`` fp32 slots and converted once to one of two fp64
+# buffers (the input's rows along w padded to a multiple of 4). Tiles: 0 at
+# stride 1, 1 at stride 1 where every output extent is at most 4, 2 at
+# stride 2 where co % 64 == 0 (64 co x 8 ci: a staged input element serves
+# twice the MMAs of 32 x 16), 3 at stride 2 otherwise. A split K's finish
+# block takes F32_DW_FIN_THREADS elements of dW; the planner counts a
+# unit's epilogue (its 27 x ci x co sums stored) as F32_DW_EPILOGUE bricks
+F32_DW_SOURCE = "conv3d_k3_f32_dw"
+F32_DW_TILES = {0: dict(stride=1, brick=(2, 4, 8), co=32, ci=16, stages=3),
+                1: dict(stride=1, brick=(4, 4, 4), co=32, ci=16, stages=3),
+                2: dict(stride=2, brick=(2, 2, 8), co=64, ci=8, stages=3),
+                3: dict(stride=2, brick=(2, 2, 8), co=32, ci=16, stages=2)}
+F32_DW_FIN_THREADS = 256
+F32_DW_EPILOGUE = 2
+F32_DW_PRODUCERS = 128
 
 
-def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
-    """The static shared memory (bytes) of a bm x bn f32gemm::Tile: a
-    2-stage ring of the staged A (32 rows of bm + 8 floats k-major, else
-    bm rows of 36) and B (32 rows of bn + 8, else bn rows of 36)."""
-    a = 32 * (bm + 8) if a_kmajor else bm * (F32_BK + 4)
-    b = 32 * (bn + 8) if b_kmajor else bn * (F32_BK + 4)
-    return 2 * (a + b) * 4
+def f32_dw_regions(tile: int) -> list:
+    """The input regions an fp32 dW step stages, as
+    csrc/conv3d_k3_f32_dw.cu lays them out (``Cfg::ext``, ``Cfg::base``):
+    (first fp64 row, extent (e_d, e_h, e_w), padded row length along w,
+    offset o of the input voxel S * (o0 + r) + o of row r along each axis).
+    Stride 1: the halo'd brick; stride 2: the parity classes c = 4 p_d + 2
+    p_h + p_w in order, an odd axis (p = 1) one row longer, from 2 o0 - 1.
+    Rows along w are padded to a multiple of 4 in the fp64 buffers."""
+    t = F32_DW_TILES[tile]
+    out, base = [], 0
+    for c in range(1 if t["stride"] == 1 else 8):
+        if t["stride"] == 1:
+            ext, off = tuple(b + 2 for b in t["brick"]), (-1, -1, -1)
+        else:
+            par = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+            ext = tuple(b + p for b, p in zip(t["brick"], par))
+            off = tuple(-p for p in par)
+        pad = -(-ext[2] // 4) * 4
+        out.append((base, ext, pad, off))
+        base += ext[0] * ext[1] * pad
+    return out
 
 
-def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
-                   ntiles: Optional[int] = None,
-                   b_kmajor: bool = True) -> dict:
-    """The launch of an fp32 row-tiled kernel (the upsample forward and
-    dx): ``rows`` output rows in each of ``z`` groups (samples), ``c``
-    output channels in ``ntiles`` (default c / bn) tiles of ``bn``;
-    m-tiles of ``bm`` rows, ``mtiles`` a group. Block (b, tile, group), b <
-    ``nb``, takes the m-tiles :func:`f32_tile_range` (b, nb, mtiles).
-    ``smem``: the block's shared memory, B staged k-major (the forward's
-    weights) or n-major (dx's)."""
-    bn = _f32_bn(c)
-    bm = 64 if bn == 64 else 128
-    mtiles = -(-rows // bm)
-    nt = c // bn if ntiles is None else ntiles
-    nb = max(1, min(mtiles, -(-F32_BLOCKS_PER_SM * sms // (z * nt))))
-    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb,
-                smem=f32_smem(bm, bn, False, b_kmajor))
+def f32_dw_smem(tile: int, corr: bool) -> int:
+    """The dynamic shared memory (bytes) of an fp32 dW block of ``tile``:
+    two fp64 input bricks (padded rows) and cotangent bricks (the MMA warps
+    read one while the producer warps convert the next into the other),
+    the ``stages`` fp32 slots the copies land in (the input's real rows,
+    the cotangent's, PRE's [scale; shift] and CORR's [gs0; gs1] of the
+    tile's channels), a word of inside bits a producer thread and slot, and
+    under CORR the stages' y slots."""
+    t = F32_DW_TILES[tile]
+    regions = f32_dw_regions(tile)
+    padded = sum(e[0] * e[1] * p for _, e, p, _ in regions)
+    real = sum(math.prod(e) for _, e, _, _ in regions)
+    gf = math.prod(t["brick"]) * t["co"]
+    slot = real * t["ci"] + gf + 2 * (t["ci"] + t["co"])
+    return (2 * (padded * t["ci"] + gf) * 8
+            + t["stages"] * (slot + F32_DW_PRODUCERS) * 4
+            + (t["stages"] * gf * 4 if corr else 0))
 
 
-def f32_tile_range(b: int, nb: int, mtiles: int) -> Tuple[int, int]:
-    """The m-tiles [first, end) that block b of nb takes in the fp32
-    row-tiled kernels."""
-    return b * mtiles // nb, (b + 1) * mtiles // nb
+def _f32_dw_plan(n: int, size, ci: int, co: int, stride: int, sms: int,
+                 corr: bool = False) -> dict:
+    """The launch of the fp32 dW for an input of extent ``size``: ``units``
+    = splits x ``ntiles`` (ci / tile ci x co / tile co) tiles, each unit a
+    tile's 27 taps over one split's range of the batch's ``bricks`` output
+    bricks (``nb`` per axis of a sample; :func:`f32_dw_unit` decodes a
+    unit), walked by ``grid`` persistent blocks, block b taking units [b *
+    units / grid, (b + 1) * units / grid). ``splits`` (at most ``sms``)
+    least the busiest block's walk, counting a unit's epilogue as
+    F32_DW_EPILOGUE bricks (the fewest splits on a tie). Split, each
+    unit stores its fp64 sums to its split's slice of ``part`` = splits x
+    27 x ci x co doubles, added by ``fin_grid`` finish blocks. ``smem``:
+    :func:`f32_dw_smem` in the launch's mode (``corr``)."""
+    out = tuple((s - 1) // stride + 1 for s in size)
+    if stride == 1:
+        tile = int(max(out) <= 4)
+    else:
+        tile = 2 if co % 64 == 0 else 3
+    t = F32_DW_TILES[tile]
+    nb = _bricks(out, t["brick"])
+    bricks = n * math.prod(nb)
+    ntci, ntco = ci // t["ci"], co // t["co"]
+    ntiles = ntci * ntco
+    splits, best = 1, None
+    for s in range(1, min(bricks, sms) + 1):
+        units = ntiles * s
+        walk = -(-units // min(units, sms)) * (-(-bricks // s)
+                                                + F32_DW_EPILOGUE)
+        if best is None or walk < best:
+            splits, best = s, walk
+    units = ntiles * splits
+    length = 27 * ci * co
+    return dict(tile=tile, brick=t["brick"], ci=t["ci"], co=t["co"], nb=nb,
+                bricks=bricks, ntci=ntci, ntco=ntco, ntiles=ntiles,
+                splits=splits, units=units, grid=min(units, sms),
+                part=splits * length if splits > 1 else 0,
+                fin_grid=(-(-length // F32_DW_FIN_THREADS) if splits > 1
+                          else 0),
+                smem=f32_dw_smem(tile, corr))
 
 
-def _f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
-    """The launch of an fp32 weight-gradient kernel: K = ``k_vox`` voxels
-    in ``nch`` chunks of F32_BK, ``mtiles`` x co / bn output tiles, each
-    split into ``splits`` ranges of chunks, split s taking chunks
-    :func:`f32_tile_range` (s, splits, nch), so that tiles x splits fill
-    F32_BLOCKS_PER_SM blocks an SM and no split sums more than
-    F32_DW_MAX_CHUNKS chunks. Each split stores its partial dW to its own
-    slice of a (splits, taps, Ci, Co) scratch (none at one split), added in
-    split order."""
-    bn = _f32_bn(co)
-    tiles = mtiles * (co // bn)
-    nch = -(-k_vox // F32_BK)
-    splits = max(-(-F32_BLOCKS_PER_SM * sms // tiles),
-                 -(-nch // F32_DW_MAX_CHUNKS))
-    return dict(bn=bn, tiles=tiles, nch=nch, splits=max(1, min(splits, nch)),
-                smem=f32_smem(96, bn, True, True))
+def f32_dw_unit(plan: dict, u: int) -> dict:
+    """Unit u of an fp32 dW plan, as the kernel decodes it: u = (split *
+    ntco + co tile) * ntci + ci tile, its first ci and co channels and its
+    bricks [split * bricks / splits, (split + 1) * bricks / splits) of the
+    batch's (brick b: sample b // per-sample bricks, then (bd * nbh + bh) *
+    nbw + bw)."""
+    tile, split = u % plan["ntiles"], u // plan["ntiles"]
+    b, s = plan["bricks"], plan["splits"]
+    return dict(split=split, ci0=tile % plan["ntci"] * plan["ci"],
+                co0=tile // plan["ntci"] * plan["co"],
+                bricks=(split * b // s, (split + 1) * b // s))
+
+
+def f32_dw_swz(rw: int, row: int, pos: int) -> int:
+    """Where csrc/conv3d_k3_f32_dw.cu's ``swz`` keeps logical double
+    ``pos`` of staged fp64 row ``row`` in a buffer of ``rw``-double rows:
+    its 16-byte pair XORed with a mask of the row's low bits."""
+    m = {8: ((row >> 1) & 1) << 1, 16: (row & 3) << 1,
+         32: (row & 1) | ((row & 2) << 1), 64: row & 3}[rw]
+    return row * rw + (pos ^ (m << 1))
+
+
+def f32_dw_brick(plan: dict, b: int) -> Tuple[int, tuple]:
+    """Brick b of the batch's in an fp32 dW plan: (sample, output origin)."""
+    per = math.prod(plan["nb"])
+    _, nbh, nbw = plan["nb"]
+    r = b % per
+    idx = (r // (nbh * nbw), r // nbw % nbh, r % nbw)
+    return b // per, tuple(i * e for i, e in zip(idx, plan["brick"]))
 
 
 def _conv3d_k3_f32(x, w, stride, pre, add_to, emit_stats, slope, sms,
@@ -1040,18 +1109,22 @@ def _conv3d_k3_dx_f32(gy, w, stride, y, gs, x, pre, size, slope, sms,
 
 
 def _conv3d_k3_dw_f32(x, gy, stride, pre, y, gs, slope, sms, stream):
-    """The fp32 dW kernel on checked operands."""
+    """The fp32 dW kernel on checked operands. Its producers copy PRE's
+    [scale; shift] and CORR's gs in 16-byte pieces: a view that starts
+    elsewhere is copied to a fresh (aligned) tensor first."""
     n, d, h, wd, ci = x.shape
     co = gy.shape[-1]
-    k_vox = n * math.prod(gy.shape[1:4])
-    plan = _f32_dw_plan(k_vox, 9 * (ci // 32), co, sms)
+    pre, gs = (t.clone() if t is not None and t.data_ptr() % 16 else t
+               for t in (pre, gs))
+    plan = _f32_dw_plan(n, (d, h, wd), ci, co, stride, sms, y is not None)
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
-    part = (torch.empty((plan["splits"], 27, ci, co), dtype=torch.float32,
-                        device=x.device) if plan["splits"] > 1 else None)
+    part = (torch.empty(plan["part"], dtype=torch.float64, device=x.device)
+            if plan["splits"] > 1 else None)
     rc = _f32_fn("dw")(
         x.data_ptr(), gy.data_ptr(), _ptr(pre), _ptr(y), _ptr(gs),
-        dw.data_ptr(), _ptr(part), n, d, h, wd, ci, co, stride, plan["bn"],
-        plan["splits"], slope, stream)
+        dw.data_ptr(), _ptr(part), n, d, h, wd, ci, co, stride, plan["tile"],
+        plan["splits"], plan["grid"], plan["smem"], plan["part"],
+        plan["fin_grid"], slope, stream)
     if rc != 0:
         raise RuntimeError(f"conv3d_k3_dw: fp32 kernel launch failed, CUDA "
                            f"error {rc}")

@@ -2,7 +2,7 @@
 // stride 1 or 2, on the FP64 tensor cores at fp32 accuracy, for Hopper
 // (sm_90a). Plain C interface, bound with ctypes (ops/conv3d.py
 // conv3d_k3_dx on fp32 tensors). The forward is conv3d_k3_f32_fwd.cu, dW
-// conv3d_k3_f32.cu's.
+// conv3d_k3_f32_dw.cu.
 //
 // Replaces, at compute dtype float32, the TPU's Pallas kernels
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel in its corr/post
@@ -27,11 +27,11 @@
 //
 // What bounds it on the H100: the FP64 tensor cores, 67 TFLOP/s (stride 1
 // at 128^3 x 32 -> 32, N = 2: 232 GFLOP, 3.46 ms; stride 2 at 128^3 x 32
-// from 64^3 x 64: 58 GFLOP, 0.87 ms). conv3d_k3_f32.cu's first dx gathered
-// the cotangent voxel p + 1 - k from L2 for every tap (27 times an element
-// at stride 1), applied the correction at each of those reads, staged
-// through registers into a 2-stage ring, and converted each operand to
-// fp64 at every fragment read.
+// from 64^3 x 64: 58 GFLOP, 0.87 ms). The first fp32 dx, on f32_gemm.cuh's
+// tiles, gathered the cotangent voxel p + 1 - k from L2 for every tap (27
+// times an element at stride 1), applied the correction at each of those
+// reads, staged through registers into a 2-stage ring, and converted each
+// operand to fp64 at every fragment read.
 //
 // Design (conv3d_k3_f32_fwd.cu's, transposed):
 //   Units. A unit is a brick of BD x BH x BW dx voxels of one sample x BN

@@ -1,7 +1,7 @@
 // 3x3x3 pad-1 convolution forward on NDHWC fp32, stride 1 or 2, on the FP64
 // tensor cores at fp32 accuracy, for Hopper (sm_90a). Plain C interface,
 // bound with ctypes (ops/conv3d.py conv3d_k3 on fp32 tensors). Its backward
-// (dx, dW) is conv3d_k3_f32.cu's.
+// is conv3d_k3_f32_dx.cu (dx) and conv3d_k3_f32_dw.cu (dW).
 //
 // Replaces, at compute dtype float32, the TPU's Pallas kernels
 //   mt3d_resenc_unet_tpu/ops/pallas_conv.py::_conv_kernel (stride 1, via
@@ -27,9 +27,9 @@
 // At that rate the SM takes one m16n8k8 (1,024 FMAs) every 8 cycles and
 // reads 128 bytes of shared memory a cycle, so each fragment byte has to
 // serve several MMAs from registers, and L2 can feed ~16 bytes per MMA.
-// conv3d_k3_f32.cu's first forward gathered every input voxel from L2 once
-// per tap (27x), staged through registers into a 2-stage ring, and
-// converted each operand to fp64 at every fragment read.
+// The first fp32 forward, on f32_gemm.cuh's tiles, gathered every input
+// voxel from L2 once per tap (27x), staged through registers into a
+// 2-stage ring, and converted each operand to fp64 at every fragment read.
 //
 // Design (the bf16 kernel conv3d_k3_s1.cu's, with operands in fp64, and
 // the copies and conversions on warps of their own):

@@ -1,5 +1,5 @@
-// fp32-accurate GEMM tiles on the tensor cores, shared by the fp32 conv
-// weight gradient and upsample kernels (conv3d_k3_f32.cu, upsample2x_f32.cu).
+// fp32-accurate GEMM tiles on the tensor cores, for the fp32 upsample
+// kernels (upsample2x_f32.cu).
 //
 // Products run on the FP64 tensor cores (mma.sync.m16n8k8.f64): an fp32
 // operand converts to fp64 exactly, the fp64 products of two fp32 values

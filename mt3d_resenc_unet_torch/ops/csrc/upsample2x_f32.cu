@@ -27,8 +27,8 @@
 //     voxel 2q + p.
 //   dx: M = one sample's coarse voxels, N = Ci, K = 8 parities x Co; a
 //     chunk's A rows are gy at 2q + p of its parity.
-//   Both walk their m-tiles as conv3d_k3_f32.cu's forward does (block (b,
-//     nt, n) over tiles [b * mtiles / nb, (b + 1) * mtiles / nb)).
+//   Both walk their m-tiles by block (b, nt, n) over tiles [b * mtiles /
+//     nb, (b + 1) * mtiles / nb).
 //   dW: M = Ci tile, N = Co tile, K = all coarse voxels of the batch in
 //     chunks of 32, one parity a block, split across blocks; each split
 //     stores its (8, Ci, Co) partial to its own slice and split_sums_finish

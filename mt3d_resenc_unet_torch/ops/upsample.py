@@ -37,12 +37,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .conv3d import (_f32_bn, _f32_dw_plan, _f32_rows_plan, _ptr,
-                     _sm_count, _wide, f32_smem)
+from .conv3d import _ptr, _sm_count, _wide
 
 _KERNEL = "upsample2x"
 _lib_fns = {}
@@ -247,18 +247,85 @@ def _f32_fn(kind: str):
     return fn
 
 
+# the fp32 upsample's tiles (csrc/upsample2x_f32.cu on csrc/f32_gemm.cuh): a
+# row-tiled block (its forward and dx) is 128 x 32 or 64 x 64 (voxels x
+# channels: N = 32 or a multiple of 64) over K chunks of F32_BK; the planner
+# aims at F32_BLOCKS_PER_SM blocks an SM. Its dW block sums at most
+# F32_DW_MAX_CHUNKS chunks of F32_BK voxels (so its fp32 partial sums stay
+# short), its K split across blocks to fill the card (_up_f32_dw_plan)
+F32_BK = 32
+F32_BLOCKS_PER_SM = 4
+F32_DW_MAX_CHUNKS = 512
+
+
+def _f32_bn(c: int) -> int:
+    return 64 if c % 64 == 0 else 32
+
+
+def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
+    """The static shared memory (bytes) of a bm x bn f32gemm::Tile: a
+    2-stage ring of the staged A (32 rows of bm + 8 floats k-major, else
+    bm rows of 36) and B (32 rows of bn + 8, else bn rows of 36)."""
+    a = 32 * (bm + 8) if a_kmajor else bm * (F32_BK + 4)
+    b = 32 * (bn + 8) if b_kmajor else bn * (F32_BK + 4)
+    return 2 * (a + b) * 4
+
+
+def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
+                   ntiles: Optional[int] = None,
+                   b_kmajor: bool = True) -> dict:
+    """The launch of an fp32 row-tiled kernel (the upsample forward and
+    dx): ``rows`` output rows in each of ``z`` groups (samples), ``c``
+    output channels in ``ntiles`` (default c / bn) tiles of ``bn``;
+    m-tiles of ``bm`` rows, ``mtiles`` a group. Block (b, tile, group), b <
+    ``nb``, takes the m-tiles :func:`f32_tile_range` (b, nb, mtiles).
+    ``smem``: the block's shared memory, B staged k-major (the forward's
+    weights) or n-major (dx's)."""
+    bn = _f32_bn(c)
+    bm = 64 if bn == 64 else 128
+    mtiles = -(-rows // bm)
+    nt = c // bn if ntiles is None else ntiles
+    nb = max(1, min(mtiles, -(-F32_BLOCKS_PER_SM * sms // (z * nt))))
+    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb,
+                smem=f32_smem(bm, bn, False, b_kmajor))
+
+
+def f32_tile_range(b: int, nb: int, mtiles: int) -> Tuple[int, int]:
+    """The m-tiles [first, end) that block b of nb takes in the fp32
+    row-tiled kernels."""
+    return b * mtiles // nb, (b + 1) * mtiles // nb
+
+
+def _up_f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
+    """The launch of the fp32 upsample's weight gradient: K = ``k_vox``
+    voxels in ``nch`` chunks of F32_BK, ``mtiles`` x co / bn output tiles,
+    each split into ``splits`` ranges of chunks, split s taking chunks
+    :func:`f32_tile_range` (s, splits, nch), so that tiles x splits fill
+    F32_BLOCKS_PER_SM blocks an SM and no split sums more than
+    F32_DW_MAX_CHUNKS chunks. Each split stores its partial dW to its own
+    slice of a (splits, taps, Ci, Co) scratch (none at one split), added in
+    split order."""
+    bn = _f32_bn(co)
+    tiles = mtiles * (co // bn)
+    nch = -(-k_vox // F32_BK)
+    splits = max(-(-F32_BLOCKS_PER_SM * sms // tiles),
+                 -(-nch // F32_DW_MAX_CHUNKS))
+    return dict(bn=bn, tiles=tiles, nch=nch, splits=max(1, min(splits, nch)),
+                smem=f32_smem(96, bn, True, True))
+
+
 def _up_f32_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     """The launches of the fp32 upsample kernels at x (n, *size, ci) -> co:
-    the forward and dx row-tiled as ``conv3d._f32_rows_plan`` says (rows =
+    the forward and dx row-tiled as :func:`_f32_rows_plan` says (rows =
     a sample's coarse voxels; the forward's N = 8 parities x co, a channel
-    tile inside one parity), dW as ``conv3d._f32_dw_plan`` over the
+    tile inside one parity), dW as :func:`_up_f32_dw_plan` over the
     batch's coarse voxels with ``bm`` (64 or 32) input channels a tile and
     one parity, its scratch (splits, 8, ci, co)."""
     rows = math.prod(size)
     fwd = _f32_rows_plan(rows, co, n, sms, 8 * co // _f32_bn(co))
     dx = _f32_rows_plan(rows, ci, n, sms, b_kmajor=False)
     bm = 64 if ci % 64 == 0 else 32
-    dw = _f32_dw_plan(n * rows, 8 * (ci // bm), co, sms)
+    dw = _up_f32_dw_plan(n * rows, 8 * (ci // bm), co, sms)
     dw.update(bm=bm, smem=f32_smem(bm, dw["bn"], True, True))
     return dict(fwd=fwd, dx=dx, dw=dw)
 

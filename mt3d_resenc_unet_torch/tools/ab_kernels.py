@@ -17,8 +17,9 @@ shapes in the training step's modes): rows 1-3 of PERF.md's kernel table
 (the stride-1 forward with stats, pre-op + stats and add-in + stats at
 128^3 x 32 and 64^3 x 64, and at the split shapes 16^3 x 256, 8^3 x 512
 and 4^3 x 512; dx with the correction and with the pre-op backward at every
-flagship shape, the split ones included; dW with the correction and with
-the pre-op), rows 4-6 (the stride-2 forward with stats and with the
+flagship shape, the split ones included; dW in every mode at 128^3 x 32
+and 64^3 x 64, with the correction and with it and the pre-op at the
+others), rows 4-6 (the stride-2 forward with stats and with the
 pre-op, dW and dx with the correction) and rows 7-9 (the upsample's
 forward, dx and dW at 128->64 from 32^3 and 64->32 from 64^3). ``--only``
 keeps the cases whose first field is one of WHAT (fwd, dx, dw, up, up_dx,
@@ -54,8 +55,13 @@ CASES = [("fwd", 1, 32, 32, 128, "stats"), ("fwd", 1, 32, 32, 128, "pre_stats"),
          ("dx", 1, 256, 256, 16, "corr_post"),
          ("dx", 1, 512, 512, 8, "corr"), ("dx", 1, 512, 512, 8, "corr_post"),
          ("dx", 1, 512, 512, 4, "corr"), ("dx", 1, 512, 512, 4, "corr_post"),
+         ("dw", 1, 32, 32, 128, "plain"), ("dw", 1, 32, 32, 128, "pre"),
          ("dw", 1, 32, 32, 128, "corr"), ("dw", 1, 32, 32, 128, "pre_corr"),
-         ("dw", 1, 64, 64, 64, "pre_corr"), ("dw", 1, 512, 512, 8, "corr"),
+         ("dw", 1, 64, 64, 64, "plain"), ("dw", 1, 64, 64, 64, "pre"),
+         ("dw", 1, 64, 64, 64, "corr"), ("dw", 1, 64, 64, 64, "pre_corr"),
+         ("dw", 1, 256, 256, 16, "corr"), ("dw", 1, 256, 256, 16, "pre_corr"),
+         ("dw", 1, 512, 512, 8, "corr"), ("dw", 1, 512, 512, 8, "pre_corr"),
+         ("dw", 1, 512, 512, 4, "corr"), ("dw", 1, 512, 512, 4, "pre_corr"),
          ("fwd", 2, 32, 64, 128, "stats"), ("fwd", 2, 64, 128, 64, "stats"),
          ("fwd", 2, 32, 64, 128, "pre_stats"),
          ("dw", 2, 32, 64, 128, "corr"), ("dw", 2, 64, 128, 64, "corr"),

@@ -32,11 +32,15 @@ unit (at stride 2 through the 8 parity classes of the brick's row
 groups), the staged cotangent brick holding every row a tap reads, its
 shared memory (``f32_dx_smem``) within 227 KB in every mode, and its
 schedule, walked on numbers, giving the plain dx and [sum du*x; sum du].
-dW's (``_f32_dw_plan``, csrc/conv3d_k3_f32.cu): every (tap, ci, co, output
-voxel) covered exactly once, no split over F32_DW_MAX_CHUNKS chunks, and
-each block's shared memory within 48 KiB (static).
+dW's (``_f32_dw_plan``, csrc/conv3d_k3_f32_dw.cu): every (split, tap, ci,
+co) in one unit, the splits' brick ranges covering every output voxel once
+in split order, its shared memory (``f32_dw_smem``) within 227 KB in every
+mode, its fragment loads and conversion stores on distinct banks
+(``f32_dw_swz``), and its schedule, walked on numbers, giving the plain
+dW.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -593,8 +597,8 @@ def test_dx_s2_units_cover_every_cotangent_voxel_once(ci, co, size, sms):
 #
 # csrc/conv3d_k3_f32_fwd.cu and conv3d_k3_f32_dx.cu: units (split,
 # channel tile, sample, brick), walked by persistent blocks.
-# csrc/conv3d_k3_f32.cu: the dW blocks (taps group x ci tile, co tile,
-# split) take the K chunks f32_tile_range(split, splits, nch).
+# csrc/conv3d_k3_f32_dw.cu: units (split, co tile, ci tile) over the
+# batch's output bricks of their split, walked by persistent blocks.
 
 F32_SIZES = [(128,) * 3, (64,) * 3, (16,) * 3, (8,) * 3, (4,) * 3,
              (9, 10, 11), (5, 6, 7)]
@@ -605,7 +609,6 @@ F32_SHAPES = [(s, ci, co, e) for s, ci, co, e in (
 F32_IDS = [f"s{s}-{ci}-{co}@{'x'.join(map(str, e))}"
            for s, ci, co, e in F32_SHAPES]
 SMEM_LIMIT = 232448          # what a block may use on the H100
-STATIC_SMEM = 48 * 1024      # dW's shared memory is static
 
 
 @pytest.mark.parametrize("sms", [132, 20])
@@ -1007,46 +1010,282 @@ def test_f32_dx_schedule_on_numbers_gives_the_plain_dx(stride, ci, co,
         assert np.linalg.norm(dx_s - ref) > 1e-2 * np.linalg.norm(ref)
 
 
+def f32_dw_tap_rows(plan):
+    """{tap (kd, kh, kw): the staged fp64 input row each brick voxel (in K
+    order, w fastest) reads}, as warp (kd, ., .) computes it
+    (``tap_row0``, ``mma_step``): row0 + (od * SH + oh) * SW + ow in the
+    tap's region (conv3d.f32_dw_regions: SW its padded row length), stride
+    1 the halo'd brick at offset (kd, kh, kw), stride 2 class (kd != 1, kh
+    != 1, kw != 1) at offset (kd == 2, kh == 2, kw == 2)."""
+    regions = c3.f32_dw_regions(plan["tile"])
+    m = np.array(list(np.ndindex(*plan["brick"])))
+    rows = {}
+    for kd, kh, kw in np.ndindex(3, 3, 3):
+        if len(regions) == 1:
+            base, ext, sw, _ = regions[0]
+            k = (kd, kh, kw)
+        else:
+            base, ext, sw, _ = regions[4 * (kd != 1) + 2 * (kh != 1)
+                                       + (kw != 1)]
+            k = (int(kd == 2), int(kh == 2), int(kw == 2))
+        row0 = base + (k[0] * ext[1] + k[1]) * sw + k[2]
+        rows[(kd, kh, kw)] = row0 + (m[:, 0] * ext[1] + m[:, 1]) * sw + m[:, 2]
+    return rows
+
+
+def f32_dw_staged(plan, stride, sample, origin, xin, g, c):
+    """A step's staged rows: the input footprint (each region's real rows
+    at their padded positions, channels ``c`` of xin; the padding rows
+    NaN, as no tap may read them) and the cotangent brick (the tile's
+    channels of g), zero outside the volumes."""
+    (ci0, cis), (co0, cos) = c
+    regions = c3.f32_dw_regions(plan["tile"])
+    base, ext, sw, _ = regions[-1]
+    xs = np.full((base + ext[0] * ext[1] * sw, cis), np.nan)
+    for base, ext, sw, off in regions:
+        r = np.array(list(np.ndindex(*ext)))
+        vox = stride * (np.array(origin) + r) + np.array(off)
+        inside = ((vox >= 0) & (vox < np.array(xin.shape[1:4]))).all(axis=1)
+        rows = base + (r[:, 0] * ext[1] + r[:, 1]) * sw + r[:, 2]
+        xs[rows] = 0.0
+        xs[rows[inside]] = xin[(sample,) + tuple(vox[inside].T)][
+            :, ci0:ci0 + cis]
+    m = np.array(list(np.ndindex(*plan["brick"]))) + np.array(origin)
+    inside = (m < np.array(g.shape[1:4])).all(axis=1)
+    gs_ = np.zeros((len(m), cos))
+    gs_[inside] = g[(sample,) + tuple(m[inside].T)][:, co0:co0 + cos]
+    return xs, gs_
+
+
+def f32_dw_schedule(stride, plan, x, gy, pre=None, y=None, gs=None,
+                    slope=float(np.float32(1e-2))):
+    """The fp32 dW as the kernel computes it under ``plan``, in fp64 on
+    numpy arrays: each unit stages each brick of its split (the
+    (pre-op'd) input footprint and (corrected) cotangent, zero outside)
+    and adds every tap's rows times the cotangent brick into its split's
+    slice; the slices are added in split order. Returns (dW, bricks summed
+    per (split, tile, brick))."""
+    ci, co = x.shape[-1], gy.shape[-1]
+    xin = x
+    if pre is not None:
+        u = x * pre[:, None, None, None, 0] - pre[:, None, None, None, 1]
+        xin = np.where(u >= 0, u, u * slope)
+    g = gy if y is None else gy + gs[:, None, None, None, 0] + (
+        2 * y * gs[:, None, None, None, 1])
+    part = np.zeros((plan["splits"], 27, ci, co))
+    seen = np.zeros((plan["splits"], plan["ntiles"], plan["bricks"]),
+                    np.int32)
+    rows = f32_dw_tap_rows(plan)
+    for u in range(plan["units"]):
+        t = c3.f32_dw_unit(plan, u)
+        c = ((t["ci0"], plan["ci"]), (t["co0"], plan["co"]))
+        cis, cos = (slice(a, a + b) for a, b in c)
+        for b in range(*t["bricks"]):
+            sample, origin = c3.f32_dw_brick(plan, b)
+            xs, gb = f32_dw_staged(plan, stride, sample, origin, xin, g, c)
+            for (kd, kh, kw), r in rows.items():
+                part[t["split"], (kd * 3 + kh) * 3 + kw, cis, cos] += (
+                    xs[r].T @ gb)
+            seen[t["split"], u % plan["ntiles"], b] += 1
+    dw = part[0]
+    for p in part[1:]:
+        dw = dw + p
+    return dw.reshape(3, 3, 3, ci, co), seen
+
+
 @pytest.mark.parametrize("sms", [132, 20])
 @pytest.mark.parametrize("stride,ci,co,size", F32_SHAPES, ids=F32_IDS)
 def test_f32_dw_plan_sums_every_voxel_into_every_tap_once(stride, ci, co,
                                                           size, sms):
-    """Every (tap, ci, co) of dW belongs to one block column (3 taps x 32
-    ci x bn co), whose splits cover the K chunks of all output voxels
-    exactly once, no split more than F32_DW_MAX_CHUNKS of them."""
+    """csrc/conv3d_k3_f32_dw.cu's units (conv3d.f32_dw_unit): every (split,
+    tap, ci, co) belongs to exactly one unit (its tile's 27 taps, warp w =
+    (kh, kw) holding taps 9 kd + w), the splits' brick ranges, in split
+    order, cover the batch's bricks once, the bricks cover every output
+    voxel once, the persistent blocks' ranges cover the units once, and a
+    block's shared memory is f32_dw_smem's, within the H100's 227 KB."""
     n = 2
     out = tuple((s - 1) // stride + 1 for s in size)
-    k_vox = n * math.prod(out)
-    plan = c3._f32_dw_plan(k_vox, 9 * (ci // 32), co, sms)
-    assert plan["smem"] <= min(SMEM_LIMIT, STATIC_SMEM)
-    bn, splits, nch = plan["bn"], plan["splits"], plan["nch"]
-    assert (nch - 1) * c3.F32_BK < k_vox <= nch * c3.F32_BK
-    assert 1 <= splits <= nch
-    owner = np.zeros((27, ci, co), np.int32)
-    for mx in range(9 * (ci // 32)):
-        tg, ct = divmod(mx, ci // 32)
-        for nt in range(co // bn):
-            for kw in range(3):
-                owner[tg * 3 + kw, ct * 32:(ct + 1) * 32,
-                      nt * bn:(nt + 1) * bn] += 1
+    plan = c3._f32_dw_plan(n, size, ci, co, stride, sms)
+    assert plan["smem"] == c3.f32_dw_smem(plan["tile"], False) <= SMEM_LIMIT
+    assert c3.F32_DW_TILES[plan["tile"]]["stride"] == stride
+    assert plan["ntci"] * plan["ci"] == ci and plan["ntco"] * plan["co"] == co
+    assert plan["units"] == plan["splits"] * plan["ntiles"]
+    assert 1 <= plan["splits"] <= min(sms, plan["bricks"])
+    assert 1 <= plan["grid"] == min(sms, plan["units"])
+    assert sorted(9 * kd + w for kd in range(3) for w in range(9)) == list(
+        range(27))
+    owner = np.zeros((plan["splits"], ci, co), np.int32)
+    ranges = [[] for _ in range(plan["ntiles"])]
+    for u in range(plan["units"]):
+        t = c3.f32_dw_unit(plan, u)
+        owner[t["split"], t["ci0"]:t["ci0"] + plan["ci"],
+              t["co0"]:t["co0"] + plan["co"]] += 1
+        ranges[u % plan["ntiles"]].append(t["bricks"])
     assert (owner == 1).all()
-    assert plan["tiles"] == 9 * (ci // 32) * (co // bn)
-    chunks = np.zeros(nch, np.int32)
-    for sp in range(splits):
-        first, end = c3.f32_tile_range(sp, splits, nch)
-        assert end - first <= c3.F32_DW_MAX_CHUNKS
-        chunks[first:end] += 1
-    assert (chunks == 1).all()
+    for r in ranges:          # split order, each brick once
+        assert r[0][0] == 0 and r[-1][1] == plan["bricks"]
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(r, r[1:]))
+    per = math.prod(plan["nb"])
+    assert plan["bricks"] == n * per
+    b = np.arange(plan["bricks"])
+    _, nbh, nbw = plan["nb"]
+    idx = np.stack([b % per // (nbh * nbw), b % per // nbw % nbh,
+                    b % per % nbw], 1) * np.array(plan["brick"])
+    covered = np.zeros((n,) + tuple(e * k for e, k in zip(plan["nb"],
+                                                        plan["brick"])),
+                       np.int32)
+    for m in np.ndindex(*plan["brick"]):
+        v = idx + np.array(m)
+        np.add.at(covered, (b // per, v[:, 0], v[:, 1], v[:, 2]), 1)
+    assert (covered == 1).all() and covered.shape[1:] >= out
+    # brick b decodes as f32_dw_brick says
+    for k in (0, plan["bricks"] - 1):
+        assert c3.f32_dw_brick(plan, k) == (k // per, tuple(idx[k]))
+    blocks = np.zeros(plan["units"], np.int32)
+    for blk in range(plan["grid"]):
+        blocks[blk * plan["units"] // plan["grid"]:
+               (blk + 1) * plan["units"] // plan["grid"]] += 1
+    assert (blocks == 1).all()
+    length = 27 * ci * co
+    assert plan["part"] == (plan["splits"] * length if plan["splits"] > 1
+                            else 0)
+    assert plan["fin_grid"] == (-(-length // c3.F32_DW_FIN_THREADS)
+                                if plan["splits"] > 1 else 0)
+
+
+@pytest.mark.parametrize("corr", [False, True], ids=["plain", "corr"])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+def test_f32_dw_smem_fits_in_every_mode(tile, corr):
+    """f32_dw_smem, the planner's and (checked by the C launcher) the
+    kernel's dynamic shared memory, fits the H100's 232,448 bytes with and
+    without CORR's y slots (PRE adds none), and is the sum of its parts:
+    two fp64 input bricks of padded rows and cotangent bricks, the stages'
+    fp32 slots (the input's real rows, the cotangent's, [scale; shift] and
+    [gs0; gs1]), a word of inside bits a producer thread and stage; the
+    planner takes each tile where it says. Each region's padded rows along
+    w are a multiple of 4 long, its real rows within them, and the regions
+    lie one after another."""
+    t = c3.F32_DW_TILES[tile]
+    regions = c3.f32_dw_regions(tile)
+    assert len(regions) == (1 if t["stride"] == 1 else 8)
+    base = 0
+    for b, ext, sw, _ in regions:
+        assert b == base and sw % 4 == 0 and ext[2] <= sw < ext[2] + 4
+        base += ext[0] * ext[1] * sw
+    real = sum(math.prod(e) for _, e, _, _ in regions)
+    grow = (lambda b: b + 2) if t["stride"] == 1 else (lambda b: 2 * b + 1)
+    assert real == math.prod(grow(b) for b in t["brick"])
+    gf = math.prod(t["brick"]) * t["co"]
+    parts = (2 * (base * t["ci"] + gf) * 8
+             + t["stages"] * (real * t["ci"] + gf + 2 * t["ci"] + 2 * t["co"]
+                              + 128 + gf * corr) * 4)
+    assert c3.f32_dw_smem(tile, corr) == parts <= SMEM_LIMIT
+    size, ci, co = {0: ((9, 10, 11), 32, 32), 1: ((4, 3, 4), 32, 32),
+                    2: ((9, 10, 11), 32, 64), 3: ((9, 10, 11), 64, 32)}[tile]
+    plan = c3._f32_dw_plan(2, size, ci, co, t["stride"], 132, corr)
+    assert plan["tile"] == tile and plan["smem"] == parts
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+def test_f32_dw_fragment_loads_hit_every_bank(tile):
+    """The fp64 bricks' layout (f32_dw_swz, the kernel's ``swz``): for every
+    step voxel, m-tile and tap, a quarter-warp's 16-byte cotangent loads
+    (lane (g, t) of lanes 8p .. 8p + 7 reading row t's pair at 2 MT g + 2
+    mi) hit the 8 bank groups once and a half-warp's 8-byte input loads (row
+    t's double g + 8 ni) 16 distinct words; a tap's rows from one k-step to
+    the next move by multiples of 4, where the swizzle repeats. The
+    producers' 16-byte stores of converted pairs (input and cotangent
+    items, 8 threads a phase) hit at most 2 of them each."""
+    t = c3.F32_DW_TILES[tile]
+    plan = c3._f32_dw_plan(2, (9, 10, 11), 64, 64 if tile != 3 else 32,
+                           t["stride"], 132)
+    plan = dict(plan, tile=tile, brick=t["brick"], ci=t["ci"], co=t["co"])
+    mt, nt = t["co"] // 16, t["ci"] // 8
+    v = math.prod(t["brick"])
+    rows = f32_dw_tap_rows(plan)
+    lanes = [(g, tq) for g in range(8) for tq in range(4)]
+    for r in rows.values():
+        assert ((r[8:] - r[:-8]) % 4 == 0).all()   # rows of k-steps s, s + 1
+        assert (r[4::8] - r[::8] == 4).all() or t["brick"][2] == 4
+    for s in range(v // 8):
+        for hv in range(2):
+            for mi in range(mt):         # the cotangent: row = the voxel
+                addr = [8 * c3.f32_dw_swz(t["co"], 8 * s + 4 * hv + tq,
+                                          2 * mt * g + 2 * mi)
+                        for g, tq in lanes]
+                for q in range(4):
+                    assert len({a // 16 % 8 for a in addr[8 * q:8 * q + 8]}) == 8
+            for r, ni in itertools.product(rows.values(), range(nt)):
+                addr = [8 * c3.f32_dw_swz(t["ci"], int(r[8 * s + 4 * hv + tq]),
+                                          g + 8 * ni) for g, tq in lanes]
+                for q in range(2):       # each tap's input rows, 8 bytes
+                    assert len({a // 8 % 16
+                                for a in addr[16 * q:16 * q + 16]}) == 16
+    # the producers: item e = (row e // Q, quarter e % Q) of the regions'
+    # real rows (input) or of the brick voxels (cotangent), its pairs at
+    # swz(row, 4q) and that ^ 2
+    xrows = [b + (i // (e[1] * e[2]) * e[1] + i // e[2] % e[1]) * sw
+             + i % e[2] for b, e, sw, _ in c3.f32_dw_regions(tile)
+             for i in range(math.prod(e))]
+    for rw, rowof in ((t["ci"], xrows), (t["co"], list(range(v)))):
+        q = rw // 4
+        for e0 in range(0, len(rowof) * q - 7, 8):
+            for flip in (0, 2):
+                addr = [8 * (c3.f32_dw_swz(rw, rowof[e // q], 4 * (e % q))
+                             ^ flip) for e in range(e0, e0 + 8)]
+                assert len({a // 16 % 8 for a in addr}) >= 4
+
+
+@pytest.mark.parametrize("mode", ["plain", "pre", "corr", "pre_corr"])
+@pytest.mark.parametrize("stride,ci,co,size,sms,split", [
+    (1, 32, 32, (5, 9, 11), 4, True), (1, 64, 32, (5, 9, 11), 132, True),
+    (1, 64, 32, (3, 4, 2), 4, False), (2, 32, 64, (7, 9, 11), 2, False),
+    (2, 64, 32, (6, 7, 5), 132, True)])
+def test_f32_dw_schedule_on_numbers_gives_the_plain_dw(stride, ci, co, size,
+                                                        sms, split, mode):
+    """The fp32 dW's units, staged footprints (stride 2 by parity class)
+    and tap rows, walked on fp64 numbers (:func:`f32_dw_schedule`), give
+    conv3d_k3_dw_plain's dW in fp64 in every mode, at extents that are no
+    multiple of the bricks, on every tile; each (tile, brick) is summed
+    once, in its split; a schedule one split short is far off."""
+    n = 2
+    rng = np.random.default_rng(4)
+    out = tuple((s - 1) // stride + 1 for s in size)
+    x = rng.standard_normal((n,) + size + (ci,))
+    gy = rng.standard_normal((n,) + out + (co,))
+    kw = {}
+    if "pre" in mode:
+        kw["pre"] = np.stack([rng.random((n, ci)) + 0.5,
+                              rng.standard_normal((n, ci))], 1)
+    if "corr" in mode:
+        kw.update(y=rng.standard_normal((n,) + out + (co,)),
+                  gs=rng.standard_normal((n, 2, co)) * 0.1)
+    plan = c3._f32_dw_plan(n, size, ci, co, stride, sms, "corr" in mode)
+    assert (plan["splits"] > 1) == split
+    dw, seen = f32_dw_schedule(stride, plan, x, gy, **kw)
+    want = c3.conv3d_k3_dw_plain(
+        torch.from_numpy(x), torch.from_numpy(gy), stride,
+        negative_slope=float(np.float32(1e-2)),
+        **{k: torch.from_numpy(v) for k, v in kw.items()}).numpy()
+    np.testing.assert_allclose(dw, want, rtol=1e-10, atol=1e-10)
+    assert (seen.sum(axis=0) == 1).all()
+    for sp in range(plan["splits"]):
+        b0, b1 = sp * plan["bricks"] // plan["splits"], (
+            (sp + 1) * plan["bricks"] // plan["splits"])
+        assert (seen[sp][:, b0:b1] == 1).all()
+    if split:
+        short = dict(plan, units=plan["units"] - plan["ntiles"])
+        dw_s, _ = f32_dw_schedule(stride, short, x, gy, **kw)
+        assert np.linalg.norm(dw_s - want) > 1e-2 * np.linalg.norm(want)
 
 
 def test_f32_flagship_plans_fill_the_card():
-    """At the flagship's shapes on 132 SMs every fp32 launch has at least
-    one block an SM."""
+    """At the flagship's shapes on 132 SMs every fp32 conv launch has at
+    least 128 units (the dW at 16^3 x 256 and 64 -> 128 @64^3 has exactly
+    128) and a block on at least 128 SMs."""
     for stride, ci, co, size in F32_SHAPES[:5] + F32_SHAPES[7:9]:
-        out = tuple((s - 1) // stride + 1 for s in size)
-        fwd = c3._f32_fwd_plan(2, size, ci, co, stride, 132)
-        dx = c3._f32_dx_plan(2, size, ci, co, stride, 132)
-        dw = c3._f32_dw_plan(2 * math.prod(out), 9 * (ci // 32), co, 132)
-        assert dw["tiles"] * dw["splits"] >= 132
-        assert fwd["grid"] >= min(128, fwd["units"])
-        assert dx["grid"] >= min(128, dx["units"])
+        for plan in (c3._f32_fwd_plan(2, size, ci, co, stride, 132),
+                     c3._f32_dx_plan(2, size, ci, co, stride, 132),
+                     c3._f32_dw_plan(2, size, ci, co, stride, 132)):
+            assert plan["units"] >= 128
+            assert plan["grid"] >= 128

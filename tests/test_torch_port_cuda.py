@@ -18,11 +18,11 @@ gradients of each top-level module at cosine >= 0.95 (bf16 rounding between
 ~40 instance norms; 0.984 measured for the encoder in the same comparison
 on the CPU; the full-width step's limits and measurements are in
 chip_smoke.py). The fp32 kernels (FP64 MMA, csrc/conv3d_k3_f32_fwd.cu,
-csrc/conv3d_k3_f32_dx.cu, csrc/conv3d_k3_f32.cu and csrc/upsample2x_f32.cu)
+csrc/conv3d_k3_f32_dx.cu, csrc/conv3d_k3_f32_dw.cu and csrc/upsample2x_f32.cu)
 against their plain
 versions evaluated in fp64 on the same inputs: relative L2 1e-5 for
 outputs, dx, dW and the pre-op backward's sums, 1e-5 relative for the
-statistics, bit-equal over two runs (the forward and dx also at extents
+statistics, bit-equal over two runs (the forward, dx and dW also at extents
 that are no multiple of their bricks and at the shapes where they split K);
 an fp32 kernel model's training step launches all nine fp32 kernels and
 its loss is within 1e-5 of the fp32 reference model's. The fp16 kernels
@@ -831,6 +831,138 @@ def test_f32_dx_launcher_refuses_a_plan_not_its_own(dev):
     assert call(1, 1, 2, 1, None, small) != 0              # split, no scratch
     assert call(1, 1, 2, 2, part.data_ptr(), small, corr=True) != 0
     assert call(1, 0, 1, 1, None, small) != 0              # big tile's smem
+
+
+# the fp32 dW's bricks and splits (csrc/conv3d_k3_f32_dw.cu,
+# conv3d._f32_dw_plan): extents that are no multiple of the brick at both
+# strides, every tile (0: stride 1, 1: stride 1 where every output extent
+# is at most 4, 2: stride 2 with co % 64 == 0, 3: stride 2 otherwise), and
+# the flagship's 8^3 and 4^3 x 512 shapes (unsplit, persistent blocks over
+# 512 units), each (stride, ci, co, x size, split or not on this card)
+_F32_DW_CASES = [(1, 32, 32, (13, 25, 33), True),
+                 (1, 32, 64, (5, 9, 13), True),
+                 (1, 256, 256, (5, 6, 7), False),
+                 (1, 64, 64, (4, 3, 2), True),
+                 (1, 512, 512, (8, 8, 8), False),
+                 (1, 512, 512, (4, 4, 4), False),
+                 (2, 32, 64, (33, 49, 17), True),
+                 (2, 64, 128, (12, 12, 18), True),
+                 (2, 64, 32, (3, 7, 12), True),
+                 (2, 64, 32, (30, 31, 29), True)]
+
+
+@pytest.mark.parametrize("mode", ["plain", "pre", "corr", "pre_corr"])
+@pytest.mark.parametrize("stride,ci,co,size,split", _F32_DW_CASES)
+def test_f32_dw_bricks_and_splits_match_plain_fp64(dev, stride, ci, co,
+                                                   size, split, mode):
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    g = torch.Generator().manual_seed(3)
+    n = 2
+    out = [(s - 1) // stride + 1 for s in size]
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
+    gy, y = (torch.randn(n, *out, co, generator=g).to(dev) for _ in range(2))
+    gs = (torch.randn(n, 2, co, generator=g) * 0.1).to(dev)
+    pre = torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                       torch.randn(n, ci, generator=g)], 1).to(dev)
+    kw = {}
+    if "pre" in mode:
+        kw["pre"] = pre
+    if "corr" in mode:
+        kw.update(y=y, gs=gs)
+    plan = c3._f32_dw_plan(n, size, ci, co, stride, c3._sm_count(x.device),
+                           "corr" in mode)
+    assert (plan["splits"] > 1) == split
+    name = f"conv3d_k3_dw_s{stride}_f32"
+    before = _build.LAUNCHES[name]
+    got = conv3d_k3_dw(x, gy, stride, **kw)
+    want = conv3d_k3_dw_plain(x.double(), gy.double(), stride, **_f64(kw))
+    again = conv3d_k3_dw(x, gy, stride, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, ci, co)
+    assert _rel_l2(got, want) <= 1e-5
+    assert torch.equal(got, again)
+
+
+def test_f32_dw_launcher_refuses_a_plan_not_its_own(dev):
+    """The C launcher checks the plan it is handed: a stride-1 tile at
+    stride 2 or stride 2's at stride 1, more splits than bricks, more
+    blocks than units, shared memory other than the tile's in the launch's
+    mode, a split without its scratch, a scratch length or finish grid
+    other than the split's, a tile whose channels do not divide ci x co,
+    a pre or gs that is not 16-byte aligned."""
+    from mt3d_resenc_unet_torch.ops import conv3d as c3
+    n, d, ci, co = 1, 4, 32, 32
+    x = torch.randn(n, d, d, d, ci, device=dev)
+    gy = torch.randn(n, d, d, d, co, device=dev)
+    y = torch.randn(n, d, d, d, co, device=dev)
+    gs = torch.randn(n, 2, co, device=dev)
+    dw = torch.empty(3, 3, 3, ci, co, device=dev)
+    length = 27 * ci * co
+    part = torch.empty(2 * length, dtype=torch.float64, device=dev)
+    fn = c3._f32_fn("dw")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fin = -(-length // c3.F32_DW_FIN_THREADS)
+
+    def call(stride, tile, splits, grid, smem, scratch=None, plen=0, fgrid=0,
+             corr=False, dy=gy, pre=None, g=gs):
+        return fn(x.data_ptr(), dy.data_ptr(), pre,
+                  y.data_ptr() if corr else None,
+                  g.data_ptr() if corr else None, dw.data_ptr(), scratch, n,
+                  d, d, d, ci, co, stride, tile, splits, grid, smem, plen,
+                  fgrid, 0.01, stream)
+
+    small = c3.f32_dw_smem(1, False)
+    # x 4^3 under tile 1 (4^3 bricks): one brick, two tiles (16 ci each)
+    assert call(1, 1, 1, 2, small) == 0
+    assert call(1, 1, 1, 1, c3.f32_dw_smem(1, True), corr=True) == 0
+    torch.cuda.synchronize()
+    assert call(2, 1, 1, 1, small) != 0                     # stride 2, tile 1
+    assert call(1, 2, 1, 1, c3.f32_dw_smem(2, False)) != 0  # stride 1, tile 2
+    assert call(1, 1, 2, 2, small, part.data_ptr(), 2 * length, fin) != 0
+    assert call(1, 1, 1, 3, small) != 0                     # 3 blocks, 2 units
+    assert call(1, 1, 1, 1, small, corr=True) != 0          # corr's smem
+    assert call(1, 0, 1, 1, small) != 0                     # tile 0's smem
+    # tile 0 (a 2 x 4 x 8 brick): x 4^3 is 2 bricks
+    big = c3.f32_dw_smem(0, False)
+    assert call(1, 0, 2, 4, big, part.data_ptr(), 2 * length, fin) == 0
+    torch.cuda.synchronize()
+    assert call(1, 0, 2, 4, big) != 0                       # split, no scratch
+    assert call(1, 0, 2, 4, big, part.data_ptr(), length, fin) != 0
+    assert call(1, 0, 2, 4, big, part.data_ptr(), 2 * length, fin + 1) != 0
+    assert call(1, 0, 1, 2, big, part.data_ptr(), 2 * length, fin) != 0
+    # tile 2 takes co % 64 == 0 only
+    gy2 = torch.randn(n, 2, 2, 2, co, device=dev)
+    assert call(2, 2, 1, 1, c3.f32_dw_smem(2, False), dy=gy2) != 0
+    # the producers copy pre and gs in 16-byte pieces
+    vec = torch.randn(2 * 2 * co + 4, device=dev)
+    big_corr = c3.f32_dw_smem(0, True)
+    assert call(1, 0, 1, 2, big, pre=vec.data_ptr()) == 0
+    assert call(1, 0, 1, 2, big_corr, corr=True, g=vec[:2 * co]) == 0
+    torch.cuda.synchronize()
+    assert call(1, 0, 1, 2, big, pre=vec[1:].data_ptr()) != 0
+    assert call(1, 0, 1, 2, big_corr, corr=True, g=vec[1:]) != 0
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_f32_dw_copies_a_misaligned_pre_or_gs(dev, stride):
+    """A pre or gs view that starts 4 bytes into its storage (the kernel
+    copies both in 16-byte pieces) gives the dW of aligned copies."""
+    g = torch.Generator().manual_seed(5)
+    n, ci, co, size = 2, 32, 64, (6, 7, 9)
+    out = [(s - 1) // stride + 1 for s in size]
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
+    gy, y = (torch.randn(n, *out, co, generator=g).to(dev) for _ in range(2))
+    pre = torch.empty(n * 2 * ci + 1, device=dev)[1:].view(n, 2, ci)
+    pre.copy_(torch.stack([torch.rand(n, ci, generator=g) + 0.5,
+                           torch.randn(n, ci, generator=g)], 1))
+    gs = torch.empty(n * 2 * co + 1, device=dev)[1:].view(n, 2, co)
+    gs.copy_(torch.randn(n, 2, co, generator=g) * 0.1)
+    assert pre.data_ptr() % 16 and gs.data_ptr() % 16
+    got = conv3d_k3_dw(x, gy, stride, pre=pre, y=y, gs=gs)
+    want = conv3d_k3_dw(x, gy, stride, pre=pre.clone(), y=y, gs=gs.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", _DX_MODES)

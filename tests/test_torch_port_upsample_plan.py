@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from mt3d_resenc_unet_torch.ops import conv3d as c3
 from mt3d_resenc_unet_torch.ops import upsample as up
 
 # (ci, co, coarse extent) of the flagship's upsamples, then odd cases
@@ -353,7 +352,7 @@ def test_fwd_store_reads_spread_over_the_banks(tm, po):
 #
 # csrc/upsample2x_f32.cu: the forward's blocks (b, tile, sample), a tile
 # being bn channels of one parity (8 x co / bn tiles), and dx's (bn of ci)
-# take the m-tiles conv3d.f32_tile_range(b, nb, mtiles) of a sample's
+# take the m-tiles f32_tile_range(b, nb, mtiles) of a sample's
 # coarse voxels; dW's blocks (parity x ci tile, co tile, split) the K
 # chunks f32_tile_range(split, splits, nch) of the batch's coarse voxels.
 
@@ -365,7 +364,7 @@ def _f32_row_counts(plan, rows, n):
     for z in range(n):
         for nt in range(plan["ntiles"]):
             for b in range(plan["nb"]):
-                first, end = c3.f32_tile_range(b, plan["nb"], plan["mtiles"])
+                first, end = up.f32_tile_range(b, plan["nb"], plan["mtiles"])
                 for mt in range(first, end):
                     counts[z, nt, mt * plan["bm"]:(mt + 1) * plan["bm"]] += 1
     return counts
@@ -397,10 +396,10 @@ def test_f32_plans_write_every_output_once(ci, co, size, sms):
             owner[par, ct * bm:(ct + 1) * bm, nt * bn:(nt + 1) * bn] += 1
     assert (owner == 1).all()
     nch = dw["nch"]
-    assert (nch - 1) * c3.F32_BK < n * rows <= nch * c3.F32_BK
+    assert (nch - 1) * up.F32_BK < n * rows <= nch * up.F32_BK
     chunks = np.zeros(nch, np.int32)
     for sp in range(dw["splits"]):
-        first, end = c3.f32_tile_range(sp, dw["splits"], nch)
-        assert end - first <= c3.F32_DW_MAX_CHUNKS
+        first, end = up.f32_tile_range(sp, dw["splits"], nch)
+        assert end - first <= up.F32_DW_MAX_CHUNKS
         chunks[first:end] += 1
     assert (chunks == 1).all()
