@@ -37,9 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. build the kernels from ``mt3d_resenc_unet_torch/ops/csrc`` (one nvcc
      per source, all at once), print the registers, shared memory and
      spills ``-Xptxas -v`` reports (per entry for the twelve tensor-core
-     sources, every conv and upsample source), the fp32 forward's and
-     dx's instruction counts (``tools/sass_stats.py``) and the card's name and
-     power limit, and which of ``yaml``, ``PIL``, ``imageio``, ``cv2`` and
+     sources, every conv and upsample source), the fp32 conv's and
+     upsample's instruction counts (``tools/sass_stats.py``) and the card's
+     name and power limit, and which of ``yaml``, ``PIL``, ``imageio``, ``cv2`` and
      ``torch.utils.tensorboard`` import on this machine (tried in a child
      process: the port needs none of them); set the port's one precision
      (``core.config.set_precision``: TF32 off, fp32 split-K reductions in
@@ -674,6 +674,13 @@ def tensor_core_usage(logs):
                       f"{c3.F32_DX_TILES[t]['bn']}) {c3.f32_dx_smem(t, False)}"
                       f" B, with corr {c3.f32_dx_smem(t, True)} B"
                       for t in c3.F32_DX_TILES))
+    for ci, co, extent in UP_CASES:
+        f = up._up_f32_fwd_plan(2, (extent,) * 3, ci, co, 132)
+        x = up._up_f32_dx_plan(2, (extent,) * 3, ci, co, 132)
+        print(f"  fp32 upsample {ci}->{co} (upsample2x_f32.cu): forward "
+              f"{f['smem']} B (tile {f['m']} x {f['ncol']} of 8 x co, "
+              f"{f['groups']} groups, weights resident), dx {x['smem']} B "
+              f"(tile {x['m']} x {x['ncol']} ci, steps of {x['kc']} co)")
     print("  fp32 dW (conv3d_k3_f32_dw): "
           + ", ".join(f"tile {t} (stride {d['stride']}, {d['brick']} x "
                       f"{d['co']} co x {d['ci']} ci, {d['stages']} stages) "
@@ -922,11 +929,11 @@ def main() -> int:
                         if "registers" in line or "spill" in line})
         print(f"  {name}: " + "; ".join(usage))
     tensor_core_usage(logs)
-    # the fp32 forward's, dx's and dW's compiled code: their MMAs,
+    # the fp32 forward's, dx's, dW's and upsample's compiled code: their MMAs,
     # shared-memory loads and fp32 -> fp64 conversions (tools/sass_stats.py)
     from mt3d_resenc_unet_torch.tools import sass_stats
     sass_stats.main(["conv3d_k3_f32_fwd", "conv3d_k3_f32_dx",
-                     "conv3d_k3_f32_dw"])
+                     "conv3d_k3_f32_dw", "upsample2x_f32"])
     print(card())
     print("packages on this machine: " + ", ".join(
         f"{name} {'imports' if ok else 'missing'}"

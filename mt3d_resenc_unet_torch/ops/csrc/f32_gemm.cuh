@@ -1,5 +1,8 @@
-// fp32-accurate GEMM tiles on the tensor cores, for the fp32 upsample
-// kernels (upsample2x_f32.cu).
+// fp32-accurate GEMM tiles on the tensor cores. They now serve only the fp32
+// upsample's weight gradient (upsample2x_f32.cu's upsample2x_dw_f32, row 9f
+// of PERF.md's kernel table); the upsample's forward and dx convert their
+// operands once on producer warps instead (upsample2x_f32.cu), and the
+// upsample2x_f32.cu primitives use this header's dmma and FastDiv.
 //
 // Products run on the FP64 tensor cores (mma.sync.m16n8k8.f64): an fp32
 // operand converts to fp64 exactly, the fp64 products of two fp32 values

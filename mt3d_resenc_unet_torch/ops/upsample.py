@@ -23,11 +23,14 @@ wrapper raises; one that needs a gradient reaches the kernels only through
 At compute dtype float32 the three wrappers launch the kernels of
 csrc/upsample2x_f32.cu instead, which replace the same Pallas kernels as
 the JAX package runs them in fp32: GEMMs on the tensor cores at fp32
-accuracy (FP64 MMA, csrc/f32_gemm.cuh), tiled by :func:`_up_f32_plan`;
-their launches count as ``upsample2x_f32``, ``upsample2x_dx_f32`` and
-``upsample2x_dw_f32``, the names of their entries. At compute dtype
-float16 the bf16 kernels run instantiated on ``__half`` (csrc/b16.cuh), as
-``upsample2x_f16``, ``upsample2x_dx_f16`` and ``upsample2x_dw_f16``.
+accuracy (FP64 MMA): the forward and dx with producer warps that convert
+each staged element to fp64 once beside 8 MMA warps, planned by
+:func:`_up_f32_fwd_plan` and :func:`_up_f32_dx_plan`, dW on
+csrc/f32_gemm.cuh's tiles by :func:`_up_f32_dw_plan`; their launches count
+as ``upsample2x_f32``, ``upsample2x_dx_f32`` and ``upsample2x_dw_f32``, the
+names of their entries. At compute dtype float16 the bf16 kernels run
+instantiated on ``__half`` (csrc/b16.cuh), as ``upsample2x_f16``,
+``upsample2x_dx_f16`` and ``upsample2x_dw_f16``.
 
 ``wf`` is the transposed-conv kernel in the JAX layout (*k, Ci, Co) with
 its spatial flip already applied: y[.., k*i + a, ..] = x[.., i, ..] @ wf[a].
@@ -239,27 +242,84 @@ def _f32_fn(kind: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         entry = F32_SOURCE + (f"_{kind}" if kind else "") + "_launch"
         fn = getattr(_build.load(F32_SOURCE), entry)
-        fn.argtypes = {"": [p] * 3 + [i] * 8 + [p],
-                       "dx": [p] * 3 + [i] * 8 + [p],
+        fn.argtypes = {"": [p] * 3 + [i] * 9 + [p],
+                       "dx": [p] * 3 + [i] * 9 + [p],
                        "dw": [p] * 4 + [i] * 9 + [p]}[kind]
         fn.restype = i
         _lib_fns[key] = fn
     return fn
 
 
-# the fp32 upsample's tiles (csrc/upsample2x_f32.cu on csrc/f32_gemm.cuh): a
-# row-tiled block (its forward and dx) is 128 x 32 or 64 x 64 (voxels x
-# channels: N = 32 or a multiple of 64) over K chunks of F32_BK; the planner
-# aims at F32_BLOCKS_PER_SM blocks an SM. Its dW block sums at most
-# F32_DW_MAX_CHUNKS chunks of F32_BK voxels (so its fp32 partial sums stay
-# short), its K split across blocks to fill the card (_up_f32_dw_plan)
+# the fp32 upsample forward and dx (csrc/upsample2x_f32.cu): 8 MMA warps of
+# 32 x 32 fp64 sums over a tile of F32_UP_OUTS / ncol coarse voxels x ncol
+# columns, K in steps of kc channels through F32_UP_SLOTS fp32 ring slots
+# and F32_UP_BUFS fp64 buffers of [kc / 8][rows][8] (planes 64 bytes
+# apart), each warp's outputs staged in rows of F32_UP_PITCH floats; the
+# forward keeps ncol x ci <= F32_UP_FWD_W weights resident in fp64
+F32_UP_OUTS, F32_UP_FWD_W = 8192, 16384
+F32_UP_SLOTS, F32_UP_BUFS, F32_UP_PITCH = 3, 2, 40
+F32_UP_MAX_CI = F32_UP_FWD_W // 32    # the forward's widest Ci
+# the fp32 dW's tiles (csrc/upsample2x_f32.cu on csrc/f32_gemm.cuh): its
+# blocks sum at most F32_DW_MAX_CHUNKS chunks of F32_BK voxels (so their
+# fp32 partial sums stay short), K split across blocks to fill
+# F32_BLOCKS_PER_SM blocks an SM (_up_f32_dw_plan)
 F32_BK = 32
 F32_BLOCKS_PER_SM = 4
 F32_DW_MAX_CHUNKS = 512
 
 
-def _f32_bn(c: int) -> int:
-    return 64 if c % 64 == 0 else 32
+def f32_up_kc(kind: str, ncol: int) -> int:
+    """The channels of a K step of the fp32 forward ("fwd": its x) or dx
+    ("dx": its gy and weights) at column group ``ncol``."""
+    if kind == "fwd":
+        return 32 if ncol >= 128 else ncol // 4
+    return 16 if ncol == 32 else 32
+
+
+def f32_up_smem(kind: str, ncol: int, ci: int) -> int:
+    """The dynamic shared memory (bytes) of the fp32 forward or dx at column
+    group ``ncol``: (the forward's resident fp64 weights,) the fp64
+    buffers, the fp32 ring slots and the 8 warps' staged outputs."""
+    m, kc = F32_UP_OUTS // ncol, f32_up_kc(kind, ncol)
+    staged = 8 * 32 * F32_UP_PITCH * 4
+    if kind == "fwd":
+        return (ncol * ci * 8 + F32_UP_BUFS * (kc // 8) * (m * 8 + 8) * 8
+                + F32_UP_SLOTS * m * kc * 4 + staged)
+    return (F32_UP_BUFS * (kc // 8) * (m * 8 + 8 + ncol * 8 + 8) * 8
+            + F32_UP_SLOTS * (m + ncol) * kc * 4 + staged)
+
+
+def _up_f32_rows_plan(kind: str, n: int, size, ncol: int, groups: int,
+                      ci: int, sms: int) -> dict:
+    m = F32_UP_OUTS // ncol
+    tiles = -(-n * math.prod(size) // m)
+    blocks = min(tiles, max(1, sms // groups))
+    return dict(ncol=ncol, m=m, kc=f32_up_kc(kind, ncol), groups=groups,
+                tiles=tiles, grid=(blocks, groups),
+                smem=f32_up_smem(kind, ncol, ci))
+
+
+def _up_f32_fwd_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the fp32 upsample forward at x (n, *size, ci) -> co:
+    the 8 x co columns (parity p, channel c at p * co + c) in ``groups`` of
+    ``ncol``, the widest of 256, 128, 64, 32 whose fp64 weights (ncol x ci
+    x 8 bytes) fit 128 KB; tiles of ``m`` = 8192 / ncol consecutive coarse
+    voxels of the batch (``tiles`` of them), K = ci in steps of ``kc``.
+    ``grid`` = (blocks, groups): block b of a group walks the tiles
+    :func:`f32_tile_range` (b, blocks, tiles)."""
+    ncol = next(c for c in (256, 128, 64, 32) if c * ci <= F32_UP_FWD_W)
+    return _up_f32_rows_plan("fwd", n, size, ncol, 8 * co // ncol, ci, sms)
+
+
+def _up_f32_dx_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the fp32 upsample dx at gy (n, *2 size, co) -> ci:
+    the ci columns in ``groups`` of ``ncol`` (the widest of 128, 64, 32
+    that divides ci), tiles of ``m`` = 8192 / ncol consecutive coarse
+    voxels, K = 8 parities x co in steps of one parity x ``kc`` channels
+    (gy's rows at the parity, the weights' rows of the ci group);
+    ``grid`` as :func:`_up_f32_fwd_plan`'s."""
+    ncol = next(c for c in (128, 64, 32) if ci % c == 0)
+    return _up_f32_rows_plan("dx", n, size, ncol, ci // ncol, ci, sms)
 
 
 def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
@@ -271,29 +331,10 @@ def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
     return 2 * (a + b) * 4
 
 
-def _f32_rows_plan(rows: int, c: int, z: int, sms: int,
-                   ntiles: Optional[int] = None,
-                   b_kmajor: bool = True) -> dict:
-    """The launch of an fp32 row-tiled kernel (the upsample forward and
-    dx): ``rows`` output rows in each of ``z`` groups (samples), ``c``
-    output channels in ``ntiles`` (default c / bn) tiles of ``bn``;
-    m-tiles of ``bm`` rows, ``mtiles`` a group. Block (b, tile, group), b <
-    ``nb``, takes the m-tiles :func:`f32_tile_range` (b, nb, mtiles).
-    ``smem``: the block's shared memory, B staged k-major (the forward's
-    weights) or n-major (dx's)."""
-    bn = _f32_bn(c)
-    bm = 64 if bn == 64 else 128
-    mtiles = -(-rows // bm)
-    nt = c // bn if ntiles is None else ntiles
-    nb = max(1, min(mtiles, -(-F32_BLOCKS_PER_SM * sms // (z * nt))))
-    return dict(bn=bn, bm=bm, mtiles=mtiles, ntiles=nt, nb=nb,
-                smem=f32_smem(bm, bn, False, b_kmajor))
-
-
-def f32_tile_range(b: int, nb: int, mtiles: int) -> Tuple[int, int]:
-    """The m-tiles [first, end) that block b of nb takes in the fp32
-    row-tiled kernels."""
-    return b * mtiles // nb, (b + 1) * mtiles // nb
+def f32_tile_range(b: int, nb: int, tiles: int) -> Tuple[int, int]:
+    """The tiles (or dW's K chunks) [first, end) that block (split) b of nb
+    takes in the fp32 upsample kernels."""
+    return b * tiles // nb, (b + 1) * tiles // nb
 
 
 def _up_f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
@@ -305,7 +346,7 @@ def _up_f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
     F32_DW_MAX_CHUNKS chunks. Each split stores its partial dW to its own
     slice of a (splits, taps, Ci, Co) scratch (none at one split), added in
     split order."""
-    bn = _f32_bn(co)
+    bn = 64 if co % 64 == 0 else 32
     tiles = mtiles * (co // bn)
     nch = -(-k_vox // F32_BK)
     splits = max(-(-F32_BLOCKS_PER_SM * sms // tiles),
@@ -316,28 +357,26 @@ def _up_f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
 
 def _up_f32_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     """The launches of the fp32 upsample kernels at x (n, *size, ci) -> co:
-    the forward and dx row-tiled as :func:`_f32_rows_plan` says (rows =
-    a sample's coarse voxels; the forward's N = 8 parities x co, a channel
-    tile inside one parity), dW as :func:`_up_f32_dw_plan` over the
-    batch's coarse voxels with ``bm`` (64 or 32) input channels a tile and
-    one parity, its scratch (splits, 8, ci, co)."""
-    rows = math.prod(size)
-    fwd = _f32_rows_plan(rows, co, n, sms, 8 * co // _f32_bn(co))
-    dx = _f32_rows_plan(rows, ci, n, sms, b_kmajor=False)
+    the forward as :func:`_up_f32_fwd_plan`, dx as :func:`_up_f32_dx_plan`,
+    dW as :func:`_up_f32_dw_plan` over the batch's coarse voxels with
+    ``bm`` (64 or 32) input channels a tile and one parity, its scratch
+    (splits, 8, ci, co)."""
     bm = 64 if ci % 64 == 0 else 32
-    dw = _up_f32_dw_plan(n * rows, 8 * (ci // bm), co, sms)
+    dw = _up_f32_dw_plan(n * math.prod(size), 8 * (ci // bm), co, sms)
     dw.update(bm=bm, smem=f32_smem(bm, dw["bn"], True, True))
-    return dict(fwd=fwd, dx=dx, dw=dw)
+    return dict(fwd=_up_f32_fwd_plan(n, size, ci, co, sms),
+                dx=_up_f32_dx_plan(n, size, ci, co, sms), dw=dw)
 
 
 def _upsample2x_f32(x, wf, sms, stream):
     n, d, h, w, ci = x.shape
     co = wf.shape[-1]
-    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["fwd"]
+    plan = _up_f32_fwd_plan(n, (d, h, w), ci, co, sms)
     y = torch.empty((n, 2 * d, 2 * h, 2 * w, co), dtype=torch.float32,
                     device=x.device)
     rc = _f32_fn("")(x.data_ptr(), wf.data_ptr(), y.data_ptr(), n, d, h, w,
-                     ci, co, plan["bn"], plan["nb"], stream)
+                     ci, co, plan["ncol"], plan["grid"][0], plan["smem"],
+                     stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x: fp32 kernel launch failed, CUDA "
                            f"error {rc}")
@@ -347,10 +386,11 @@ def _upsample2x_f32(x, wf, sms, stream):
 def _upsample2x_dx_f32(gy, wf, sms, stream):
     n, d2, h2, w2, co = gy.shape
     d, h, w, ci = d2 // 2, h2 // 2, w2 // 2, wf.shape[3]
-    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["dx"]
+    plan = _up_f32_dx_plan(n, (d, h, w), ci, co, sms)
     dx = torch.empty((n, d, h, w, ci), dtype=torch.float32, device=gy.device)
     rc = _f32_fn("dx")(gy.data_ptr(), wf.data_ptr(), dx.data_ptr(), n, d, h,
-                       w, ci, co, plan["bn"], plan["nb"], stream)
+                       w, ci, co, plan["ncol"], plan["grid"][0],
+                       plan["smem"], stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x_dx: fp32 kernel launch failed, CUDA "
                            f"error {rc}")
@@ -391,6 +431,9 @@ def upsample2x(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16 or wf.data_ptr() % 16:
         raise ValueError("upsample2x: x and wf must be 16-byte aligned")
     if dt == torch.float32:
+        if ci > F32_UP_MAX_CI:
+            raise ValueError(f"upsample2x: the fp32 kernel takes Ci <= "
+                             f"{F32_UP_MAX_CI}, got {ci}")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             y = _upsample2x_f32(x, wf, _sm_count(x.device), stream)

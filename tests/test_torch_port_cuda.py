@@ -1001,14 +1001,19 @@ def test_f32_conv_dw_kernel_matches_plain_fp64(dev, stride, ci, co, extent,
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("ci,co,extent", _UP_BWD)
-def test_f32_upsample_kernels_match_plain_fp64(dev, ci, co, extent):
+# the fp32 upsample (csrc/upsample2x_f32.cu): the bf16 kernels' odd extents,
+# then the flagship's two upsamples at their full extents
+_F32_UP = ([(ci, co, (e, e + 1, e)) for ci, co, e in _UP_BWD]
+           + [(128, 64, (32,) * 3), (64, 32, (64,) * 3)])
+
+
+@pytest.mark.parametrize("ci,co,size", _F32_UP)
+def test_f32_upsample_kernels_match_plain_fp64(dev, ci, co, size):
     g = torch.Generator().manual_seed(0)
     n = 2
-    x = torch.randn(n, extent, extent + 1, extent, ci, generator=g).to(dev)
+    x = torch.randn(n, *size, ci, generator=g).to(dev)
     wf = (torch.randn(2, 2, 2, ci, co, generator=g) * (8 * co) ** -0.5).to(dev)
-    gy = torch.randn(n, 2 * extent, 2 * extent + 2, 2 * extent, co,
-                     generator=g).to(dev)
+    gy = torch.randn(n, *(2 * s for s in size), co, generator=g).to(dev)
     for fn, ref, args in ((upsample2x, upsample_plain, (x, wf)),
                           (upsample2x_dx, upsample2x_dx_plain, (gy, wf)),
                           (upsample2x_dw, upsample2x_dw_plain, (x, gy))):
@@ -1018,6 +1023,41 @@ def test_f32_upsample_kernels_match_plain_fp64(dev, ci, co, extent):
         assert got.dtype == torch.float32
         assert _rel_l2(got, want) <= 1e-5, fn.__name__
         assert torch.equal(got, again), fn.__name__
+
+
+def test_f32_up_launcher_refuses_a_plan_not_its_own(dev):
+    """The fp32 forward's and dx's C launchers check the plan they are
+    handed: a column group they have no configuration for (or, for dx, one
+    that does not divide Ci; for the forward, one whose weights do not fit),
+    more blocks than tiles or none, shared memory other than the
+    configuration's, are refused before anything launches."""
+    from mt3d_resenc_unet_torch.ops import upsample as up
+    n, size, ci, co = 2, (3, 4, 5), 96, 32
+    x = torch.randn(n, *size, ci, device=dev)
+    gy = torch.randn(n, *(2 * s for s in size), co, device=dev)
+    wf = torch.randn(2, 2, 2, ci, co, device=dev)
+    y = torch.empty(n, *(2 * s for s in size), co, device=dev)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kind, inp, out, plan in (
+            ("", x, y, up._up_f32_fwd_plan(n, size, ci, co, 132)),
+            ("dx", gy, dx, up._up_f32_dx_plan(n, size, ci, co, 132))):
+        other = 256 if kind == "" else 64     # fwd: 256 x 96 > 16384
+        bad = [dict(plan, ncol=other,
+                    smem=up.f32_up_smem(kind or "fwd", other, ci)),
+               dict(plan, ncol=96),
+               dict(plan, grid=(plan["tiles"] + 1, 1)),
+               dict(plan, grid=(0, 1)),
+               dict(plan, smem=plan["smem"] + 16)]
+        for p in [plan] + bad:
+            rc = up._f32_fn(kind)(inp.data_ptr(), wf.data_ptr(),
+                                  out.data_ptr(), n, *size, ci, co,
+                                  p["ncol"], p["grid"][0], p["smem"], stream)
+            assert (rc == 0) == (p is plan), (kind, p)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="Ci <= 512"):
+        upsample2x(torch.zeros(1, 2, 2, 2, 544, device=dev),
+                   torch.zeros(2, 2, 2, 544, 32, device=dev))
 
 
 def test_f32_model_step_launches_the_f32_kernels(dev):

@@ -20,7 +20,10 @@ must put such 8 rows, and each 8 threads' reads of the forward's staged
 outputs, in 8 distinct shared-memory bank groups. The fp32 kernels' plan
 (``_up_f32_plan``, csrc/upsample2x_f32.cu) at the same shapes: every
 output written once, every coarse voxel summed into every (parity, ci,
-co) of dW once, and each block's shared memory within 48 KiB.
+co) of dW once, within its shared memory. The fp32 forward and dx
+(``_up_f32_fwd_plan``, ``_up_f32_dx_plan``), walked on numbers as they
+index their buffers, give the plain versions, and their fp64 buffers and
+staged outputs are read and written across all 32 banks.
 """
 
 import math
@@ -350,45 +353,77 @@ def test_fwd_store_reads_spread_over_the_banks(tm, po):
 
 # ------------------------------------------------- the fp32 kernels' plans
 #
-# csrc/upsample2x_f32.cu: the forward's blocks (b, tile, sample), a tile
-# being bn channels of one parity (8 x co / bn tiles), and dx's (bn of ci)
-# take the m-tiles f32_tile_range(b, nb, mtiles) of a sample's
-# coarse voxels; dW's blocks (parity x ci tile, co tile, split) the K
-# chunks f32_tile_range(split, splits, nch) of the batch's coarse voxels.
+# csrc/upsample2x_f32.cu: the forward's and dx's blocks (b, group) walk the
+# tiles f32_tile_range(b, blocks, tiles) of m consecutive coarse voxels of
+# the batch, a tile's outputs m x ncol columns (the forward's columns p * co
+# + c, dx's input channels), MMA warp w holding rows (w % wgm) * 32 and
+# columns (w // wgm) * 32; dW's blocks (parity x ci tile, co tile, split)
+# the K chunks f32_tile_range(split, splits, nch) of the batch's coarse
+# voxels.
 
-F32_SMEM = 48 * 1024     # static shared memory, under the H100's 232,448
+SMEM_MAX = 232448        # the H100's dynamic shared memory a block
 
 
-def _f32_row_counts(plan, rows, n):
-    counts = np.zeros((n, plan["ntiles"], rows), np.int32)
-    for z in range(n):
-        for nt in range(plan["ntiles"]):
-            for b in range(plan["nb"]):
-                first, end = up.f32_tile_range(b, plan["nb"], plan["mtiles"])
-                for mt in range(first, end):
-                    counts[z, nt, mt * plan["bm"]:(mt + 1) * plan["bm"]] += 1
-    return counts
+def _fine_of(v, p, size):
+    """The fine voxel 2q + p of flat coarse voxels v, as the kernels'
+    ``fine_of`` decodes them (two divisions), into the (n, 2D, 2H, 2W)
+    volume."""
+    _, hh, ww = size
+    r, w = np.divmod(v, ww)
+    nd, h = np.divmod(r, hh)
+    return (((2 * nd + (p >> 2)) * 2 * hh + 2 * h + ((p >> 1) & 1)) * 2 * ww
+            + 2 * w + (p & 1))
+
+
+def _warps(plan):
+    """(rows, columns) offsets of the 8 MMA warps in a tile."""
+    wgm = 8 // (plan["ncol"] // 32)
+    return [((w % wgm) * 32, (w // wgm) * 32) for w in range(8)]
 
 
 @pytest.mark.parametrize("sms", [132, 20])
 @pytest.mark.parametrize("ci,co,size", SHAPES, ids=IDS)
 def test_f32_plans_write_every_output_once(ci, co, size, sms):
-    """The forward writes each fine voxel 2q + p's channels once (each
-    coarse row once per (parity, channel tile)), dx each coarse voxel's
-    channels once, and dW sums every coarse voxel into every (parity, ci,
-    co) once, no split summing more than F32_DW_MAX_CHUNKS chunks."""
-    n, rows = 2, math.prod(size)
+    """The forward writes every fine voxel's channels once (every (coarse
+    voxel, parity) of every column once: the groups' columns, the warps'
+    blocks of a tile and the blocks' tile ranges each cover theirs once,
+    and fine_of is one to one), dx every coarse voxel's channels once, each
+    within the H100's shared memory; at the flagship's shapes on 132 SMs
+    both fill at least 128 of them. dW sums every coarse voxel into every
+    (parity, ci, co) once, no split summing more than F32_DW_MAX_CHUNKS
+    chunks."""
+    n, vox = 2, math.prod(size)
     plan = up._up_f32_plan(n, size, ci, co, sms)
     fwd, dx, dw = plan["fwd"], plan["dx"], plan["dw"]
-    assert fwd["ntiles"] * fwd["bn"] == 8 * co and co % fwd["bn"] == 0
-    assert dx["ntiles"] * dx["bn"] == ci
-    for p in (fwd, dx, dw):
-        assert p["smem"] <= F32_SMEM
+    assert fwd["ncol"] * ci <= up.F32_UP_FWD_W and ci % dx["ncol"] == 0
+    assert fwd["groups"] * fwd["ncol"] == 8 * co
+    assert dx["groups"] * dx["ncol"] == ci
     for p in (fwd, dx):
-        assert 1 <= p["nb"] <= p["mtiles"] == -(-rows // p["bm"])
-        assert (_f32_row_counts(p, rows, n) == 1).all()
+        assert p["m"] * p["ncol"] == up.F32_UP_OUTS and p["ncol"] % 32 == 0
+        assert (p["tiles"] - 1) * p["m"] < n * vox <= p["tiles"] * p["m"]
+        blocks, groups = p["grid"]
+        assert groups == p["groups"] and 1 <= blocks <= p["tiles"]
+        assert blocks * groups <= max(sms, groups)   # one wave
+        assert p["smem"] <= SMEM_MAX
+        if (ci, co, size) in ((128, 64, (32,) * 3), (64, 32, (64,) * 3)):
+            assert sms < 128 or blocks * groups >= 128
+        tiles = np.zeros(p["tiles"], np.int32)
+        for b in range(blocks):
+            first, end = up.f32_tile_range(b, blocks, p["tiles"])
+            assert end > first, "a block without work"
+            tiles[first:end] += 1
+        assert (tiles == 1).all()
+        cells = np.zeros((p["m"], p["ncol"]), np.int32)
+        for r0, c0 in _warps(p):
+            cells[r0:r0 + 32, c0:c0 + 32] += 1
+        assert (cells == 1).all()
+    # the forward's (coarse voxel, parity) -> fine voxel, one to one
+    v = np.arange(n * vox, dtype=np.int64)
+    fine = np.concatenate([_fine_of(v, p, size) for p in range(8)])
+    assert np.array_equal(np.sort(fine), np.arange(8 * n * vox))
     bm, bn = dw["bm"], dw["bn"]
     assert ci % bm == 0 and co % bn == 0
+    assert dw["smem"] <= 48 * 1024             # static shared memory
     owner = np.zeros((8, ci, co), np.int32)
     for mx in range(8 * (ci // bm)):
         par, ct = divmod(mx, ci // bm)
@@ -396,10 +431,230 @@ def test_f32_plans_write_every_output_once(ci, co, size, sms):
             owner[par, ct * bm:(ct + 1) * bm, nt * bn:(nt + 1) * bn] += 1
     assert (owner == 1).all()
     nch = dw["nch"]
-    assert (nch - 1) * up.F32_BK < n * rows <= nch * up.F32_BK
+    assert (nch - 1) * up.F32_BK < n * vox <= nch * up.F32_BK
     chunks = np.zeros(nch, np.int32)
     for sp in range(dw["splits"]):
         first, end = up.f32_tile_range(sp, dw["splits"], nch)
         assert end - first <= up.F32_DW_MAX_CHUNKS
         chunks[first:end] += 1
     assert (chunks == 1).all()
+
+
+def _plane(rows, kk):
+    """The double offset of channel plane kk of an fp64 buffer of ``rows``
+    rows (the kernels' ``plane``)."""
+    return kk * (rows * 8 + 8)
+
+
+def _convert(slot, rows, kc):
+    """A producer's conversion of an fp32 ring slot (``rows`` x ``kc``,
+    rows contiguous) into the fp64 buffer [kc / 8][rows][8], item e = (row
+    e // (kc / 4), piece e % (kc / 4)): (buffer, the double offsets of each
+    item's first and second 16-byte store)."""
+    pr = kc // 4
+    e = np.arange(rows * pr)
+    r, j = e // pr, e % pr
+    base = _plane(rows, j >> 1) + r * 8 + 4 * (j & 1)
+    h = (e >> 2) & 1
+    buf = np.full(_plane(rows, kc // 8), np.nan)
+    buf[base[:, None] + np.arange(4)] = slot.reshape(-1, 4)
+    return buf, base + 2 * h, base + 2 - 2 * h
+
+
+# k = t and t + 4 of an m16n8k8 fragment are channels 2t and 2t + 1
+_KPERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+_CFGS = [("fwd", c) for c in (256, 128, 64, 32)] + [("dx", c)
+                                                      for c in (128, 64, 32)]
+
+
+@pytest.mark.parametrize("kind,ncol", _CFGS,
+                         ids=[f"{k}-{c}" for k, c in _CFGS])
+def test_f32_up_buffers_hit_every_bank(kind, ncol):
+    """The fp32 forward's and dx's shared memory at every column group: a
+    quarter-warp's 16-byte conversion stores (8 consecutive items, each
+    half in turn) and fragment loads (lanes (g, t) of 8p .. 8p + 7 reading
+    rows g of an MMA tile at channel pair 2t) hit the 8 bank groups once,
+    the staged epilogue's float2 stores (a half-warp) and float4 reads (a
+    quarter-warp) 32 distinct banks; the shared memory is the sum of its
+    parts."""
+    m, kc = up.F32_UP_OUTS // ncol, up.f32_up_kc(kind, ncol)
+    for rows in ((m,) if kind == "fwd" else (m, ncol)):
+        _, first, second = _convert(np.zeros(rows * kc), rows, kc)
+        for offs in (first, second):
+            for q in range(0, len(offs), 8):
+                assert len({o * 8 // 16 % 8 for o in offs[q:q + 8]}) == 8
+        for kk in range(kc // 8):
+            for r0 in range(0, rows, 16):
+                for q in range(4):
+                    lanes = range(8 * q, 8 * q + 8)
+                    offs = [_plane(rows, kk) + (r0 + (ln >> 2)) * 8
+                            + 2 * (ln & 3) for ln in lanes]
+                    assert len({o * 8 // 16 % 8 for o in offs}) == 8
+    pitch = up.F32_UP_PITCH
+    for mi, ni, h in np.ndindex(2, 4, 2):
+        for half in range(2):
+            words = [(mi * 16 + (ln >> 2) + 8 * h) * pitch + ni * 8
+                     + 2 * (ln & 3) + k for ln in range(16 * half,
+                                                         16 * half + 16)
+                     for k in range(2)]
+            assert len({wd % 32 for wd in words}) == 32
+    for s in range(8):
+        for q in range(4):
+            words = [((ln >> 3) + 4 * s) * pitch + 4 * (ln & 7) + k
+                     for ln in range(8 * q, 8 * q + 8) for k in range(4)]
+            assert len({wd % 32 for wd in words}) == 32
+    staged = 8 * 32 * pitch * 4
+    bufs = up.F32_UP_BUFS * _plane(m, kc // 8) * 8
+    if kind == "fwd":
+        parts = bufs + up.F32_UP_SLOTS * m * kc * 4 + staged
+        for ci in (32, up.F32_UP_FWD_W // ncol):
+            assert up.f32_up_smem(kind, ncol, ci) == ncol * ci * 8 + parts
+            assert up.f32_up_smem(kind, ncol, ci) <= SMEM_MAX
+    else:
+        bufs += up.F32_UP_BUFS * _plane(ncol, kc // 8) * 8
+        assert up.f32_up_smem(kind, ncol, 64) == (
+            bufs + up.F32_UP_SLOTS * (m + ncol) * kc * 4 + staged)
+        assert up.f32_up_smem(kind, ncol, 64) <= SMEM_MAX
+
+
+def _mma(buf_a, off_a, buf_b, off_b, r0, c0):
+    """A warp's k-step as its lanes' fragment loads read it: A (32 rows
+    from r0 of the plane at double off_a) x B (32 columns from c0 of the
+    plane at off_b), k in fragment order."""
+    a = buf_a[off_a + (r0 + np.arange(32))[:, None] * 8 + _KPERM[None, :]]
+    b = buf_b[off_b + (c0 + np.arange(32))[None, :] * 8 + _KPERM[:, None]]
+    return a @ b
+
+
+def _staged(acc):
+    """A warp's sums rounded to fp32 through its staged tile (float2
+    stores of fragment pairs, float4 reads of lane pieces): rows x 32."""
+    pitch = up.F32_UP_PITCH
+    st = np.full(32 * pitch, np.nan, np.float32)
+    st[np.arange(32)[:, None] * pitch + np.arange(32)] = acc.astype(
+        np.float32)
+    return st.reshape(32, pitch)[:, :32]
+
+
+def _f32_up_fwd_schedule(plan, x, wf):
+    """The fp32 forward as the kernel computes it under ``plan``, in fp64
+    on the fp32 inputs: the resident weights, each step's x rows copied and
+    converted, the warps' k-steps, the staged epilogue's fine voxels."""
+    n, d, h, w, ci = x.shape
+    co = wf.shape[-1]
+    size, vox = (d, h, w), n * d * h * w
+    m, kc, ncol = plan["m"], plan["kc"], plan["ncol"]
+    xf, wr = x.reshape(vox, ci), wf.reshape(8, ci, co)
+    y = np.full((8 * vox, co), np.nan, np.float32)
+    pr = kc // 4
+    e = np.arange(m * pr)
+    r, j = e // pr, e % pr
+    blocks = plan["grid"][0]
+    for grp in range(plan["groups"]):
+        cols = grp * ncol + np.arange(ncol)
+        wres = np.empty(ci * ncol)
+        for c in range(ci):
+            wres[((c >> 3) * ncol + np.arange(ncol)) * 8 + (c & 7)] = \
+                wr[cols // co, c, cols % co]
+        for b in range(blocks):
+            for tile in range(*up.f32_tile_range(b, blocks, plan["tiles"])):
+                acc = np.zeros((8, 32, 32))
+                for step in range(ci // kc):
+                    v = tile * m + r
+                    slot = np.zeros((m * pr, 4), np.float32)
+                    ok = v < vox
+                    slot[ok] = xf[v[ok, None], step * kc + 4 * j[ok, None]
+                                  + np.arange(4)]
+                    buf = _convert(slot.astype(np.float64), m, kc)[0]
+                    for wi, (r0, c0) in enumerate(_warps(plan)):
+                        for kk in range(kc // 8):
+                            acc[wi] += _mma(
+                                buf, _plane(m, kk), wres,
+                                (step * kc // 8 + kk) * ncol * 8, r0, c0)
+                for wi, (r0, c0) in enumerate(_warps(plan)):
+                    par, co0 = divmod(grp * ncol + c0, co)
+                    v = tile * m + r0 + np.arange(32)
+                    ok = v < vox
+                    y[_fine_of(v[ok], par, size), co0:co0 + 32] = \
+                        _staged(acc[wi])[ok]
+    return y.reshape(n, 2 * d, 2 * h, 2 * w, co)
+
+
+def _f32_up_dx_schedule(plan, gy, wf):
+    """The fp32 dx as the kernel computes it under ``plan``, in fp64 on the
+    fp32 inputs: each producer row's fine voxel decoded once a tile, each
+    step's gy rows (its parity's offset added) and weight rows copied and
+    converted, the warps' k-steps, the staged epilogue."""
+    n, d2, h2, w2, co = gy.shape
+    d, h, w, ci = d2 // 2, h2 // 2, w2 // 2, wf.shape[3]
+    size, vox = (d, h, w), n * d * h * w
+    m, kc, ncol = plan["m"], plan["kc"], plan["ncol"]
+    gf, wr = gy.reshape(-1, co), wf.reshape(8, ci, co)
+    dx = np.full((vox, ci), np.nan, np.float32)
+    pr = kc // 4
+    ea, eb = np.arange(m * pr), np.arange(ncol * pr)
+    blocks = plan["grid"][0]
+    for grp in range(plan["groups"]):
+        ci0 = grp * ncol
+        for b in range(blocks):
+            for tile in range(*up.f32_tile_range(b, blocks, plan["tiles"])):
+                v = tile * m + ea // pr
+                fb = np.where(v < vox, _fine_of(v, 0, size), -1)
+                acc = np.zeros((8, 32, 32))
+                for step in range(8 * co // kc):
+                    par, cc = divmod(step, co // kc)
+                    off = (((par >> 2) * 2 * h + ((par >> 1) & 1)) * 2 * w
+                           + (par & 1))
+                    sa = np.zeros((m * pr, 4), np.float32)
+                    ok = fb >= 0
+                    sa[ok] = gf[fb[ok, None] + off, cc * kc + 4 * (ea[ok, None]
+                                                                   % pr)
+                                + np.arange(4)]
+                    sb = wr[par, ci0 + eb[:, None] // pr,
+                            cc * kc + 4 * (eb[:, None] % pr) + np.arange(4)]
+                    bufa = _convert(sa.astype(np.float64), m, kc)[0]
+                    bufb = _convert(sb.astype(np.float64), ncol, kc)[0]
+                    for wi, (r0, c0) in enumerate(_warps(plan)):
+                        for kk in range(kc // 8):
+                            acc[wi] += _mma(bufa, _plane(m, kk), bufb,
+                                            _plane(ncol, kk), r0, c0)
+                for wi, (r0, c0) in enumerate(_warps(plan)):
+                    v = tile * m + r0 + np.arange(32)
+                    ok = v < vox
+                    dx[v[ok], ci0 + c0:ci0 + c0 + 32] = _staged(acc[wi])[ok]
+    return dx.reshape(n, d, h, w, ci)
+
+
+# every column group of each kernel, extents that are no multiple of the
+# tiles, more tiles than blocks (sms = 2)
+_F32_UP_EMU = [(64, 32, (2, 3, 5)), (128, 64, (2, 3, 3)), (96, 32, (1, 3, 5)),
+               (256, 32, (1, 2, 3)), (512, 32, (1, 1, 3))]
+
+
+@pytest.mark.parametrize("ci,co,size", _F32_UP_EMU,
+                         ids=[f"{ci}-{co}" for ci, co, _ in _F32_UP_EMU])
+def test_f32_up_schedule_on_numbers_matches_plain(ci, co, size):
+    """The fp32 forward's and dx's schedules, walked on numbers as the
+    kernels index them (ring steps, conversion layout, fragment loads,
+    staged epilogue, fine voxels), give upsample_plain's y and
+    upsample2x_dx_plain's dx in fp64 within one fp32 rounding, every output
+    written."""
+    g = np.random.default_rng(7)
+    n = 2
+    x = g.standard_normal((n, *size, ci)).astype(np.float32)
+    wf = (g.standard_normal((2, 2, 2, ci, co)) * (8 * co) ** -0.5).astype(
+        np.float32)
+    gy = g.standard_normal((n, *(2 * s for s in size), co)).astype(
+        np.float32)
+    plans = up._up_f32_plan(n, size, ci, co, 2)
+    y = _f32_up_fwd_schedule(plans["fwd"], x, wf)
+    want = up.upsample_plain(torch.from_numpy(x).double(),
+                             torch.from_numpy(wf).double()).numpy()
+    assert not np.isnan(y).any()
+    assert np.linalg.norm(y - want) <= 1e-7 * np.linalg.norm(want)
+    dx = _f32_up_dx_schedule(plans["dx"], gy, wf)
+    want = up.upsample2x_dx_plain(torch.from_numpy(gy).double(),
+                                  torch.from_numpy(wf).double()).numpy()
+    assert not np.isnan(dx).any()
+    assert np.linalg.norm(dx - want) <= 1e-7 * np.linalg.norm(want)
