@@ -677,10 +677,15 @@ def tensor_core_usage(logs):
     for ci, co, extent in UP_CASES:
         f = up._up_f32_fwd_plan(2, (extent,) * 3, ci, co, 132)
         x = up._up_f32_dx_plan(2, (extent,) * 3, ci, co, 132)
+        w = up._up_f32_dw_plan(2, (extent,) * 3, ci, co, 132)
         print(f"  fp32 upsample {ci}->{co} (upsample2x_f32.cu): forward "
               f"{f['smem']} B (tile {f['m']} x {f['ncol']} of 8 x co, "
               f"{f['groups']} groups, weights resident), dx {x['smem']} B "
-              f"(tile {x['m']} x {x['ncol']} ci, steps of {x['kc']} co)")
+              f"(tile {x['m']} x {x['ncol']} ci, steps of {x['kc']} co), "
+              f"dW {w['smem']} B (tile 8 parities x {up.F32_DW_CO} co x "
+              f"{w['ci_tile']} ci, {w['tiles']} tiles x {w['splits']} "
+              f"splits of {w['steps']} steps of {up.F32_DW_R} voxels, "
+              f"{w['part_len'] * 8} B of fp64 scratch)")
     print("  fp32 dW (conv3d_k3_f32_dw): "
           + ", ".join(f"tile {t} (stride {d['stride']}, {d['brick']} x "
                       f"{d['co']} co x {d['ci']} ci, {d['stages']} stages) "

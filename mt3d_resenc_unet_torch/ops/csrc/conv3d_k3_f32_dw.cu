@@ -25,7 +25,7 @@
 //
 // What bounds it on the H100: the FP64 tensor cores, 67 TFLOP/s (stride 1
 // at 128^3 x 32 -> 32, N = 2: 232 GFLOP, 3.46 ms; stride 2 at 64^3 x 64
-// from 128^3 x 32: 58 GFLOP, 0.87 ms). Its first design (f32_gemm.cuh's
+// from 128^3 x 32: 58 GFLOP, 0.87 ms). Its first design (register-staged
 // 2 x 2-warp tiles over 3 taps of 32 ci) gathered x for every tap group
 // and rebuilt the corrected cotangent for every ci tile through registers,
 // applying PRE and CORR at each gather, with three integer divisions a

@@ -27,7 +27,7 @@
 //
 // What bounds it on the H100: the FP64 tensor cores, 67 TFLOP/s (stride 1
 // at 128^3 x 32 -> 32, N = 2: 232 GFLOP, 3.46 ms; stride 2 at 128^3 x 32
-// from 64^3 x 64: 58 GFLOP, 0.87 ms). The first fp32 dx, on f32_gemm.cuh's
+// from 64^3 x 64: 58 GFLOP, 0.87 ms). The first fp32 dx, on register-staged
 // tiles, gathered the cotangent voxel p + 1 - k from L2 for every tap (27
 // times an element at stride 1), applied the correction at each of those
 // reads, staged through registers into a 2-stage ring, and converted each

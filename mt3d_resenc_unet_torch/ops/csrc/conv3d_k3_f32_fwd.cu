@@ -20,14 +20,15 @@
 // Products. mma.sync.m16n8k8.f64 on the FP64 tensor cores (wgmma has no
 // fp64 form): an fp32 operand converts to fp64 exactly and the product of
 // two is exact, the sums round to nearest in fp64, so the output's only
-// error is its final rounding to fp32 (f32_gemm.cuh says why not 3xTF32).
+// error is its final rounding to fp32 (upsample2x_f32.cu says why not
+// 3xTF32).
 //
 // What bounds it on the H100: the FP64 tensor cores, 67 TFLOP/s (at 128^3
 // x 32 -> 32, N = 2: 232 GFLOP, 3.46 ms; 0.32 ms to move its 1.07 GB).
 // At that rate the SM takes one m16n8k8 (1,024 FMAs) every 8 cycles and
 // reads 128 bytes of shared memory a cycle, so each fragment byte has to
 // serve several MMAs from registers, and L2 can feed ~16 bytes per MMA.
-// The first fp32 forward, on f32_gemm.cuh's tiles, gathered every input
+// The first fp32 forward, on register-staged GEMM tiles, gathered every
 // voxel from L2 once per tap (27x), staged through registers into a
 // 2-stage ring, and converted each operand to fp64 at every fragment read.
 //

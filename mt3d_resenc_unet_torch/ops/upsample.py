@@ -23,10 +23,11 @@ wrapper raises; one that needs a gradient reaches the kernels only through
 At compute dtype float32 the three wrappers launch the kernels of
 csrc/upsample2x_f32.cu instead, which replace the same Pallas kernels as
 the JAX package runs them in fp32: GEMMs on the tensor cores at fp32
-accuracy (FP64 MMA): the forward and dx with producer warps that convert
-each staged element to fp64 once beside 8 MMA warps, planned by
-:func:`_up_f32_fwd_plan` and :func:`_up_f32_dx_plan`, dW on
-csrc/f32_gemm.cuh's tiles by :func:`_up_f32_dw_plan`; their launches count
+accuracy (FP64 MMA), each with producer warps that convert each staged
+element to fp64 once beside 8 MMA warps, planned by
+:func:`_up_f32_fwd_plan`, :func:`_up_f32_dx_plan` and
+:func:`_up_f32_dw_plan` (dW's fp64 split sums rounded once by a second
+kernel); their launches count
 as ``upsample2x_f32``, ``upsample2x_dx_f32`` and ``upsample2x_dw_f32``, the
 names of their entries. At compute dtype float16 the bf16 kernels run
 instantiated on ``__half`` (csrc/b16.cuh), as ``upsample2x_f16``,
@@ -40,12 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from . import _build
-from .conv3d import _ptr, _sm_count, _wide
+from .conv3d import _sm_count, _wide
 
 _KERNEL = "upsample2x"
 _lib_fns = {}
@@ -244,7 +245,8 @@ def _f32_fn(kind: str):
         fn = getattr(_build.load(F32_SOURCE), entry)
         fn.argtypes = {"": [p] * 3 + [i] * 9 + [p],
                        "dx": [p] * 3 + [i] * 9 + [p],
-                       "dw": [p] * 4 + [i] * 9 + [p]}[kind]
+                       "dw": [p] * 4 + [i] * 10
+                       + [ctypes.c_longlong, i, p]}[kind]
         fn.restype = i
         _lib_fns[key] = fn
     return fn
@@ -259,13 +261,12 @@ def _f32_fn(kind: str):
 F32_UP_OUTS, F32_UP_FWD_W = 8192, 16384
 F32_UP_SLOTS, F32_UP_BUFS, F32_UP_PITCH = 3, 2, 40
 F32_UP_MAX_CI = F32_UP_FWD_W // 32    # the forward's widest Ci
-# the fp32 dW's tiles (csrc/upsample2x_f32.cu on csrc/f32_gemm.cuh): its
-# blocks sum at most F32_DW_MAX_CHUNKS chunks of F32_BK voxels (so their
-# fp32 partial sums stay short), K split across blocks to fill
-# F32_BLOCKS_PER_SM blocks an SM (_up_f32_dw_plan)
-F32_BK = 32
-F32_BLOCKS_PER_SM = 4
-F32_DW_MAX_CHUNKS = 512
+# the fp32 dW (csrc/upsample2x_f32.cu): units of all 8 parities x
+# F32_DW_CO output channels x a ci tile (64, or 32 where Ci % 64 != 0) over
+# a range of the batch's steps of F32_DW_R coarse voxels along w, through
+# F32_UP_SLOTS fp32 slots and F32_UP_BUFS fp64 buffers; the split finish's
+# blocks are F32_DW_FIN threads
+F32_DW_R, F32_DW_CO, F32_DW_FIN = 16, 32, 256
 
 
 def f32_up_kc(kind: str, ncol: int) -> int:
@@ -322,50 +323,44 @@ def _up_f32_dx_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
     return _up_f32_rows_plan("dx", n, size, ncol, ci // ncol, ci, sms)
 
 
-def f32_smem(bm: int, bn: int, a_kmajor: bool, b_kmajor: bool) -> int:
-    """The static shared memory (bytes) of a bm x bn f32gemm::Tile: a
-    2-stage ring of the staged A (32 rows of bm + 8 floats k-major, else
-    bm rows of 36) and B (32 rows of bn + 8, else bn rows of 36)."""
-    a = 32 * (bm + 8) if a_kmajor else bm * (F32_BK + 4)
-    b = 32 * (bn + 8) if b_kmajor else bn * (F32_BK + 4)
-    return 2 * (a + b) * 4
-
-
 def f32_tile_range(b: int, nb: int, tiles: int) -> Tuple[int, int]:
-    """The tiles (or dW's K chunks) [first, end) that block (split) b of nb
+    """The tiles (or dW's steps) [first, end) that block (split) b of nb
     takes in the fp32 upsample kernels."""
     return b * tiles // nb, (b + 1) * tiles // nb
 
 
-def _up_f32_dw_plan(k_vox: int, mtiles: int, co: int, sms: int) -> dict:
-    """The launch of the fp32 upsample's weight gradient: K = ``k_vox``
-    voxels in ``nch`` chunks of F32_BK, ``mtiles`` x co / bn output tiles,
-    each split into ``splits`` ranges of chunks, split s taking chunks
-    :func:`f32_tile_range` (s, splits, nch), so that tiles x splits fill
-    F32_BLOCKS_PER_SM blocks an SM and no split sums more than
-    F32_DW_MAX_CHUNKS chunks. Each split stores its partial dW to its own
-    slice of a (splits, taps, Ci, Co) scratch (none at one split), added in
-    split order."""
-    bn = 64 if co % 64 == 0 else 32
-    tiles = mtiles * (co // bn)
-    nch = -(-k_vox // F32_BK)
-    splits = max(-(-F32_BLOCKS_PER_SM * sms // tiles),
-                 -(-nch // F32_DW_MAX_CHUNKS))
-    return dict(bn=bn, tiles=tiles, nch=nch, splits=max(1, min(splits, nch)),
-                smem=f32_smem(96, bn, True, True))
+def f32_dw_smem(ci_tile: int) -> int:
+    """The dynamic shared memory (bytes) of the fp32 dW at ``ci_tile``: the
+    fp64 buffers of a step's x (F32_DW_R x ci_tile) and gy (F32_DW_R x 8
+    parities x F32_DW_CO), and as many fp32 elements a slot."""
+    elems = F32_DW_R * (ci_tile + 8 * F32_DW_CO)
+    return F32_UP_BUFS * elems * 8 + F32_UP_SLOTS * elems * 4
 
 
-def _up_f32_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
-    """The launches of the fp32 upsample kernels at x (n, *size, ci) -> co:
-    the forward as :func:`_up_f32_fwd_plan`, dx as :func:`_up_f32_dx_plan`,
-    dW as :func:`_up_f32_dw_plan` over the batch's coarse voxels with
-    ``bm`` (64 or 32) input channels a tile and one parity, its scratch
-    (splits, 8, ci, co)."""
-    bm = 64 if ci % 64 == 0 else 32
-    dw = _up_f32_dw_plan(n * math.prod(size), 8 * (ci // bm), co, sms)
-    dw.update(bm=bm, smem=f32_smem(bm, dw["bn"], True, True))
-    return dict(fwd=_up_f32_fwd_plan(n, size, ci, co, sms),
-                dx=_up_f32_dx_plan(n, size, ci, co, sms), dw=dw)
+def _up_f32_dw_plan(n: int, size, ci: int, co: int, sms: int) -> dict:
+    """The launch of the fp32 upsample's weight gradient at x (n, *size,
+    ci), gy (n, *2 size, co): ``tiles`` (ci, co) tiles of ``ci_tile`` x
+    F32_DW_CO, each over all 8 parities; K = the batch's ``steps`` of
+    F32_DW_R coarse voxels along w (``nwr`` a row of w), in ``splits``
+    ranges, split s taking :func:`f32_tile_range` (s, splits, steps), so
+    that ``grid`` = splits x tiles blocks (one a unit: unit u = split x
+    tiles + co tile x ``ntci`` + ci tile) fill the SMs once. Each unit
+    stores its fp64 sums to its split's slice of the (splits, 8, ci, co)
+    ``scratch`` (``part_len`` doubles), which a finish of ``fin_grid``
+    blocks adds in split order."""
+    d, h, w = size
+    ci_tile = 64 if ci % 64 == 0 else 32
+    nwr = -(-w // F32_DW_R)
+    steps = n * d * h * nwr
+    ntci = ci // ci_tile
+    tiles = ntci * (co // F32_DW_CO)
+    splits = max(1, min(steps, sms // tiles))
+    length = 8 * ci * co
+    return dict(ci_tile=ci_tile, nwr=nwr, steps=steps, ntci=ntci,
+                tiles=tiles, splits=splits, grid=splits * tiles,
+                smem=f32_dw_smem(ci_tile), scratch=(splits, 8, ci, co),
+                part_len=splits * length,
+                fin_grid=-(-length // F32_DW_FIN))
 
 
 def _upsample2x_f32(x, wf, sms, stream):
@@ -400,13 +395,13 @@ def _upsample2x_dx_f32(gy, wf, sms, stream):
 def _upsample2x_dw_f32(x, gy, sms, stream):
     n, d, h, w, ci = x.shape
     co = gy.shape[-1]
-    plan = _up_f32_plan(n, (d, h, w), ci, co, sms)["dw"]
+    plan = _up_f32_dw_plan(n, (d, h, w), ci, co, sms)
     dw = torch.empty((2, 2, 2, ci, co), dtype=torch.float32, device=x.device)
-    part = (torch.empty((plan["splits"], 8, ci, co), dtype=torch.float32,
-                        device=x.device) if plan["splits"] > 1 else None)
-    rc = _f32_fn("dw")(x.data_ptr(), gy.data_ptr(), dw.data_ptr(), _ptr(part),
-                       n, d, h, w, ci, co, plan["bm"], plan["bn"],
-                       plan["splits"], stream)
+    part = torch.empty(plan["scratch"], dtype=torch.float64, device=x.device)
+    rc = _f32_fn("dw")(x.data_ptr(), gy.data_ptr(), dw.data_ptr(),
+                       part.data_ptr(), n, d, h, w, ci, co, plan["ci_tile"],
+                       plan["splits"], plan["grid"], plan["smem"],
+                       plan["part_len"], plan["fin_grid"], stream)
     if rc != 0:
         raise RuntimeError(f"upsample2x_dw: fp32 kernel launch failed, CUDA "
                            f"error {rc}")

@@ -1030,9 +1030,12 @@ def test_f32_up_launcher_refuses_a_plan_not_its_own(dev):
     handed: a column group they have no configuration for (or, for dx, one
     that does not divide Ci; for the forward, one whose weights do not fit),
     more blocks than tiles or none, shared memory other than the
-    configuration's, are refused before anything launches."""
+    configuration's, are refused before anything launches; so are a dW
+    plan's other ci tile, splits other than the grid's or more than the
+    steps or none, a grid short of its units, shared memory, a scratch
+    length or a finish grid other than its own."""
     from mt3d_resenc_unet_torch.ops import upsample as up
-    n, size, ci, co = 2, (3, 4, 5), 96, 32
+    n, size, ci, co = 2, (3, 4, 40), 96, 32
     x = torch.randn(n, *size, ci, device=dev)
     gy = torch.randn(n, *(2 * s for s in size), co, device=dev)
     wf = torch.randn(2, 2, 2, ci, co, device=dev)
@@ -1054,7 +1057,33 @@ def test_f32_up_launcher_refuses_a_plan_not_its_own(dev):
                                   out.data_ptr(), n, *size, ci, co,
                                   p["ncol"], p["grid"][0], p["smem"], stream)
             assert (rc == 0) == (p is plan), (kind, p)
+    # dW: its ci tile, splits, grid, shared memory, scratch length and
+    # finish grid
+    plan = up._up_f32_dw_plan(n, size, ci, co, 132)
+    dw = torch.empty(2, 2, 2, ci, co, device=dev)
+    part = torch.empty(plan["part_len"] + 8 * ci * co, dtype=torch.float64,
+                       device=dev)
+    more = plan["splits"] + 1
+    bad = [dict(plan, ci_tile=64),
+           dict(plan, splits=more),
+           dict(plan, splits=plan["steps"] + 1,
+                grid=(plan["steps"] + 1) * plan["tiles"],
+                part_len=(plan["steps"] + 1) * 8 * ci * co),
+           dict(plan, splits=0, grid=0, part_len=0),
+           dict(plan, grid=plan["grid"] - 1),
+           dict(plan, smem=plan["smem"] + 16),
+           dict(plan, smem=up.f32_dw_smem(64)),
+           dict(plan, part_len=plan["part_len"] + 1),
+           dict(plan, fin_grid=plan["fin_grid"] + 1)]
+    for p in [plan] + bad:
+        rc = up._f32_fn("dw")(x.data_ptr(), gy.data_ptr(), dw.data_ptr(),
+                              part.data_ptr(), n, *size, ci, co,
+                              p["ci_tile"], p["splits"], p["grid"],
+                              p["smem"], p["part_len"], p["fin_grid"],
+                              stream)
+        assert (rc == 0) == (p is plan), ("dw", p)
     torch.cuda.synchronize()
+    assert plan["ci_tile"] == 32 and plan["splits"] < plan["steps"]
     with pytest.raises(ValueError, match="Ci <= 512"):
         upsample2x(torch.zeros(1, 2, 2, 2, 544, device=dev),
                    torch.zeros(2, 2, 2, 544, 32, device=dev))

@@ -17,13 +17,14 @@ output tile owned by exactly one block of each split; the staging map must
 give every fine voxel of a tile its own row, with the 8 consecutive coarse
 voxels of one parity in 8 consecutive rows, and the kernels' XOR swizzle
 must put such 8 rows, and each 8 threads' reads of the forward's staged
-outputs, in 8 distinct shared-memory bank groups. The fp32 kernels' plan
-(``_up_f32_plan``, csrc/upsample2x_f32.cu) at the same shapes: every
-output written once, every coarse voxel summed into every (parity, ci,
-co) of dW once, within its shared memory. The fp32 forward and dx
-(``_up_f32_fwd_plan``, ``_up_f32_dx_plan``), walked on numbers as they
-index their buffers, give the plain versions, and their fp64 buffers and
-staged outputs are read and written across all 32 banks.
+outputs, in 8 distinct shared-memory bank groups. The fp32 kernels' plans
+(``_up_f32_fwd_plan``, ``_up_f32_dx_plan``, ``_up_f32_dw_plan``,
+csrc/upsample2x_f32.cu) at the same shapes: every output written once,
+every coarse voxel summed into every (parity, ci, co) of dW once, within
+the shared memory, the scratch sized to the splits. The three, walked on
+numbers as they index their buffers, give the plain versions, and their
+fp32 slots, fp64 buffers and staged outputs are read and written across
+all 32 banks.
 """
 
 import math
@@ -357,9 +358,9 @@ def test_fwd_store_reads_spread_over_the_banks(tm, po):
 # tiles f32_tile_range(b, blocks, tiles) of m consecutive coarse voxels of
 # the batch, a tile's outputs m x ncol columns (the forward's columns p * co
 # + c, dx's input channels), MMA warp w holding rows (w % wgm) * 32 and
-# columns (w // wgm) * 32; dW's blocks (parity x ci tile, co tile, split)
-# the K chunks f32_tile_range(split, splits, nch) of the batch's coarse
-# voxels.
+# columns (w // wgm) * 32; dW's block u = split * tiles + co tile * ntci +
+# ci tile sums the steps f32_tile_range(split, splits, steps) of
+# F32_DW_R coarse voxels along w, step s = (row, w range) = divmod(s, nwr).
 
 SMEM_MAX = 232448        # the H100's dynamic shared memory a block
 
@@ -389,12 +390,14 @@ def test_f32_plans_write_every_output_once(ci, co, size, sms):
     blocks of a tile and the blocks' tile ranges each cover theirs once,
     and fine_of is one to one), dx every coarse voxel's channels once, each
     within the H100's shared memory; at the flagship's shapes on 132 SMs
-    both fill at least 128 of them. dW sums every coarse voxel into every
-    (parity, ci, co) once, no split summing more than F32_DW_MAX_CHUNKS
-    chunks."""
+    all three fill at least 128 of them. dW sums every coarse voxel into
+    every (parity, ci, co) once: the units' (ci, co) tiles cover the output
+    once, each tile's splits the steps once, the steps the coarse voxels
+    once; one block a unit in one wave, its scratch one slice a split."""
     n, vox = 2, math.prod(size)
-    plan = up._up_f32_plan(n, size, ci, co, sms)
-    fwd, dx, dw = plan["fwd"], plan["dx"], plan["dw"]
+    flagship = (ci, co, size) in ((128, 64, (32,) * 3), (64, 32, (64,) * 3))
+    fwd = up._up_f32_fwd_plan(n, size, ci, co, sms)
+    dx = up._up_f32_dx_plan(n, size, ci, co, sms)
     assert fwd["ncol"] * ci <= up.F32_UP_FWD_W and ci % dx["ncol"] == 0
     assert fwd["groups"] * fwd["ncol"] == 8 * co
     assert dx["groups"] * dx["ncol"] == ci
@@ -405,7 +408,7 @@ def test_f32_plans_write_every_output_once(ci, co, size, sms):
         assert groups == p["groups"] and 1 <= blocks <= p["tiles"]
         assert blocks * groups <= max(sms, groups)   # one wave
         assert p["smem"] <= SMEM_MAX
-        if (ci, co, size) in ((128, 64, (32,) * 3), (64, 32, (64,) * 3)):
+        if flagship:
             assert sms < 128 or blocks * groups >= 128
         tiles = np.zeros(p["tiles"], np.int32)
         for b in range(blocks):
@@ -421,23 +424,37 @@ def test_f32_plans_write_every_output_once(ci, co, size, sms):
     v = np.arange(n * vox, dtype=np.int64)
     fine = np.concatenate([_fine_of(v, p, size) for p in range(8)])
     assert np.array_equal(np.sort(fine), np.arange(8 * n * vox))
-    bm, bn = dw["bm"], dw["bn"]
-    assert ci % bm == 0 and co % bn == 0
-    assert dw["smem"] <= 48 * 1024             # static shared memory
-    owner = np.zeros((8, ci, co), np.int32)
-    for mx in range(8 * (ci // bm)):
-        par, ct = divmod(mx, ci // bm)
-        for nt in range(co // bn):
-            owner[par, ct * bm:(ct + 1) * bm, nt * bn:(nt + 1) * bn] += 1
+    dw = up._up_f32_dw_plan(n, size, ci, co, sms)
+    ct, r = dw["ci_tile"], up.F32_DW_R
+    assert ct == (64 if ci % 64 == 0 else 32)
+    assert dw["smem"] == up.f32_dw_smem(ct) <= SMEM_MAX
+    assert dw["grid"] == dw["splits"] * dw["tiles"]
+    assert dw["grid"] <= max(sms, dw["tiles"])   # one wave
+    if flagship:
+        assert sms < 128 or dw["grid"] >= 128
+    assert dw["scratch"] == (dw["splits"], 8, ci, co)
+    assert dw["part_len"] == math.prod(dw["scratch"])
+    assert (dw["fin_grid"] - 1) * up.F32_DW_FIN < 8 * ci * co \
+        <= dw["fin_grid"] * up.F32_DW_FIN
+    owner = np.zeros((ci, co), np.int32)
+    for tile in range(dw["tiles"]):
+        ci0 = tile % dw["ntci"] * ct
+        co0 = tile // dw["ntci"] * up.F32_DW_CO
+        owner[ci0:ci0 + ct, co0:co0 + up.F32_DW_CO] += 1
     assert (owner == 1).all()
-    nch = dw["nch"]
-    assert (nch - 1) * up.F32_BK < n * vox <= nch * up.F32_BK
-    chunks = np.zeros(nch, np.int32)
+    steps = np.zeros(dw["steps"], np.int32)
     for sp in range(dw["splits"]):
-        first, end = up.f32_tile_range(sp, dw["splits"], nch)
-        assert end - first <= up.F32_DW_MAX_CHUNKS
-        chunks[first:end] += 1
-    assert (chunks == 1).all()
+        first, end = up.f32_tile_range(sp, dw["splits"], dw["steps"])
+        assert end > first, "a split without steps"
+        steps[first:end] += 1
+    assert (steps == 1).all()
+    # step s = (coarse row, w range) covers every coarse voxel once
+    d, h, w = size
+    row, wr = np.divmod(np.arange(dw["steps"]), dw["nwr"])
+    cover = np.zeros((n * d * h, w + r), np.int32)
+    for k in range(r):
+        np.add.at(cover, (row, wr * r + k), 1)
+    assert (cover[:, :w] == 1).all() and row.max() == n * d * h - 1
 
 
 def _plane(rows, kk):
@@ -464,8 +481,8 @@ def _convert(slot, rows, kc):
 # k = t and t + 4 of an m16n8k8 fragment are channels 2t and 2t + 1
 _KPERM = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
-_CFGS = [("fwd", c) for c in (256, 128, 64, 32)] + [("dx", c)
-                                                      for c in (128, 64, 32)]
+_CFGS = ([("fwd", c) for c in (256, 128, 64, 32)]
+         + [("dx", c) for c in (128, 64, 32)] + [("dw", 64), ("dw", 32)])
 
 
 @pytest.mark.parametrize("kind,ncol", _CFGS,
@@ -477,7 +494,20 @@ def test_f32_up_buffers_hit_every_bank(kind, ncol):
     rows g of an MMA tile at channel pair 2t) hit the 8 bank groups once,
     the staged epilogue's float2 stores (a half-warp) and float4 reads (a
     quarter-warp) 32 distinct banks; the shared memory is the sum of its
-    parts."""
+    parts. dW at ci tile ``ncol``: every 16-byte access (the copies into
+    its swizzled fp32 slot, the conversions' loads and their rotated fp64
+    stores, the fragment loads) hits the 8 bank groups once in each
+    quarter-warp."""
+    if kind == "dw":
+        for offs in _dw_banks(ncol):
+            assert len(offs) % 8 == 0
+            for q in range(0, len(offs), 8):
+                assert len({o // 16 % 8 for o in offs[q:q + 8]}) == 8
+        elems = up.F32_DW_R * (ncol + 8 * up.F32_DW_CO)
+        assert up.f32_dw_smem(ncol) == (up.F32_UP_BUFS * elems * 8
+                                        + up.F32_UP_SLOTS * elems * 4)
+        assert up.f32_dw_smem(ncol) <= SMEM_MAX
+        return
     m, kc = up.F32_UP_OUTS // ncol, up.f32_up_kc(kind, ncol)
     for rows in ((m,) if kind == "fwd" else (m, ncol)):
         _, first, second = _convert(np.zeros(rows * kc), rows, kc)
@@ -626,6 +656,167 @@ def _f32_up_dx_schedule(plan, gy, wf):
     return dx.reshape(n, d, h, w, ci)
 
 
+def _xpiece(v, jq, ct):
+    """The float offset of x's 16-byte piece jq of voxel v in a dW slot
+    (the kernel's ``xpiece``)."""
+    return v * ct + 4 * (jq ^ (((v >> 1) & 3) << 1))
+
+
+def _gpiece(ab, jf, cq):
+    """The float offset of gy's piece cq of fine voxel jf of pair ab in a
+    dW slot (the kernel's ``gpiece``)."""
+    r, co = up.F32_DW_R, up.F32_DW_CO
+    return (ab * 2 * r + jf) * co + 4 * (cq ^ (((jf >> 2) & 3) << 1))
+
+
+def _crow(c):
+    """The fp64 row of channel c in the dW's buffers (the kernel's
+    ``crow``): odd quads of channels in the order 1, 0, 3, 2."""
+    return c ^ ((c >> 2) & 1)
+
+
+def _dw_items(ct):
+    """The dW producers' items, as the kernel decodes them: the copies (x:
+    voxel v, quad jq; gy: pair ab, fine voxel jf, quad cq), then the
+    conversions (x: voxel pair (ks, q) x quad jq; gy: pair ab x 4 fine
+    voxels (ks, q) x quad cq), each with its store rotation ``lo`` and
+    its fp64 base offset (channel i of the quad at base + 8 crow(i) for
+    an even quad, base + 8 (i ^ 1) for an odd one)."""
+    r, co, xq = up.F32_DW_R, up.F32_DW_CO, ct // 4
+    c = np.arange(r * xq)
+    xc = dict(v=c // xq, jq=c % xq)
+    c = np.arange(4 * 2 * r * co // 4)
+    gc = dict(cq=c % 8, jf=c // 8 % (2 * r), ab=c // (16 * r))
+    e = np.arange(r // 2 * xq)
+    q, lo, rest = e & 3, (e >> 2) & 1, e >> 3
+    jq, ks = 2 * (rest % (xq // 2)) + lo, rest // (xq // 2)
+    xi = dict(q=q, lo=lo, jq=jq, ks=ks, v=2 * (4 * ks + q),
+              base=(ks * ct + 4 * jq) * 8 + 2 * q)
+    e = np.arange(4 * r // 2 * co // 4)
+    q, lo, rest = e & 3, (e >> 2) & 1, e >> 3
+    cq, ks = 2 * (rest % (co // 8)) + lo, rest // (co // 8) % (r // 8)
+    ab = rest // (co // 8 * (r // 8))
+    gi = dict(q=q, lo=lo, cq=cq, ks=ks, ab=ab, jf=4 * (4 * ks + q),
+              base=((ks * 8 + 2 * ab) * co + 4 * cq) * 8 + 2 * q)
+    return xc, gc, xi, gi
+
+
+def _dw_lanes(ct):
+    """Per MMA warp (ab, half): the double offsets of its lanes' 16-byte
+    fragment loads in a step's fp64 buffers, as the kernel reads them:
+    {(ks, ni): B}, {(ks, c, mi): (A rows g, A rows g + 8)}."""
+    co, nt = up.F32_DW_CO, ct // 16
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    out = []
+    for w in range(8):
+        ab, half = w & 3, w >> 2
+        bo = (half * 8 * nt + _crow(g)) * 8 + 2 * t
+        ao = (2 * ab * co + _crow(g)) * 8 + 2 * t
+        b = {(ks, ni): bo + (ks * ct + 8 * ni) * 8
+             for ks in range(up.F32_DW_R // 8) for ni in range(nt)}
+        a = {(ks, c, mi): (ao + ((ks * 8 + c) * co + 16 * mi) * 8,
+                           ao + ((ks * 8 + c) * co + 16 * mi) * 8 + 64)
+             for ks in range(up.F32_DW_R // 8) for c in range(2)
+             for mi in range(2)}
+        out.append((ab, half, a, b))
+    return out
+
+
+def _f32_up_dw_schedule(plan, x, gy):
+    """The fp32 dW as the kernel computes it under ``plan``, in fp64 on the
+    fp32 inputs: each unit's steps copied into the swizzled fp32 slot
+    (zero past w), converted once into the fp64 buffers, the MMA warps'
+    fragment loads and products, the unit's fp64 sums to its split's slice,
+    the slices added in split order and rounded once."""
+    n, d, h, w, ci = x.shape
+    co = gy.shape[-1]
+    r, cot, ct = up.F32_DW_R, up.F32_DW_CO, plan["ci_tile"]
+    xs, gs = x.reshape(-1), gy.reshape(-1)
+    xc, gc, xi, gi = _dw_items(ct)
+    lanes = _dw_lanes(ct)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    four = np.arange(4)
+    part = np.full(plan["scratch"], np.nan)
+    for u in range(plan["grid"]):
+        split, tile = divmod(u, plan["tiles"])
+        ci0, co0 = tile % plan["ntci"] * ct, tile // plan["ntci"] * cot
+        acc = np.zeros((8, cot, ct))
+        for st in range(*up.f32_tile_range(split, plan["splits"],
+                                           plan["steps"])):
+            row, wr = divmod(st, plan["nwr"])
+            nd, hh = divmod(row, h)
+            w0 = wr * r
+            sx = np.full(r * ct, np.nan, np.float32)
+            sg = np.full(8 * r * cot, np.nan, np.float32)
+            ok = xc["v"] < w - w0
+            src = ((row * w + w0 + xc["v"]) * ci + ci0 + 4 * xc["jq"])
+            sx[_xpiece(xc["v"], xc["jq"], ct)[:, None] + four] = np.where(
+                ok[:, None], xs[np.where(ok, src, 0)[:, None] + four], 0)
+            f = (((2 * nd + (gc["ab"] >> 1)) * 2 * h + 2 * hh
+                  + (gc["ab"] & 1)) * 2 * w + 2 * w0 + gc["jf"])
+            ok = gc["jf"] < 2 * (w - w0)
+            src = f * co + co0 + 4 * gc["cq"]
+            sg[_gpiece(gc["ab"], gc["jf"], gc["cq"])[:, None] + four] = \
+                np.where(ok[:, None], gs[np.where(ok, src, 0)[:, None]
+                                         + four], 0)
+            x64 = np.full(r * ct, np.nan)
+            g64 = np.full(r * 8 * cot, np.nan)
+            u0 = sx[_xpiece(xi["v"], xi["jq"], ct)[:, None] + four]
+            u1 = sx[_xpiece(xi["v"] + 1, xi["jq"], ct)[:, None] + four]
+            rows = 8 * (four[None, :] ^ xi["lo"][:, None])
+            x64[xi["base"][:, None] + rows] = u0
+            x64[xi["base"][:, None] + rows + 1] = u1
+            uu = [sg[_gpiece(gi["ab"], gi["jf"] + k, gi["cq"])[:, None]
+                     + four] for k in range(4)]
+            for c in range(2):
+                base = (gi["base"][:, None] + c * cot * 8
+                        + 8 * (four[None, :] ^ gi["lo"][:, None]))
+                g64[base] = uu[c]
+                g64[base + 1] = uu[2 + c]
+            for ab, half, a_offs, b_offs in lanes:
+                for (ks, c, mi), (lo, hi) in a_offs.items():
+                    am = np.empty((16, 8))
+                    am[g, t], am[g + 8, t] = g64[lo], g64[hi]
+                    am[g, t + 4], am[g + 8, t + 4] = g64[lo + 1], g64[hi + 1]
+                    for ni in range(ct // 16):
+                        bo = b_offs[(ks, ni)]
+                        bm = np.empty((8, 8))
+                        bm[t, g], bm[t + 4, g] = x64[bo], x64[bo + 1]
+                        n0 = half * ct // 2 + 8 * ni
+                        acc[2 * ab + c, 16 * mi:16 * mi + 16,
+                            n0:n0 + 8] += am @ bm
+        part[split, :, ci0:ci0 + ct, co0:co0 + cot] = acc.transpose(0, 2, 1)
+    total = np.zeros(part.shape[1:])
+    for sp in range(plan["splits"]):
+        total = total + part[sp]
+    return total.astype(np.float32).reshape(2, 2, 2, ci, co)
+
+
+def _dw_banks(ct):
+    """The fp32 dW's shared-memory accesses at ci tile ``ct``, each as the
+    byte offsets of a warp's 16-byte accesses in lane order: the cp.async
+    copies into a slot, the conversions' loads from it and stores into
+    the fp64 buffers (each instruction of put_pairs), the MMA warps'
+    fragment loads."""
+    xc, gc, xi, gi = _dw_items(ct)
+    x32 = up.F32_DW_R * ct
+    acc = [4 * _xpiece(xc["v"], xc["jq"], ct),
+           4 * (x32 + _gpiece(gc["ab"], gc["jf"], gc["cq"])),
+           4 * _xpiece(xi["v"], xi["jq"], ct),
+           4 * _xpiece(xi["v"] + 1, xi["jq"], ct)]
+    acc += [4 * (x32 + _gpiece(gi["ab"], gi["jf"] + k, gi["cq"]))
+            for k in range(4)]
+    for s in range(4):
+        acc.append(8 * (xi["base"] + 8 * (s ^ xi["lo"])))
+        for c in range(2):
+            acc.append(8 * (gi["base"] + c * up.F32_DW_CO * 8
+                            + 8 * (s ^ gi["lo"])))
+    for _, _, a_offs, b_offs in _dw_lanes(ct):
+        acc += [8 * o for pair in a_offs.values() for o in pair]
+        acc += [8 * o for o in b_offs.values()]
+    return acc
+
+
 # every column group of each kernel, extents that are no multiple of the
 # tiles, more tiles than blocks (sms = 2)
 _F32_UP_EMU = [(64, 32, (2, 3, 5)), (128, 64, (2, 3, 3)), (96, 32, (1, 3, 5)),
@@ -635,10 +826,12 @@ _F32_UP_EMU = [(64, 32, (2, 3, 5)), (128, 64, (2, 3, 3)), (96, 32, (1, 3, 5)),
 @pytest.mark.parametrize("ci,co,size", _F32_UP_EMU,
                          ids=[f"{ci}-{co}" for ci, co, _ in _F32_UP_EMU])
 def test_f32_up_schedule_on_numbers_matches_plain(ci, co, size):
-    """The fp32 forward's and dx's schedules, walked on numbers as the
-    kernels index them (ring steps, conversion layout, fragment loads,
-    staged epilogue, fine voxels), give upsample_plain's y and
-    upsample2x_dx_plain's dx in fp64 within one fp32 rounding, every output
+    """The fp32 forward's, dx's and dW's schedules, walked on numbers as
+    the kernels index them (ring steps, conversion layout, fragment loads,
+    staged epilogue, fine voxels; dW's swizzled slots, fine-row
+    de-interleave, splits, fp64 slices and finish order, split and not),
+    give upsample_plain's y, upsample2x_dx_plain's dx and
+    upsample2x_dw_plain's dW in fp64 within one fp32 rounding, every output
     written."""
     g = np.random.default_rng(7)
     n = 2
@@ -647,14 +840,20 @@ def test_f32_up_schedule_on_numbers_matches_plain(ci, co, size):
         np.float32)
     gy = g.standard_normal((n, *(2 * s for s in size), co)).astype(
         np.float32)
-    plans = up._up_f32_plan(n, size, ci, co, 2)
-    y = _f32_up_fwd_schedule(plans["fwd"], x, wf)
+    y = _f32_up_fwd_schedule(up._up_f32_fwd_plan(n, size, ci, co, 2), x, wf)
     want = up.upsample_plain(torch.from_numpy(x).double(),
                              torch.from_numpy(wf).double()).numpy()
     assert not np.isnan(y).any()
     assert np.linalg.norm(y - want) <= 1e-7 * np.linalg.norm(want)
-    dx = _f32_up_dx_schedule(plans["dx"], gy, wf)
+    dx = _f32_up_dx_schedule(up._up_f32_dx_plan(n, size, ci, co, 2), gy, wf)
     want = up.upsample2x_dx_plain(torch.from_numpy(gy).double(),
                                   torch.from_numpy(wf).double()).numpy()
     assert not np.isnan(dx).any()
     assert np.linalg.norm(dx - want) <= 1e-7 * np.linalg.norm(want)
+    for sms in (2, 132):
+        plan = up._up_f32_dw_plan(n, size, ci, co, sms)
+        dw = _f32_up_dw_schedule(plan, x, gy)
+        want = up.upsample2x_dw_plain(torch.from_numpy(x).double(),
+                                      torch.from_numpy(gy).double()).numpy()
+        assert not np.isnan(dw).any()
+        assert np.linalg.norm(dw - want) <= 1e-7 * np.linalg.norm(want)
